@@ -5,11 +5,15 @@ one torch device and every edit distance computed by a hand-written CUDA
 kernel (``csrc/levenshtein_myers.cu``) on an NVIDIA card, or by its
 plain PyTorch version when ``device="cpu"``.
 
-Ported so far: the dense (nx <= 4096) Levenshtein fit with the default
-strategies, ``BruteForce`` and ``compare_neighbor_graphs``.  This
-package imports neither ``jax`` nor ``annchor_tpu``.
+Ported so far: fits at nx <= 4096 under ``levenshtein``, ``euclidean``,
+``sqeuclidean``, ``cosine`` or any Python callable, with the default
+strategies (device pipeline) or custom strategy objects (host
+pipeline); ``BruteForce``, ``compare_neighbor_graphs`` and the scalar
+``distances``.  This package imports neither ``jax`` nor
+``annchor_tpu``.
 """
 
+from annchor_tpu_torch import distances
 from annchor_tpu_torch.annchor import Annchor, BruteForce, compare_neighbor_graphs
 from annchor_tpu_torch.error_predictors import SimpleStratifiedErrorRegression
 from annchor_tpu_torch.metrics import Metric, get_function_from_input
@@ -20,7 +24,12 @@ from annchor_tpu_torch.pickers import (
     SelectedAnchorPicker,
 )
 from annchor_tpu_torch.regressors import SimpleStratifiedLinearRegression
-from annchor_tpu_torch.samplers import NothingToSample, SimpleStratifiedSampler
+from annchor_tpu_torch.samplers import (
+    ClusterSampler,
+    NothingToSample,
+    Sampler,
+    SimpleStratifiedSampler,
+)
 
 __all__ = [
     "Annchor",
@@ -32,8 +41,11 @@ __all__ = [
     "RandomAnchorPicker",
     "SelectedAnchorPicker",
     "ExternalAnchorPicker",
+    "Sampler",
     "SimpleStratifiedSampler",
+    "ClusterSampler",
     "NothingToSample",
     "SimpleStratifiedLinearRegression",
     "SimpleStratifiedErrorRegression",
+    "distances",
 ]

@@ -1,20 +1,24 @@
 """Annchor: approximate k-NN graphs for slow metrics, on PyTorch.
 
-Port of the JAX package's ``annchor.py`` for the dense device pipeline
-(nx <= 4096, the default strategy objects):
+Port of the JAX package's ``annchor.py`` at nx <= 4096:
 
   anchors -> locality -> features -> [sample -> regress -> errors ->
   refine -> tighten]*niters -> graph
 
-The orchestration is a staged host loop, as in the JAX package; the
-per-pair state lives on one torch device (``ops/device_pipeline.py``)
-and every metric evaluation is a batched engine call, which for the
-Levenshtein metric on a CUDA device is the hand-written pair kernel.
+The orchestration is a staged host loop, as in the JAX package.  With
+the default strategy objects the per-pair state lives on one torch
+device (``ops/device_pipeline.py``); any custom sampler, regression or
+error predictor takes the host pipeline, whose per-pair state is host
+numpy, as the JAX package's, and whose per-pair passes
+(``ops/features``, ``ops/pairs``, ``ops/bounds_update``) run as torch on
+the fit's device.  Every metric evaluation goes through the evaluator
+``get_exact_ijs``; for the Levenshtein metric on a CUDA device that is
+the hand-written pair kernel.
 
-Not ported yet (each raises NotImplementedError or is absent): the host
-pipeline for custom strategy objects, the scale path (nx > 4096),
-scout/certify hybrids, post-fit graph refinement, query, persistence,
-``to_sparse_matrix`` and the nearest-enemy extras (ROADMAP Queue 1).
+Not ported yet (each raises NotImplementedError or is absent): the
+Wasserstein metrics with the scout/certify hybrid, the scale path
+(nx > 4096), post-fit graph refinement, query, persistence and the
+nearest-enemy extras (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ from annchor_tpu_torch.metrics import (
     make_get_exact_query_ijs,
     test_parallelisation,
 )
+from annchor_tpu_torch.ops import pairs as pair_ops
+from annchor_tpu_torch.ops.bounds_update import tighten_bounds
 from annchor_tpu_torch.ops.device_pipeline import DeviceFitState
+from annchor_tpu_torch.ops.features import bounds_and_dad
 from annchor_tpu_torch.ops.locality import DENSE_MAX_NX, candidate_pairs
 from annchor_tpu_torch.pickers import MaxMinAnchorPicker
 from annchor_tpu_torch.regressors import SimpleStratifiedLinearRegression
@@ -53,21 +60,32 @@ class Annchor:
     Parameters mirror the JAX package's (reference annchor.py:26-90):
 
     X: list or array — the data set.
-    func: "levenshtein" or a Metric.
+    func: callable, Metric or string — the metric.  Supported strings:
+        euclidean, sqeuclidean, cosine, levenshtein.
+    func_kwargs: dict of metric kwargs, bound to a callable metric.
     n_anchors, n_neighbors, n_samples, p_work: budget knobs; p_work is
         the fraction of brute-force metric calls the fit may spend.
-    anchor_picker / sampler / regression / error_predictor: strategy
-        objects.  Any anchor picker works; the other three must be the
-        defaults (custom ones need the host pipeline, not ported yet).
+    anchor_picker / sampler / regression / error_predictor: duck-typed
+        strategy objects (reference annchor.py:150-161).  Custom
+        sampler, regression or error predictor objects take the host
+        pipeline.
     locality / loc_thresh / loc_min: candidate filter knobs.
     is_metric: False disables triangle-inequality clipping.
     get_exact_ijs: optional user pairwise evaluator
         get_exact_ijs(f, X, IJ) -> np.array([f(X[i], X[j]) ...]).
+    backend: worker pool for arbitrary Python metrics (built-in metrics
+        use batched engines and ignore it, with a warning): None or
+        "threading" -> shared thread pool, "loky" or "multiprocessing"
+        -> spawned process pool (the metric must be picklable;
+        unpicklable closures fall back to serial).
+    niters: refinement iterations (default 2).
+    lookahead: the host pipeline's refinement over-selection factor;
+        the pairs selected beyond the batch are tightened first.
     device: torch device of the fit state and the metric engine
         ("cuda" by default; "cpu" runs the kernels' plain versions).
     uniforms: optional callable (random_seed, loop_num, m, device) ->
-        (m,) float32 tensor in [0, 1), the sample draw's random numbers
-        (default: ``ops.device_pipeline.default_uniforms``).
+        (m,) float32 tensor in [0, 1), the device sample draw's random
+        numbers (default: ``ops.device_pipeline.default_uniforms``).
     """
 
     def __init__(
@@ -90,7 +108,9 @@ class Annchor:
         verbose=False,
         is_metric=True,
         get_exact_ijs=None,
+        backend=None,
         niters=None,
+        lookahead=5,
         device="cuda",
         uniforms=None,
     ):
@@ -156,22 +176,39 @@ class Annchor:
         self.loc_min = int(np.clip(self.loc_min, 0, self.nx - 1))
         self.is_metric = bool(is_metric) and self.metric.is_metric
         self.niters = niters
+        self.lookahead = lookahead
 
         self._features = None
         self._RefineApprox = None
         self._ncm = None
+        self._P_idx = None
         self._dev = None  # device-resident state (ops.device_pipeline)
         self._dev_eval = None  # device-id metric eval (fused pipeline)
+        self.thresh = None  # host pipeline's per-point thresholds
         self.neighbor_graph = None
 
+        self.backend = backend
+        if backend is not None and self.metric.batch is not None:
+            print(
+                "Warning: backend=%r is ignored for metric %r — it has "
+                "a batched engine (backend selects the worker pool for "
+                "arbitrary Python metrics only)." % (backend, self.metric.name)
+            )
         if get_exact_ijs is None:
-            self.get_exact_ijs = make_get_exact_ijs(self.metric)
+            self.get_exact_ijs = make_get_exact_ijs(
+                self.metric, verbose=self.verbose, backend=backend
+            )
         else:
             self.get_exact_ijs = get_exact_ijs
         test_parallelisation(self.get_exact_ijs, self.f, self.X, self.nx, s=20)
         self.get_exact_query_ijs = None
 
     # -- device-resident state & lazy host mirrors -------------------------
+    #
+    # With the default strategy objects the per-pair state stays on the
+    # device; the host arrays are materialised on first host access
+    # (plug-ins, user scripts).  The host pipeline keeps them as plain
+    # numpy arrays, which these properties then return and replace.
 
     def _sync_from_device(self):
         if self._dev is not None:
@@ -187,10 +224,20 @@ class Annchor:
         self._sync_from_device()
         return self._features
 
+    @features.setter
+    def features(self, value):
+        self._sync_from_device()
+        self._features = value
+
     @property
     def RefineApprox(self):
         self._sync_from_device()
         return self._RefineApprox
+
+    @RefineApprox.setter
+    def RefineApprox(self, value):
+        self._sync_from_device()
+        self._RefineApprox = value
 
     @property
     def not_computed_mask(self):
@@ -198,9 +245,28 @@ class Annchor:
             return self._dev.ncm_to_host()
         return self._ncm
 
+    @not_computed_mask.setter
+    def not_computed_mask(self, value):
+        self._sync_from_device()
+        self._ncm = value
+
+    @property
+    def P_idx(self):
+        """Padded point-incidence matrix, built on first access when the
+        device pipeline kept its own."""
+        if self._P_idx is None:
+            self._P_idx, _ = pair_ops.build_point_index(
+                self.IJs, self.nx, self.device
+            )
+        return self._P_idx
+
+    @P_idx.setter
+    def P_idx(self, value):
+        self._P_idx = value
+
     def _device_pipeline_ok(self):
         """The device pipeline bakes the default strategies' numeric
-        contracts into its programs; custom strategy objects need the
+        contracts into its programs; custom strategy objects take the
         host pipeline."""
         dad = "double anchor distance"
         return (
@@ -219,7 +285,9 @@ class Annchor:
 
     def _get_exact_query_ijs_for(self, f):
         if self.get_exact_query_ijs is None:
-            self.get_exact_query_ijs = make_get_exact_query_ijs(self.metric)
+            self.get_exact_query_ijs = make_get_exact_query_ijs(
+                self.metric, verbose=self.verbose, backend=self.backend
+            )
         return self.get_exact_query_ijs
 
     def _eval_pairs(self, IJ):
@@ -231,6 +299,16 @@ class Annchor:
         self.evals += d.shape[0]
         return d
 
+    def _anchor_rows_exact(self, values):
+        """Write every anchor pair's exact distance, read from the
+        anchor columns D, into the per-pair array ``values`` (in place;
+        reference annchor.py:365-372)."""
+        m = self.IJs.shape[0]
+        for col, a in enumerate(np.asarray(self.A, dtype=int)):
+            ids = self.P_idx[a][self.P_idx[a] < m]
+            others = self.IJs[ids].sum(axis=1) - a
+            values[ids] = self.D[others, col]
+
     # -- pipeline stages ---------------------------------------------------
 
     def get_anchors(self):
@@ -241,29 +319,62 @@ class Annchor:
 
     def get_locality(self):
         """Candidate pairs from shared near-anchor sets
-        (reference annchor.py:208-256)."""
+        (reference annchor.py:208-256), and for the host pipeline the
+        padded point-incidence index."""
         self.IJs, self.sid, self.S, self.loc_eff = candidate_pairs(
             self.D, self.locality, self.loc_thresh, self.loc_min, self.device
         )
-        self.P_cnt = (
-            np.bincount(self.IJs[:, 0], minlength=self.nx)
-            + np.bincount(self.IJs[:, 1], minlength=self.nx)
-        ).astype(np.int32)
+        if self._device_pipeline_ok():
+            # the device pipeline builds its own incidence matrix; the
+            # host copy stays lazy (P_idx property)
+            self._P_idx = None
+            self.P_cnt = (
+                np.bincount(self.IJs[:, 0], minlength=self.nx)
+                + np.bincount(self.IJs[:, 1], minlength=self.nx)
+            ).astype(np.int32)
+        else:
+            self.P_idx, self.P_cnt = pair_ops.build_point_index(
+                self.IJs, self.nx, self.device
+            )
         if (self.P_cnt < self.n_neighbors).any():
             raise Exception(
                 "Error: Not enough candidates in pool for all indices.\n"
                 + "Try again with higher locality."
             )
 
+    def get_features_IJ(self, IJs, P_idx=None):
+        """Per-pair features (reference annchor.py:258-303)."""
+        lb, ub, dad = bounds_and_dad(
+            self.D, IJs[:, 0], IJs[:, 1], device=self.device
+        )
+        if len(self.A):
+            anchor_set = np.zeros(self.nx, dtype=bool)
+            anchor_set[np.asarray(self.A, dtype=int)] = True
+            anchors = (
+                anchor_set[IJs[:, 0]] | anchor_set[IJs[:, 1]]
+            ).astype(np.float64)
+        else:
+            anchors = np.zeros(IJs.shape[0])
+        features = np.stack([lb, ub, dad, anchors], axis=1)
+        not_computed_mask = features[:, 3] < 1
+        return list(FEATURE_NAMES), features, not_computed_mask
+
     def get_features(self):
-        self.feature_names = list(FEATURE_NAMES)
-        self._dev = DeviceFitState(self)
-        self._dev_eval = self._make_device_eval()
+        if self._device_pipeline_ok():
+            self.feature_names = list(FEATURE_NAMES)
+            self._dev = DeviceFitState(self)
+            self._dev_eval = self._make_device_eval()
+            return
+        (
+            self.feature_names,
+            self.features,
+            self.not_computed_mask,
+        ) = self.get_features_IJ(self.IJs)
 
     def _make_device_eval(self):
         """Device-id metric eval for the fused pipeline, or None when the
         user supplied get_exact_ijs (whose call sequence is then part of
-        the plug-in contract)."""
+        the plug-in contract) or the metric has no device engine."""
         if not getattr(self.get_exact_ijs, "_annchor_default", False):
             return None
         eng = self.metric.batch
@@ -279,52 +390,96 @@ class Annchor:
         return run
 
     def get_sample(self):
-        """Stratified sample of pairs + their exact distances, drawn on
-        the device (reference annchor.py:313-343)."""
+        """Stratified sample of pairs + their exact distances
+        (reference annchor.py:313-343)."""
+        if self._dev is not None:
+            # default-sampler semantics, drawn on the device
+            (
+                self.sample_ixs,
+                self.sample_bins,
+                self.sample_features,
+                self.sample_ijs,
+                sample_y,
+            ) = self._dev.draw_sample(
+                self.sampler,
+                self.n_samples,
+                self.random_seed,
+                batch_dev=self._dev_eval,
+                uniforms=self.uniforms,
+            )
+            self.n_samples = self.sample_ixs.shape[0]
+            if sample_y is not None:
+                self.sample_y = sample_y
+                self.evals += sample_y.shape[0]
+            else:
+                self.sample_y = self._eval_pairs(self.sample_ijs)
+            return
         (
             self.sample_ixs,
-            self.sample_bins,
-            self.sample_features,
-            self.sample_ijs,
-            sample_y,
-        ) = self._dev.draw_sample(
-            self.sampler,
             self.n_samples,
+            self.sample_bins,
+        ) = self.sampler.sample(
+            self.features,
+            self.feature_names,
+            self.n_samples,
+            self.not_computed_mask,
             self.random_seed,
-            batch_dev=self._dev_eval,
-            uniforms=self.uniforms,
         )
-        self.n_samples = self.sample_ixs.shape[0]
-        if sample_y is not None:
-            self.sample_y = sample_y
-            self.evals += sample_y.shape[0]
-        else:
-            self.sample_y = self._eval_pairs(self.sample_ijs)
+        self.sample_features = self.features[self.sample_ixs]
+        self.sample_ijs = self.IJs[self.sample_ixs]
+        self.sample_y = self._eval_pairs(self.sample_ijs)
+        self.not_computed_mask[self.sample_ixs] = False
 
     def fit_predict_regression(self):
-        """Fit the distance regression, predict and clip every pair on
-        the device (reference annchor.py:345-380)."""
+        """Fit the distance regression, predict every pair and clip it to
+        its bounds (reference annchor.py:345-380)."""
         self.regression.fit(
             self.sample_features,
             self.feature_names,
             self.sample_y,
             sample_bins=self.sample_bins,
         )
-        self.sample_predict = self._dev.regress_update(
-            self.regression,
-            self.sample_ixs,
-            self.sample_y,
-            self.sample_features,
+        if self._dev is not None:
+            self.sample_predict = self._dev.regress_update(
+                self.regression,
+                self.sample_ixs,
+                self.sample_y,
+                self.sample_features,
+            )
+            return
+        self.pred = self.regression.predict(self.features, self.feature_names)
+        self.sample_predict = self.pred[self.sample_ixs]
+
+        ilb = self.feature_names.index("lower bound")
+        iub = self.feature_names.index("upper bound")
+        self.pred = np.clip(
+            self.pred, self.features[:, ilb], self.features[:, iub]
         )
+        # without the triangle inequality the anchor-pair rows keep
+        # their exact column values
+        if not self.is_metric and len(self.A):
+            self._anchor_rows_exact(self.pred)
+
+        if self.RefineApprox is None:
+            self.RefineApprox = self.pred.copy()
+        else:
+            self.RefineApprox[self.not_computed_mask] = self.pred[
+                self.not_computed_mask
+            ]
+        self.RefineApprox[self.sample_ixs] = self.sample_y
 
     def fit_predict_errors(self):
-        """Fit the empirical residual CDFs (reference annchor.py:382-393);
-        per-pair bin labels are computed on the device."""
+        """Fit the empirical residual CDFs (reference annchor.py:382-393)."""
         self.error_predictor.fit(
             self.sample_features,
             self.feature_names,
             self.sample_y - self.sample_predict,
             sample_bins=self.sample_bins,
+        )
+        if self._dev is not None:
+            return  # per-pair bin labels are computed on the device
+        self.errors = self.error_predictor.predict(
+            self.features, self.feature_names
         )
 
     def select_refine_candidate_pairs(self, w=0.5, it=0):
@@ -334,35 +489,164 @@ class Annchor:
         n_refine = max(
             int((self.p_work * self.N - self.na - self.n_samples) * w) + 1, 0
         )
-        if self._dev_eval is not None:
-            self.evals += self._dev.select_refine_fused(
-                self.error_predictor, n_refine, nn, it == 0, 3 * nn // 2,
-                self._dev_eval,
+        if self._dev is not None:
+            self.nextback = np.zeros(0, dtype=np.int64)
+            if self._dev_eval is not None:
+                self.evals += self._dev.select_refine_fused(
+                    self.error_predictor, n_refine, nn, it == 0, 3 * nn // 2,
+                    self._dev_eval,
+                )
+                return
+            candidates, cand_IJ = self._dev.select(
+                self.error_predictor, n_refine, nn, it == 0, 3 * nn // 2
             )
+            if candidates.shape[0]:
+                self._dev.apply_exact(candidates, self._eval_pairs(cand_IJ))
             return
-        candidates, cand_IJ = self._dev.select(
-            self.error_predictor, n_refine, nn, it == 0, 3 * nn // 2
+        self.thresh = pair_ops.kth_smallest_per_point(
+            self.RefineApprox, self.P_idx, nn, self.device
         )
-        if candidates.shape[0]:
-            self._dev.apply_exact(candidates, self._eval_pairs(cand_IJ))
+        if it == 0:
+            self.RefineApprox = pair_ops.guarantee_nmin(
+                self.RefineApprox,
+                self.not_computed_mask,
+                self.P_idx,
+                self.P_cnt,
+                3 * nn // 2,
+                self.device,
+            )
 
-    def update_anchor_points(self):
+        ncm = self.not_computed_mask
+        p = (
+            np.maximum(
+                self.thresh[self.IJs[ncm, 0]], self.thresh[self.IJs[ncm, 1]]
+            )
+            - self.RefineApprox[ncm]
+        )
+        prob = pair_ops.empirical_cdf_probs(
+            p, self.errors[ncm], self.error_predictor.errs, self.device
+        )
+
+        # the n_refine most probable pairs, from a lookahead-times larger
+        # over-selection whose remainder is tightened first next
+        if n_refine >= prob.shape[0]:
+            candidates = np.arange(prob.shape[0])
+            nxt = np.arange(prob.shape[0])
+        else:
+            if n_refine * self.lookahead >= prob.shape[0]:
+                large_part = np.arange(prob.shape[0])
+            else:
+                large_part = np.argpartition(
+                    -prob, n_refine * self.lookahead
+                )[: n_refine * self.lookahead]
+            argpart = np.argpartition(-prob[large_part], n_refine)
+            candidates = large_part[argpart[:n_refine]]
+            nxt = large_part[argpart[n_refine:]]
+
+        ncm_ids = np.flatnonzero(ncm)
+        self.nextback = ncm_ids[nxt]
+        mapback = ncm_ids[candidates]
+
+        exact = self._eval_pairs(self.IJs[mapback])
+        self.RefineApprox[mapback] = exact
+        self.not_computed_mask[mapback] = False
+
+    def _contender_ids(self):
+        """Uncomputed pairs that could still enter a top-k list: their
+        lower bound is below the larger endpoint threshold."""
+        ncm_ids = np.flatnonzero(self.not_computed_mask)
+        lb = self.features[ncm_ids, 0]
+        cap = np.maximum(
+            self.thresh[self.IJs[ncm_ids, 0]],
+            self.thresh[self.IJs[ncm_ids, 1]],
+        )
+        return ncm_ids[lb < cap]
+
+    def _tighten(self, ids):
+        """Tightened (lb, ub) of the pairs ``ids`` on the device."""
+        return tighten_bounds(
+            self.nx,
+            self.IJs,
+            self.RefineApprox,
+            self.not_computed_mask,
+            self.IJs[ids],
+            self.features[ids, 0],
+            self.features[ids, 1],
+            device=self.device,
+        )
+
+    def update_anchor_points(self, timeout=10, chunk_size=200000):
         """Bound tightening between iterations: every computed distance
         is a pseudo-anchor for the pending pairs (reference
-        annchor.py:475-512), as one tropical self-product on the device."""
-        self._dev.tighten()
+        annchor.py:475-512, utils.py:304-352).  The host pipeline
+        tightens the lookahead over-selection first, then every other
+        contender, in chunks, and stops after ``timeout`` seconds of
+        wall clock, as the reference does (annchor.py:511)."""
+        if self._dev is not None:
+            self._dev.tighten()
+            return
+        contenders = self._contender_ids()
+        extra = contenders[
+            ~np.isin(contenders, self.nextback, assume_unique=True)
+        ]
+        todo = np.concatenate([self.nextback, extra])
+        if todo.shape[0] == 0:
+            return
+        start = time.time()
+        for s in range(0, todo.shape[0], chunk_size):
+            nb = todo[s : s + chunk_size]
+            self.features[nb, 0], self.features[nb, 1] = self._tighten(nb)
+            if time.time() - start > timeout:
+                break
 
-    def finalise_bounds(self):
-        """Post-refinement tightening and re-clip of the never-computed
-        estimates (metric spaces only)."""
-        if self.is_metric:
+    def finalise_bounds(self, timeout=10):
+        """Post-refinement tightening of the never-computed pairs and a
+        re-clip of their estimates into the tightened interval, so graph
+        assembly ranks them with the best bound information.  Metric
+        spaces only: without the triangle inequality the interval is not
+        a bound."""
+        if not self.is_metric:
+            return
+        if self._dev is not None:
             self._dev.finalise()
+            return
+        if self.thresh is None:
+            return
+        # fresh thresholds: the last refinement batch has landed since
+        # select_refine computed them
+        self.thresh = pair_ops.kth_smallest_per_point(
+            self.RefineApprox, self.P_idx, self.n_neighbors, self.device
+        )
+        contenders = self._contender_ids()
+        if contenders.shape[0] == 0:
+            return
+        lb_new, ub_new = self._tighten(contenders)
+        self.features[contenders, 0] = lb_new
+        self.features[contenders, 1] = ub_new
+        self.RefineApprox[contenders] = np.clip(
+            self.RefineApprox[contenders], lb_new, ub_new
+        )
 
     def get_ann(self):
         """Assemble the k-NN graph, self-prepended
         (reference annchor.py:514-530)."""
-        ngi, ngd = self._dev.knn_graph(self.n_neighbors - 1)
-        ng_exact = self._dev.ng_exact_mask
+        nsel = self.n_neighbors - 1
+        if self._dev is not None:
+            ngi, ngd = self._dev.knn_graph(nsel)
+            ng_exact = self._dev.ng_exact_mask
+        else:
+            ngi, ngd, pair_ids = pair_ops.knn_from_pairs(
+                self.RefineApprox,
+                self.IJs,
+                self.P_idx,
+                self.not_computed_mask,
+                nsel,
+                self.device,
+            )
+            m = self.IJs.shape[0]
+            ng_exact = (pair_ids < m) & ~self.not_computed_mask[
+                np.clip(pair_ids, 0, m - 1)
+            ]
         self._ng_exact = np.concatenate(
             [np.ones((self.nx, 1), dtype=bool), ng_exact[:, : ngi.shape[1]]],
             axis=1,
@@ -379,12 +663,6 @@ class Annchor:
         (reference annchor.py:538-543) with the per-stage metric-call
         count; every stage ends in a device synchronisation, so the
         times are the device's."""
-        if not self._device_pipeline_ok():
-            raise NotImplementedError(
-                "custom sampler/regression/error_predictor objects run the "
-                "host pipeline, which is not ported yet (ROADMAP Queue 1 "
-                "item 6)"
-            )
         evals_seen = [self.evals]
 
         def timeit(item, origin, start):
@@ -458,17 +736,43 @@ class Annchor:
         budget = int(self.p_work * self.N - self.na)
         if remaining and remaining > budget:
             return False
-        if remaining:
-            ids = np.flatnonzero(ncm).astype(np.int64)
-            self._dev.apply_exact(ids, self._eval_pairs(self._dev._pairs_at(ids)))
-        # the regression predict never ran, so the device RA still holds
-        # zeros for the anchor-exact pairs
-        self._dev.seed_ra_from_store()
+        ids = np.flatnonzero(ncm).astype(np.int64)
+        if self._dev is not None:
+            if remaining:
+                self._dev.apply_exact(
+                    ids, self._eval_pairs(self._dev._pairs_at(ids))
+                )
+            # the regression predict never ran, so the device RA still
+            # holds zeros for the anchor-exact pairs
+            self._dev.seed_ra_from_store()
+        else:
+            # nor did it on the host: RA starts from the anchor columns
+            # (the JAX package indexes the unset RefineApprox here)
+            if self.RefineApprox is None:
+                RA = np.zeros(self.IJs.shape[0])
+                self._anchor_rows_exact(RA)
+                self.RefineApprox = RA
+            if remaining:
+                self.RefineApprox[ids] = self._eval_pairs(self.IJs[ids])
+                self.not_computed_mask[ids] = False
         print(
             "Warning: nothing to sample — evaluated the remaining %d "
             "candidate pairs exactly." % remaining
         )
         return True
+
+    def to_sparse_matrix(self):
+        """k-NN graph as a symmetrised scipy dok_matrix with +eps so
+        UMAP 'precomputed' treats stored zeros as edges
+        (reference annchor.py:625-641)."""
+        from scipy.sparse import dok_matrix
+
+        D = dok_matrix((self.nx, self.nx), dtype=np.float64)
+        eps = np.nextafter(0, 1, dtype=np.float64)
+        for i, (js, ds) in enumerate(zip(*self.neighbor_graph)):
+            for j, d in zip(js, ds):
+                D[i, j] = D[j, i] = d + eps
+        return D
 
 
 class BruteForce:
@@ -482,6 +786,7 @@ class BruteForce:
         func_kwargs=None,
         verbose=False,
         get_exact_ijs=None,
+        backend=None,
         device="cuda",
     ):
         self.X = X
@@ -491,7 +796,9 @@ class BruteForce:
         self.f = self.metric.scalar
         self.verbose = verbose
         if get_exact_ijs is None:
-            self.get_exact_ijs = make_get_exact_ijs(self.metric)
+            self.get_exact_ijs = make_get_exact_ijs(
+                self.metric, verbose=verbose, backend=backend
+            )
         else:
             self.get_exact_ijs = get_exact_ijs
         test_parallelisation(self.get_exact_ijs, self.f, self.X, self.nx, s=20)

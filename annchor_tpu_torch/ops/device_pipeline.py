@@ -29,6 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from annchor_tpu_torch.ops.bounds_update import _build_E
+from annchor_tpu_torch.ops.features import bounds_dad_dev
+
 F32_INF = float("inf")
 
 
@@ -86,26 +89,9 @@ def jax_threefry_uniforms(random_seed: int, loop_num: int, m: int, device):
 
 
 def features(D32, ij_i, ij_j, chunk: int = 1 << 18):
-    """LB/UB/dad for every pair, in chunks of ``chunk`` pairs so the
-    (chunk, na) gathers stay bounded.
-
-    lb = max_a |D[i,a] - D[j,a]|, ub = min_a D[i,a] + D[j,a], and the
-    double anchor distance dad = (D[i, c(j)] + D[j, c(i)]) / 2 with c(p)
-    the nearest anchor of p (first index on ties, as ``jnp.argmin``)."""
-    m = ij_i.shape[0]
-    cA = torch.argmin(D32, dim=1)
-    lb = torch.empty(m, dtype=torch.float32, device=D32.device)
-    ub = torch.empty_like(lb)
-    dad = torch.empty_like(lb)
-    for s in range(0, m, chunk):
-        gi = ij_i[s : s + chunk].long()
-        gj = ij_j[s : s + chunk].long()
-        Di = D32[gi]
-        Dj = D32[gj]
-        lb[s : s + chunk] = (Di - Dj).abs().amax(dim=1)
-        ub[s : s + chunk] = (Di + Dj).amin(dim=1)
-        dad[s : s + chunk] = (D32[gi, cA[gj]] + D32[gj, cA[gi]]) * 0.5
-    return lb, ub, dad
+    """LB/UB/dad for every pair (``ops.features.bounds_dad_dev``), in
+    chunks of ``chunk`` pairs."""
+    return bounds_dad_dev(D32, D32, ij_i.long(), ij_j.long(), chunk)
 
 
 def regress_update(lb, ub, dad, RA, ncm, inner_edges, coefs, icepts,
@@ -239,6 +225,30 @@ def _row_blocks(nx: int, blk: int):
     return [min(t * blk, nx - blk) for t in range((nx + blk - 1) // blk)]
 
 
+def guarantee_mark_rows(vals, ncm_rows, valid, nmin: int):
+    """Per incidence row, the uncomputed slots whose estimate lies below
+    the n_todo-th smallest uncomputed estimate, where n_todo is what the
+    row lacks of ``nmin`` computed pairs (reference utils.py:606-621,
+    marked in one pass as the JAX package does).  vals, ncm_rows, valid:
+    (rows, max_deg).  Returns the bool (rows, max_deg) marks."""
+    todo_vals = torch.where(ncm_rows, vals, F32_INF)
+    n_computed = ((~ncm_rows) & valid).sum(dim=1)
+    n_todo = torch.clamp(nmin - n_computed, 0, vals.shape[1] - 1)
+    svals = torch.sort(todo_vals, dim=1).values
+    kth = torch.gather(svals, 1, n_todo[:, None])
+    return (todo_vals < kth) & ncm_rows & (n_todo[:, None] > 0)
+
+
+def penalised_knn_cols(vals, ncm_rows, valid, nn: int):
+    """Per incidence row, the columns of the nn smallest estimates, where
+    uncomputed pairs carry a +rowmax penalty so computed pairs win
+    (reference get_nn, utils.py:383-429); ties to the lower column, as
+    ``lax.top_k`` breaks them."""
+    mx = torch.where(valid, vals, -F32_INF).amax(dim=1, keepdim=True)
+    d = torch.where(valid, vals + torch.where(ncm_rows, mx, 0.0), F32_INF)
+    return torch.sort(d, dim=1, stable=True).indices[:, :nn]
+
+
 def select(RA, ncm, ij_i, ij_j, dad, P_idx, inner_edges, cdf_grid, cdf_lo,
            cdf_inv, cdf_hi, nn: int, n_ref: int, guarantee: bool, nmin: int):
     """Refinement selection (reference annchor.py:395-473).
@@ -269,13 +279,7 @@ def select(RA, ncm, ij_i, ij_j, dad, P_idx, inner_edges, cdf_grid, cdf_lo,
         vals = RA_pad[rows]
         thresh[start : start + blk] = torch.sort(vals, dim=1).values[:, kk]
         if guarantee:
-            ncm_rows = ncm_ext[rows]
-            todo_vals = torch.where(ncm_rows, vals, inf)
-            n_computed = ((~ncm_rows) & (rows < m)).sum(dim=1)
-            n_todo = torch.clamp(nmin - n_computed, 0, max_deg - 1)
-            svals = torch.sort(todo_vals, dim=1).values
-            kth = torch.gather(svals, 1, n_todo[:, None])
-            mark_rows = (todo_vals < kth) & ncm_rows & (n_todo[:, None] > 0)
+            mark_rows = guarantee_mark_rows(vals, ncm_ext[rows], rows < m, nmin)
             marks[rows[mark_rows]] = True
     RAg = torch.where(marks[:m], torch.full_like(RA, -1.0), RA) if guarantee else RA
 
@@ -315,21 +319,14 @@ def tighten_full(ij_i, ij_j, RA, ncm, lb, ub, nx: int, block: int = 16):
     dev = RA.device
     ii = ij_i.long()
     jj = ij_j.long()
-    ok = ~ncm
-    d = torch.where(ncm, torch.zeros_like(RA), RA)
-    E = torch.zeros((nx, nx), dtype=torch.float32, device=dev)
-    E[ii, jj] = d
-    E[jj, ii] = d
-    V = torch.zeros((nx, nx), dtype=torch.bool, device=dev)
-    V[ii, jj] = ok
-    V[jj, ii] = ok
+    E, V = _build_E(torch.stack([ii, jj], dim=1), RA, ~ncm, nx)
+    # E is 0 wherever V is False
     Einf = torch.where(V, E, torch.full_like(E, F32_INF))
-    Ezero = torch.where(V, E, torch.zeros_like(E))
 
     lbM = torch.zeros((nx, nx), dtype=torch.float32, device=dev)
     ubM = torch.full((nx, nx), F32_INF, dtype=torch.float32, device=dev)
     for y0 in range(0, nx, block):
-        a = Ezero[:, y0 : y0 + block]
+        a = E[:, y0 : y0 + block]
         v = V[:, y0 : y0 + block]
         e = Einf[:, y0 : y0 + block]
         diff = (a[:, None, :] - a[None, :, :]).abs_()
@@ -370,13 +367,7 @@ def knn(RA, ncm, P_idx, ij_i, ij_j, nn: int):
         rows = P_idx[start : start + blk].long()
         vals = RA_pad[rows]
         ncm_rows = ncm_ext[rows]
-        valid = rows < m
-        mx = torch.where(valid, vals, -F32_INF).amax(dim=1, keepdim=True)
-        dpen = torch.where(
-            valid, vals + torch.where(ncm_rows, mx, 0.0), F32_INF
-        )
-        # the nn smallest, ties to the lower column (lax.top_k's order)
-        cols = torch.sort(dpen, dim=1, stable=True).indices[:, :nn]
+        cols = penalised_knn_cols(vals, ncm_rows, rows < m, nn)
         pair_ids = torch.gather(rows, 1, cols)
         row_ids = torch.arange(start, start + blk, device=dev)[:, None]
         partners = pair_sum[pair_ids] - row_ids

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from annchor_tpu_torch.ops.features import anchor_membership, shared_anchor_counts
+
 DENSE_MAX_NX = 4096
 
 
@@ -27,14 +29,9 @@ def _fused_locality(D32, locality: int, loc_min: int, loc_thresh: int):
 
     D32: (nx, na) float32.  Returns (S (nx, na) f32, sid (nx, locality)
     int64, eff (nx,) f32, keep (nx, nx) bool)."""
-    nx, na = D32.shape
-    # nearest anchors, ties to the lower anchor index (lax.top_k's
-    # order): a stable ascending sort
-    sid = torch.sort(D32, dim=1, stable=True).indices[:, :locality]
-    S = torch.zeros((nx, na), dtype=torch.float32, device=D32.device)
-    S.scatter_(1, sid, 1.0)
-
-    counts = S @ S.T  # small integers: exact in float32
+    nx = D32.shape[0]
+    S, sid = anchor_membership(D32, locality, D32.device)
+    counts = shared_anchor_counts(S)
     kth = torch.zeros(nx, dtype=torch.float32, device=D32.device)
     for c in range(1, locality + 1):
         kth += ((counts >= c).sum(dim=1) > loc_min).to(torch.float32)

@@ -24,7 +24,18 @@ of which exits non-zero when it fails:
    package's evals on this set and score no more errors against the
    exact graph than the JAX package does;
 5. timing: K1 against the plain version with CUDA events at the main
-   path's batch shapes.
+   path's batch shapes;
+6. vector metrics: the euclidean, sqeuclidean and cosine engine on the
+   card against a float64 oracle, the blobs contract (0 errors) and a
+   euclidean fit on 4,096 x 64 blobs, held to the JAX package's evals and
+   errors;
+7. a Python-callable metric: an L1 closure evaluated on host threads
+   with the fit's state on the card, held to the JAX package's figures;
+8. the host pipeline (a custom sampler): the strings-1600 fit, which
+   must launch K1 and spend exactly the JAX package's evals.
+
+K1's launches are counted in the fits of phases 4 and 8, each with the
+count set to 0 just before it.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to build/chip_smoke.json.
@@ -49,6 +60,53 @@ P_WORK = 0.12
 REFERENCE_EVALS = 157_793
 REFERENCE_ERRORS = 1_297
 REFINE_BATCH = 58_707  # the first refinement batch of that fit
+
+# Pinned figures of the JAX package (annchor_tpu on the CPU, same data,
+# same arguments, its own sample stream; the port's fits below draw that
+# stream through ``jax_threefry_uniforms`` or, on the host pipeline, the
+# same numpy generator).
+#
+# Euclidean on 4,096 x 64 blobs (10 centers, seed 42), n_neighbors=15,
+# p_work=0.05: 424,540 evals, 18,117 errors against BruteForce.  The
+# card sums each 64-wide row in another order than XLA on the CPU, so
+# features can move by a few float32 ulps and with them an estimate's
+# rank; the errors are held to <= the JAX count, not to equality.
+BLOBS4096_EVALS = 424_540
+BLOBS4096_ERRORS = 18_117
+# The L1 closure on the reference blobs (1000 x 2, 10 centers, seed 42),
+# n_anchors=10, p_work=0.05: 34,948 evals, 0 errors against a
+# BruteForce with the same closure.
+CLOSURE_EVALS = 34_948
+CLOSURE_ERRORS = 0
+# strings-1600 on the host pipeline (a do-nothing SimpleStratifiedSampler
+# subclass), n_neighbors=25, p_work=0.12: 157,792 evals, 1,356 errors
+# against the exact graph.  That CPU run hit the host tighten's 10 s
+# wall-clock bailout (it tightened 400,000 of 1,185,409 pending pairs,
+# ROADMAP H5), so a faster run tightens more: evals must be equal and the
+# errors may only be fewer.
+HOST_EVALS = 157_792
+HOST_ERRORS = 1_356
+
+
+def make_blobs(n_samples, n_features, centers, seed):
+    """``sklearn.datasets.make_blobs(n_samples, n_features,
+    centers=centers, random_state=seed)`` in numpy: the same draws from
+    the same ``np.random.RandomState`` (cluster_std 1, center box
+    (-10, 10), shuffled)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    C = rng.uniform(-10.0, 10.0, size=(centers, n_features))
+    sizes = [n_samples // centers] * centers
+    for i in range(n_samples % centers):
+        sizes[i] += 1
+    X = np.concatenate(
+        [rng.normal(loc=C[i], scale=1.0, size=(n, n_features)) for i, n in enumerate(sizes)]
+    )
+    y = np.repeat(np.arange(centers), sizes)
+    order = np.arange(n_samples)
+    rng.shuffle(order)
+    return X[order], y[order]
 
 
 def _phase(name):
@@ -208,6 +266,65 @@ def _timings(torch, np, X, IJs):
     return rows
 
 
+def _vector_engines(torch, np, att, X):
+    """Phase 6 engine check: ``batch_dev`` on the card against a float64
+    numpy oracle on 20,000 sampled pairs, and ``fused_maxmin``'s anchors
+    against the same call on the CPU.  The oracle reads the float32 copy
+    of X the engine computes on, so only the engine's float32 arithmetic
+    counts: euclidean and sqeuclidean within 1e-6 of the distance (about
+    8 ulps: a 64-term float32 sum), cosine within 2e-6 absolute (its
+    1 - num/den cancels)."""
+    rng = np.random.default_rng(6)
+    n = X.shape[0]
+    I = rng.integers(0, n, size=20_000)
+    J = rng.integers(0, n, size=20_000)
+    X32 = X.astype(np.float32).astype(np.float64)
+    a, b = X32[I], X32[J]
+    den = np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1)
+    oracle = {
+        "euclidean": np.sqrt(((a - b) ** 2).sum(axis=1)),
+        "sqeuclidean": ((a - b) ** 2).sum(axis=1),
+        "cosine": 1.0 - (a * b).sum(axis=1) / np.maximum(den, 1e-30),
+    }
+    rows = {}
+    for name, want in oracle.items():
+        eng = att.get_function_from_input(name, device="cuda").batch
+        got = eng.batch_dev(
+            X, torch.as_tensor(I, device="cuda"), torch.as_tensor(J, device="cuda")
+        )
+        torch.cuda.synchronize()
+        got = got.double().cpu().numpy()
+        err = np.abs(got - want)
+        tol = 2e-6 if name == "cosine" else 1e-6 * np.abs(want)
+        A_card, _ = eng.fused_maxmin(X, 20, 0)
+        A_cpu, _ = att.get_function_from_input(name, device="cpu").batch.fused_maxmin(X, 20, 0)
+        rows[name] = {"max_abs_err": float(err.max()), "anchors_equal": bool(
+            np.array_equal(A_card, A_cpu))}
+        print("  %-12s batch_dev vs float64 oracle: max|diff| %.3g; fused_maxmin "
+              "anchors card == CPU: %s" % (name, err.max(), rows[name]["anchors_equal"]),
+              flush=True)
+        if not (err <= tol).all():
+            raise SystemExit("%s engine outside its tolerance on the card" % name)
+        if not rows[name]["anchors_equal"]:
+            raise SystemExit("%s fused_maxmin anchors differ between card and CPU" % name)
+    return rows
+
+
+def _timed_fit(torch, att, X, func, **kw):
+    """One fit on the card with its stage table; returns (fit, seconds)."""
+    ann = att.Annchor(X, func, device="cuda", verbose=True, **kw)
+    t0 = time.perf_counter()
+    ann.fit()
+    torch.cuda.synchronize()
+    return ann, time.perf_counter() - t0
+
+
+def _bruteforce_graph(att, X, func):
+    bf = att.BruteForce(X, func, device="cuda")
+    bf.fit()
+    return bf.neighbor_graph
+
+
 def main() -> int:
     import torch
 
@@ -308,6 +425,70 @@ def main() -> int:
     report["k1_timing"] = _timings(torch, np, X, ann.IJs)
     refine = report["k1_timing"]["refine batch (58,707 pairs)"]
 
+    _phase("6. vector metrics (%s)" % report["card"])
+    X64, _ = make_blobs(4096, 64, 10, 42)
+    report["engines"] = _vector_engines(torch, np, att, X64)
+    blobs, _ = make_blobs(1000, 2, 10, 42)
+    small, report["blobs_fit_s"] = _timed_fit(torch, att, blobs, "euclidean",
+                                              n_anchors=10, p_work=0.05)
+    blob_errors = att.compare_neighbor_graphs(
+        _bruteforce_graph(att, blobs, "euclidean"), small.neighbor_graph, 15)
+    report.update(blobs_evals=int(small.evals), blobs_errors=int(blob_errors))
+    print("  blobs 1000 x 2: %.3f s, %d evals, %d errors against BruteForce"
+          % (report["blobs_fit_s"], small.evals, blob_errors), flush=True)
+    if blob_errors != 0:
+        raise SystemExit("the blobs contract needs 0 errors, got %d" % blob_errors)
+    wide, report["blobs4096_fit_s"] = _timed_fit(
+        torch, att, X64, "euclidean", n_neighbors=15, p_work=0.05, random_seed=42,
+        uniforms=jax_threefry_uniforms)
+    wide_errors = att.compare_neighbor_graphs(
+        _bruteforce_graph(att, X64, "euclidean"), wide.neighbor_graph, 15)
+    report.update(blobs4096_evals=int(wide.evals), blobs4096_errors=int(wide_errors))
+    print("  blobs 4096 x 64: %.3f s, %d evals (JAX package: %d), %d errors (JAX "
+          "package: %d)" % (report["blobs4096_fit_s"], wide.evals, BLOBS4096_EVALS,
+                            wide_errors, BLOBS4096_ERRORS), flush=True)
+    if wide.evals != BLOBS4096_EVALS or wide_errors > BLOBS4096_ERRORS:
+        raise SystemExit("the 4096 x 64 fit differs from the JAX package's figures")
+
+    _phase("7. Python-callable metric (%s)" % report["card"])
+
+    def l1(x, y):
+        return float(np.abs(x - y).sum())
+
+    closure, report["closure_fit_s"] = _timed_fit(
+        torch, att, blobs, l1, n_anchors=10, p_work=0.05, uniforms=jax_threefry_uniforms)
+    closure_errors = att.compare_neighbor_graphs(
+        _bruteforce_graph(att, blobs, l1), closure.neighbor_graph, 15)
+    report.update(closure_evals=int(closure.evals), closure_errors=int(closure_errors))
+    print("  L1 closure on blobs: %.3f s, %d evals (JAX package: %d), %d errors (JAX "
+          "package: %d)" % (report["closure_fit_s"], closure.evals, CLOSURE_EVALS,
+                            closure_errors, CLOSURE_ERRORS), flush=True)
+    if closure.evals != CLOSURE_EVALS or closure_errors != CLOSURE_ERRORS:
+        raise SystemExit("the closure fit differs from the JAX package's figures")
+
+    _phase("8. host pipeline (%s)" % report["card"])
+
+    class HostSampler(att.SimpleStratifiedSampler):
+        """A do-nothing subclass: custom strategy objects take the host
+        pipeline."""
+
+    K1.launches = 0
+    host, report["host_fit_s"] = _timed_fit(
+        torch, att, X, "levenshtein", n_neighbors=N_NEIGHBORS, p_work=P_WORK,
+        random_seed=42, sampler=HostSampler())
+    host_launches = K1.launches
+    host_errors = att.compare_neighbor_graphs(host.neighbor_graph, gt, N_NEIGHBORS)
+    report.update(host_evals=int(host.evals), host_errors=int(host_errors),
+                  host_k1_launches=host_launches)
+    print("  strings-1600 host pipeline: %.3f s, %d evals (JAX package: %d), %d errors "
+          "(JAX package: %d), K1 launches %d" % (
+              report["host_fit_s"], host.evals, HOST_EVALS, host_errors, HOST_ERRORS,
+              host_launches), flush=True)
+    if host._dev is not None or host_launches == 0:
+        raise SystemExit("the host-pipeline fit did not run the host pipeline on K1")
+    if host.evals != HOST_EVALS or host_errors > HOST_ERRORS:
+        raise SystemExit("the host-pipeline fit differs from the JAX package's figures")
+
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -317,7 +498,7 @@ def main() -> int:
         "route": "cuda",
         "source": "annchor_tpu_torch/csrc/levenshtein_myers.cu",
         "replaces": "annchor_tpu/ops/levenshtein_pallas.py:63",
-        "launches": launches,
+        "launches": launches + host_launches,
         "max_abs_err": max_err,
         "ms": refine["ms"],
         "plain_ms": refine["plain_ms"],

@@ -14,6 +14,7 @@ import annchor_tpu as at
 import annchor_tpu_torch as att
 from annchor_tpu.datasets import make_strings as jax_make_strings
 from annchor_tpu_torch.datasets import load_strings, make_strings
+from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
 
 torch.set_num_threads(2)
 
@@ -153,6 +154,8 @@ def test_load_strings_caches_bruteforce_graph(tmp_path, monkeypatch):
 
 
 def test_unported_paths_raise():
+    """Custom strategy objects now take the host pipeline; the scale
+    path and the Wasserstein metrics still raise, naming their items."""
     X, _ = make_strings(n=60, length=20, seed=1)
     ann = att.Annchor(
         list(X), "levenshtein", n_anchors=3, n_neighbors=5, n_samples=100,
@@ -160,10 +163,13 @@ def test_unported_paths_raise():
         device="cpu",
     )
     ann.sampler = type("Custom", (att.SimpleStratifiedSampler,), {})()
-    with pytest.raises(NotImplementedError, match="host pipeline"):
-        ann.fit()
+    ann.fit()
+    assert ann._dev is None and ann.neighbor_graph[0].shape == (60, 5)
     with pytest.raises(NotImplementedError, match="item 13"):
         att.Annchor(["a"] * 4097, "levenshtein", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        att.Annchor(np.eye(4), "wasserstein", func_kwargs={"cost_matrix": np.eye(4)},
+                    device="cpu")
 
 
 def test_cuda_device_without_card_raises():
@@ -213,3 +219,254 @@ def test_user_evaluator_fit_matches_jax():
     np.testing.assert_array_equal(port.A, ref.A)
     assert port.evals == ref.evals
     assert att.compare_neighbor_graphs(port.neighbor_graph, ref.neighbor_graph, 8) == 0
+
+
+# ---------------------------------------------------------------------------
+# the host pipeline (custom strategy objects), vector and Python metrics
+
+
+def _assert_same_graph(port, ref):
+    """Same neighbour indices; distances within 8 float32 ulps (the
+    vector engine's stated tolerance, tests/test_torch_metrics.py: XLA
+    may contract the row sum into fused multiply-adds)."""
+    np.testing.assert_array_equal(port.neighbor_graph[0], ref.neighbor_graph[0])
+    want = ref.neighbor_graph[1]
+    tol = 8 * np.spacing(np.abs(want).astype(np.float32))
+    assert np.all(np.abs(port.neighbor_graph[1] - want) <= tol)
+
+
+class JaxHostSampler(at.SimpleStratifiedSampler):
+    """A do-nothing subclass: sends the JAX package down its host
+    pipeline."""
+
+
+class HostSampler(att.SimpleStratifiedSampler):
+    """The same for the port."""
+
+
+@pytest.fixture(scope="module")
+def host_fits():
+    X, _ = make_strings(n=300, length=60, seed=7)
+    kw = dict(n_anchors=12, n_neighbors=10, n_samples=800, p_work=0.3)
+    ref = at.Annchor(list(X), "levenshtein", sampler=JaxHostSampler(), **kw)
+    ref.fit()
+    port = att.Annchor(list(X), "levenshtein", sampler=HostSampler(), device="cpu", **kw)
+    port.fit()
+    return ref, port
+
+
+def test_host_pipeline_matches_jax_bit_for_bit(host_fits):
+    """Same anchors, pairs, evals, features, estimates, computed set and
+    graph as the JAX package's host pipeline, bit for bit."""
+    ref, port = host_fits
+    assert port._dev is None and not port._device_pipeline_ok()
+    np.testing.assert_array_equal(port.A, ref.A)
+    np.testing.assert_array_equal(port.IJs, ref.IJs)
+    assert port.evals == ref.evals
+    np.testing.assert_array_equal(port.features, ref.features)
+    np.testing.assert_array_equal(port.RefineApprox, ref.RefineApprox)
+    np.testing.assert_array_equal(port.not_computed_mask, ref.not_computed_mask)
+    np.testing.assert_array_equal(port.P_idx, ref.P_idx)
+    np.testing.assert_array_equal(port.nextback, ref.nextback)
+    np.testing.assert_array_equal(port.neighbor_graph[0], ref.neighbor_graph[0])
+    np.testing.assert_array_equal(port.neighbor_graph[1], ref.neighbor_graph[1])
+
+
+@pytest.fixture(scope="module")
+def blobs_fits(blobs):
+    X, _ = blobs
+    kw = dict(n_anchors=10, p_work=0.05)
+    port = att.Annchor(X, "euclidean", device="cpu", **kw)
+    port.fit()
+    ref = at.Annchor(X, "euclidean", **kw)
+    ref.fit()
+    bf = att.BruteForce(X, "euclidean", device="cpu")
+    bf.fit()
+    return port, ref, bf
+
+
+def test_blobs_euclidean_exact(blobs_fits):
+    """The reference's blobs contract (tests/test_annchor.py:87-99):
+    0 errors, with exactly the JAX package's evals and graph."""
+    port, ref, bf = blobs_fits
+    assert port.evals == ref.evals
+    assert att.compare_neighbor_graphs(bf.neighbor_graph, port.neighbor_graph, 15) == 0
+    assert att.compare_neighbor_graphs(port.neighbor_graph, ref.neighbor_graph, 15) == 0
+
+
+def test_blobs_python_closure_matches_jax(blobs):
+    """An L1 closure, evaluated on host threads: with JAX's sample
+    stream the fit spends the JAX package's evals on the same graph."""
+    X, _ = blobs
+
+    def l1(x, y):
+        return float(np.abs(x - y).sum())
+
+    kw = dict(n_anchors=10, p_work=0.05)
+    port = att.Annchor(X, l1, device="cpu", uniforms=jax_threefry_uniforms, **kw)
+    port.fit()
+    ref = at.Annchor(X, l1, **kw)
+    ref.fit()
+    assert port.metric.batch is None and port._dev_eval is None
+    assert port.evals == ref.evals
+    np.testing.assert_array_equal(port.neighbor_graph[0], ref.neighbor_graph[0])
+    np.testing.assert_array_equal(port.neighbor_graph[1], ref.neighbor_graph[1])
+
+
+def test_to_sparse_matrix_matches_jax(blobs_fits):
+    port, ref, _ = blobs_fits
+    S, S_ref = port.to_sparse_matrix(), ref.to_sparse_matrix()
+    assert S.shape == (1000, 1000)
+    np.testing.assert_array_equal(S.toarray() > 0, S_ref.toarray() > 0)
+    want = S_ref.toarray()
+    assert np.all(np.abs(S.toarray() - want) <= 8 * np.spacing(want.astype(np.float32)))
+    S = S.tocsr()
+    assert (abs(S - S.T) > 0).nnz == 0 and S.nnz > 0
+
+
+class _Regression(att.SimpleStratifiedLinearRegression):
+    pass
+
+
+class _JaxRegression(at.SimpleStratifiedLinearRegression):
+    pass
+
+
+class _Errors(att.SimpleStratifiedErrorRegression):
+    pass
+
+
+class _JaxErrors(at.SimpleStratifiedErrorRegression):
+    pass
+
+
+@pytest.mark.parametrize(
+    "strategy",
+    [
+        ("sampler", att.ClusterSampler, at.ClusterSampler),
+        ("regression", _Regression, _JaxRegression),
+        ("error_predictor", _Errors, _JaxErrors),
+    ],
+    ids=["cluster_sampler", "regression", "error_predictor"],
+)
+def test_custom_strategy_fit_matches_jax(blobs, strategy):
+    """Each custom strategy object takes the host pipeline in both
+    packages, with the same evals and graph."""
+    name, port_cls, jax_cls = strategy
+    X = blobs[0][:300]
+    kw = dict(n_anchors=8, n_neighbors=10, n_samples=600, p_work=0.2)
+    port = att.Annchor(X, "euclidean", device="cpu", **{name: port_cls()}, **kw)
+    port.fit()
+    ref = at.Annchor(X, "euclidean", **{name: jax_cls()}, **kw)
+    ref.fit()
+    assert port._dev is None
+    assert port.evals == ref.evals
+    _assert_same_graph(port, ref)
+
+
+@pytest.mark.parametrize("pipeline", ["device", "host"])
+def test_state_setters_and_lazy_point_index(blobs, pipeline):
+    """F4: features, RefineApprox, not_computed_mask and IJs can be
+    assigned after a fit, and P_idx is readable, as in the JAX package."""
+    X = blobs[0][:150]
+    kw = dict(n_anchors=8, n_samples=200, p_work=0.5)
+    port_kw = {"sampler": HostSampler()} if pipeline == "host" else {}
+    jax_kw = {"sampler": JaxHostSampler()} if pipeline == "host" else {}
+    fits = [
+        att.Annchor(X, "euclidean", device="cpu", uniforms=jax_threefry_uniforms,
+                    **port_kw, **kw),
+        at.Annchor(X, "euclidean", **jax_kw, **kw),
+    ]
+    for ann in fits:
+        ann.fit()
+        ann.RefineApprox[:3] = -7.0
+        assert (ann.RefineApprox[:3] == -7.0).all()
+        ann.RefineApprox = ann.RefineApprox * 2
+        assert ann.RefineApprox[0] == -14.0
+        ann.features = ann.features[:, :3]
+        ann.not_computed_mask = np.zeros(ann.IJs.shape[0], dtype=bool)
+        assert ann.features.shape[1] == 3 and not ann.not_computed_mask.any()
+        P = ann.P_idx
+        m = ann.IJs.shape[0]
+        assert P.shape[0] == 150 and ((P < m).sum(axis=1) >= 15).all()
+        ann.IJs = ann.IJs[:10]
+        assert ann.IJs.shape == (10, 2)
+    np.testing.assert_array_equal(fits[0].P_idx, fits[1].P_idx)
+
+
+def test_verbose_fit_prints_stage_table(blobs, capsys):
+    X = blobs[0][:150]
+    ann = att.Annchor(X, "euclidean", n_anchors=8, n_samples=200, p_work=0.5,
+                      verbose=True, device="cpu")
+    ann.fit()
+    out = capsys.readouterr().out
+    for stage in ("get_anchors", "get_locality", "get_sample", "get_ann"):
+        assert stage in out
+
+
+def test_early_exit_when_nothing_to_sample(capsys):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(60, 3))
+    ann = att.Annchor(X, "euclidean", n_anchors=10, n_neighbors=5, n_samples=400,
+                      p_work=1.0, niters=8, device="cpu")
+    ann.fit()
+    assert ann.neighbor_graph is not None
+    assert "terminated early with nothing left to sample" in capsys.readouterr().out
+    assert not ann.not_computed_mask.any()
+
+
+@pytest.mark.parametrize("pipeline", ["device", "host"])
+def test_tiny_dataset_exact_graph_euclidean(pipeline):
+    """Port of tests/test_annchor.py::test_tiny_dataset_exact_graph with
+    euclidean.  On the host pipeline the JAX package indexes its unset
+    RefineApprox at n = 4 and raises (F5); the port starts the estimates
+    from the anchor columns and comes out exact."""
+    rng = np.random.default_rng(0)
+    for n, na, k in [(4, 2, 2), (12, 5, 3)]:
+        X = rng.random((n, 3))
+        kw = {"sampler": HostSampler()} if pipeline == "host" else {}
+        ann = att.Annchor(X, "euclidean", n_anchors=na, n_neighbors=k, device="cpu", **kw)
+        ann.fit()
+        bf = att.BruteForce(X, "euclidean", device="cpu")
+        bf.fit()
+        assert att.compare_neighbor_graphs(bf.neighbor_graph, ann.neighbor_graph, k) == 0
+        if n == 4:  # the whole pool was evaluated outright
+            assert not ann.not_computed_mask.any()
+        if pipeline == "host" and n == 4:
+            with pytest.raises(TypeError):
+                at.Annchor(X, "euclidean", n_anchors=na, n_neighbors=k,
+                           sampler=JaxHostSampler()).fit()
+
+
+def test_backend_argument(blobs, capsys):
+    X = blobs[0][:120]
+    att.Annchor(X, "euclidean", backend="threading", device="cpu")
+    assert "backend='threading' is ignored" in capsys.readouterr().out
+
+    def l1(x, y):
+        return float(np.abs(x - y).sum())
+
+    bf = att.BruteForce(X, l1, backend="threading", device="cpu")
+    bf.fit()
+    ref = at.BruteForce(X, l1)
+    ref.fit()
+    np.testing.assert_array_equal(bf.D, ref.D)
+    ann = att.Annchor(X, l1, backend="threading", n_anchors=6, n_samples=200,
+                      p_work=0.4, lookahead=3, device="cpu")
+    ann.fit()
+    assert ann.lookahead == 3 and ann.neighbor_graph[0].shape == (120, 15)
+
+
+@pytest.mark.parametrize("shape", [(1000, 2), (4096, 64)])
+def test_chip_smoke_make_blobs_equals_sklearn(shape):
+    """chip_smoke.py carries a numpy make_blobs (the card's machine has
+    no sklearn); it must equal sklearn's bit for bit at its two shapes."""
+    from sklearn.datasets import make_blobs
+
+    from chip_smoke import make_blobs as smoke_make_blobs
+
+    n, d = shape
+    X, y = smoke_make_blobs(n, d, 10, 42)
+    X_ref, y_ref = make_blobs(n_samples=n, n_features=d, centers=10, random_state=42)
+    np.testing.assert_array_equal(X, X_ref)
+    np.testing.assert_array_equal(y, y_ref)

@@ -166,12 +166,14 @@ def test_engine_matches_jax_engine():
 
 
 def test_unported_metrics_name_their_queue_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        get_function_from_input("euclidean", device="cpu")
+    """The optimal-transport metrics still wait for their item; the vector
+    metrics and Python callables resolve now."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        get_function_from_input("wasserstein", device="cpu")
     with pytest.raises(NotImplementedError, match="K8"):
         get_function_from_input("wasserstein_sinkhorn", device="cpu")
-    with pytest.raises(NotImplementedError):
-        get_function_from_input(lambda x, y: 0.0, device="cpu")
+    assert get_function_from_input("euclidean", device="cpu").name == "euclidean"
+    assert get_function_from_input(lambda x, y: 0.0, device="cpu").batch is None
     with pytest.raises(AssertionError):
         get_function_from_input("hamming", device="cpu")
 
@@ -179,7 +181,9 @@ def test_unported_metrics_name_their_queue_item():
 def test_port_imports_no_jax():
     code = (
         "import sys, annchor_tpu_torch, annchor_tpu_torch.datasets, "
-        "annchor_tpu_torch.convert, annchor_tpu_torch.ops.levenshtein_cuda\n"
+        "annchor_tpu_torch.convert, annchor_tpu_torch.ops.levenshtein_cuda, "
+        "annchor_tpu_torch.distances, annchor_tpu_torch.ops.pairs, "
+        "annchor_tpu_torch.ops.bounds_update, annchor_tpu_torch.ops.features\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'annchor_tpu'))\n"
         "assert not bad, bad\n"
