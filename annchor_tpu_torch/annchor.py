@@ -1,31 +1,37 @@
 """Annchor: approximate k-NN graphs for slow metrics, on PyTorch.
 
-Port of the JAX package's ``annchor.py`` at nx <= 4096:
+Port of the JAX package's single-device ``annchor.py``:
 
   anchors -> locality -> features -> [sample -> regress -> errors ->
-  refine -> tighten]*niters -> graph
+  refine -> tighten]*niters -> graph [-> graph-expansion refinement]
 
 The orchestration is a staged host loop, as in the JAX package.  With
 the default strategy objects the per-pair state lives on one torch
-device (``ops/device_pipeline.py``); any custom sampler, regression or
-error predictor takes the host pipeline, whose per-pair state is host
-numpy, as the JAX package's, and whose per-pair passes
+device (``ops/device_pipeline.py``).  Above 4,096 points (or with the
+``ANNCHOR_TPU_FORCE_SPARSE`` test hook) that is the scale path: the
+budgeted band build keeps the pair list on the device, the state runs
+in sparse mode, and a share of the budget is held back for the host
+graph-expansion refinement (``refine.py``).  Any custom sampler,
+regression or error predictor takes the host pipeline, whose per-pair
+state is host numpy, as the JAX package's, and whose per-pair passes
 (``ops/features``, ``ops/pairs``, ``ops/bounds_update``) run as torch on
 the fit's device.  Every metric evaluation goes through the evaluator
 ``get_exact_ijs``; for the Levenshtein metric on a CUDA device that is
 the hand-written pair kernel.
 
 Not ported yet (each raises NotImplementedError or is absent): the
-Wasserstein metrics with the scout/certify hybrid, the scale path
-(nx > 4096), post-fit graph refinement, query, persistence and the
+Wasserstein metrics with the scout/certify hybrid, non-metric fits and
+custom strategy objects above 4,096 points, query, persistence and the
 nearest-enemy extras (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
+import torch
 
 from annchor_tpu_torch._backend import resolve_device, synchronize
 from annchor_tpu_torch.error_predictors import SimpleStratifiedErrorRegression
@@ -39,7 +45,11 @@ from annchor_tpu_torch.ops import pairs as pair_ops
 from annchor_tpu_torch.ops.bounds_update import tighten_bounds
 from annchor_tpu_torch.ops.device_pipeline import DeviceFitState
 from annchor_tpu_torch.ops.features import bounds_and_dad
-from annchor_tpu_torch.ops.locality import DENSE_MAX_NX, candidate_pairs
+from annchor_tpu_torch.ops.locality import (
+    DENSE_MAX_NX,
+    candidate_pairs,
+    candidate_pairs_device_budgeted,
+)
 from annchor_tpu_torch.pickers import MaxMinAnchorPicker
 from annchor_tpu_torch.regressors import SimpleStratifiedLinearRegression
 from annchor_tpu_torch.samplers import NothingToSample, SimpleStratifiedSampler
@@ -52,6 +62,20 @@ FEATURE_NAMES = [
     "double anchor distance",
     "is anchor",
 ]
+
+
+def _host_property(attr):
+    """A property over ``attr`` that downloads a tensor value to numpy
+    once, on first read; assignment stores the value as given."""
+
+    def get(self):
+        v = getattr(self, attr)
+        if isinstance(v, torch.Tensor):
+            v = v.cpu().numpy()
+            setattr(self, attr, v)
+        return v
+
+    return property(get, lambda self, v: setattr(self, attr, v))
 
 
 class Annchor:
@@ -78,14 +102,29 @@ class Annchor:
         "threading" -> shared thread pool, "loky" or "multiprocessing"
         -> spawned process pool (the metric must be picklable;
         unpicklable closures fall back to serial).
-    niters: refinement iterations (default 2).
+    niters: refinement iterations.
     lookahead: the host pipeline's refinement over-selection factor;
         the pairs selected beyond the batch are tightened first.
+    refine_frac / refine_rounds: hold back refine_frac of the p_work
+        allowance and spend it after the fit on ``refine_rounds`` rounds
+        of graph-expansion refinement (``refine_neighbor_graph``); 0
+        reproduces the reference flow.
+    pair_cap / pair_cap_factor: the scale path's per-point candidate
+        cap, explicit, or derived as max(4 nn, factor * p_work * nx)
+        (factor 0.7 by default); the ``ANNCHOR_TPU_PAIR_CAP`` and
+        ``ANNCHOR_TPU_PAIR_CAP_FACTOR`` variables override them.
+    max_resident_pairs: the admitted-pair bound of the non-metric scale
+        build (ROADMAP Queue 1 item 15); stored, not used yet.
     device: torch device of the fit state and the metric engine
         ("cuda" by default; "cpu" runs the kernels' plain versions).
     uniforms: optional callable (random_seed, loop_num, m, device) ->
         (m,) float32 tensor in [0, 1), the device sample draw's random
         numbers (default: ``ops.device_pipeline.default_uniforms``).
+
+    Knobs left unset (None) take the reference defaults up to 4,096
+    points and the JAX package's scale defaults above: n_anchors =
+    max(48, round(0.3 sqrt(nx) / 16) * 16), loc_thresh 3, niters 4,
+    refine_frac 0.05 (reference defaults: 20, 1, 2, 0).
     """
 
     def __init__(
@@ -111,25 +150,32 @@ class Annchor:
         backend=None,
         niters=None,
         lookahead=5,
+        refine_frac=None,
+        refine_rounds=3,
+        pair_cap=None,
+        pair_cap_factor=None,
+        max_resident_pairs=None,
         device="cuda",
         uniforms=None,
     ):
         self.X = X
         self.nx = len(X)
         self.N = (self.nx * (self.nx - 1)) // 2
-        if self.nx > DENSE_MAX_NX:
-            raise NotImplementedError(
-                "nx = %d > %d runs the scale path (ROADMAP Queue 1 item "
-                "13), not ported yet" % (self.nx, DENSE_MAX_NX)
-            )
         self.device = resolve_device(device)
         self.uniforms = uniforms
 
-        # the JAX package's defaults at nx <= 4096
-        n_anchors = 20 if n_anchors is None else n_anchors
+        scale = self.nx > DENSE_MAX_NX
+        if n_anchors is None:
+            n_anchors = (
+                max(48, int(round(0.3 * self.nx**0.5 / 16.0)) * 16) if scale else 20
+            )
         locality = 5 if locality is None else locality
-        loc_thresh = 1 if loc_thresh is None else loc_thresh
-        niters = 2 if niters is None else niters
+        if loc_thresh is None:
+            loc_thresh = 3 if scale else 1
+        if niters is None:
+            niters = 4 if scale else 2
+        if refine_frac is None:
+            refine_frac = 0.05 if scale else 0.0
 
         self.metric = get_function_from_input(func, func_kwargs, self.device)
         self.f = self.metric.scalar
@@ -177,11 +223,23 @@ class Annchor:
         self.is_metric = bool(is_metric) and self.metric.is_metric
         self.niters = niters
         self.lookahead = lookahead
+        self.refine_frac = float(np.clip(refine_frac, 0.0, 0.9))
+        self.refine_rounds = int(refine_rounds)
+        self.pair_cap = None if pair_cap is None else int(pair_cap)
+        self.pair_cap_factor = (
+            None if pair_cap_factor is None else float(pair_cap_factor)
+        )
+        self.max_resident_pairs = (
+            None if max_resident_pairs is None else int(max_resident_pairs)
+        )
 
         self._features = None
         self._RefineApprox = None
         self._ncm = None
         self._P_idx = None
+        self._IJs = None
+        self._ij_dev = None  # device pair list (ij_i, ij_j, m), scale path
+        self._S_raw = self._sid_raw = self._loc_eff_raw = None
         self._dev = None  # device-resident state (ops.device_pipeline)
         self._dev_eval = None  # device-id metric eval (fused pipeline)
         self.thresh = None  # host pipeline's per-point thresholds
@@ -249,6 +307,25 @@ class Annchor:
     def not_computed_mask(self, value):
         self._sync_from_device()
         self._ncm = value
+
+    @property
+    def IJs(self):
+        """The (m, 2) candidate pair array; a scale-path fit keeps it on
+        the device, and the host copy is assembled on first access."""
+        if self._IJs is None and self._ij_dev is not None:
+            ij_i, ij_j, m = self._ij_dev
+            self._IJs = torch.stack([ij_i[:m], ij_j[:m]], dim=1).cpu().numpy()
+        return self._IJs
+
+    @IJs.setter
+    def IJs(self, value):
+        self._IJs = value
+        self._ij_dev = None
+
+    # the locality by-products stay on the device; host copies on access
+    S = _host_property("_S_raw")
+    sid = _host_property("_sid_raw")
+    loc_eff = _host_property("_loc_eff_raw")
 
     @property
     def P_idx(self):
@@ -320,11 +397,81 @@ class Annchor:
     def get_locality(self):
         """Candidate pairs from shared near-anchor sets
         (reference annchor.py:208-256), and for the host pipeline the
-        padded point-incidence index."""
+        padded point-incidence index.  Above 4,096 points, or with
+        ``ANNCHOR_TPU_FORCE_SPARSE`` set (a test hook the JAX package
+        reads too), the default strategies take the scale path's
+        budgeted build, whose pair list stays on the device."""
+        device_ok = self._device_pipeline_ok()
+        if self.nx > DENSE_MAX_NX and not device_ok:
+            raise NotImplementedError(
+                "custom strategy objects above %d points need the host "
+                "pipeline's blocked candidate_pairs (ROADMAP Queue 1 item "
+                "17), not ported yet" % DENSE_MAX_NX
+            )
+        if device_ok and (
+            self.nx > DENSE_MAX_NX or os.environ.get("ANNCHOR_TPU_FORCE_SPARSE")
+        ):
+            self._budgeted_locality()
+        else:
+            self._dense_locality(device_ok)
+        if (self.P_cnt < self.n_neighbors).any():
+            raise Exception(
+                "Error: Not enough candidates in pool for all indices.\n"
+                + "Try again with higher locality."
+            )
+
+    def _budgeted_locality(self):
+        """The scale path's pair build (JAX annchor.py:475-526): an
+        explicit cap (``ANNCHOR_TPU_PAIR_CAP``, then ``pair_cap``), or for
+        metric fits the cap derived from the in-fit budget."""
+        env_cap = os.environ.get("ANNCHOR_TPU_PAIR_CAP")
+        cap = int(env_cap) if env_cap is not None else (self.pair_cap or 0)
+        if cap <= 0:
+            if not self.is_metric or os.environ.get("ANNCHOR_TPU_NO_PAIR_BUDGET"):
+                raise NotImplementedError(
+                    "non-metric fits and ANNCHOR_TPU_NO_PAIR_BUDGET take the "
+                    "admit-everything candidate_pairs_device with its "
+                    "auto-switch (ROADMAP Queue 1 item 15), not ported yet"
+                )
+            cap = max(
+                4 * self.n_neighbors,
+                int(round(
+                    self._pair_cap_factor() * self._p_work_fit * self.nx
+                    * self._mesh_scale()
+                )),
+            )
+        (
+            ij_i, ij_j, m, self.sid, self.S, self.loc_eff, self.P_cnt,
+        ) = candidate_pairs_device_budgeted(
+            self.D, self.locality, self.loc_thresh, self.loc_min, cap,
+            verbose=self.verbose, device=self.device,
+        )
+        self._IJs = None
+        self._ij_dev = (ij_i, ij_j, m)
+        self._P_idx = None  # the device pipeline builds its own
+
+    def _pair_cap_factor(self) -> float:
+        env = os.environ.get("ANNCHOR_TPU_PAIR_CAP_FACTOR")
+        if env is not None:
+            return float(env)
+        return 0.7 if self.pair_cap_factor is None else self.pair_cap_factor
+
+    def _mesh_scale(self) -> int:
+        """Devices the fit state shards over: one (the multi-device fit
+        is ROADMAP Queue 1 item 14)."""
+        return 1
+
+    @property
+    def _p_work_fit(self):
+        """The in-fit share of the eval allowance: refine_frac of p_work
+        is held back for the post-fit graph-expansion refinement."""
+        return self.p_work * (1.0 - self.refine_frac)
+
+    def _dense_locality(self, device_ok):
         self.IJs, self.sid, self.S, self.loc_eff = candidate_pairs(
             self.D, self.locality, self.loc_thresh, self.loc_min, self.device
         )
-        if self._device_pipeline_ok():
+        if device_ok:
             # the device pipeline builds its own incidence matrix; the
             # host copy stays lazy (P_idx property)
             self._P_idx = None
@@ -335,11 +482,6 @@ class Annchor:
         else:
             self.P_idx, self.P_cnt = pair_ops.build_point_index(
                 self.IJs, self.nx, self.device
-            )
-        if (self.P_cnt < self.n_neighbors).any():
-            raise Exception(
-                "Error: Not enough candidates in pool for all indices.\n"
-                + "Try again with higher locality."
             )
 
     def get_features_IJ(self, IJs, P_idx=None):
@@ -487,7 +629,7 @@ class Annchor:
         k-NN edges (reference annchor.py:395-473)."""
         nn = self.n_neighbors
         n_refine = max(
-            int((self.p_work * self.N - self.na - self.n_samples) * w) + 1, 0
+            int((self._p_work_fit * self.N - self.na - self.n_samples) * w) + 1, 0
         )
         if self._dev is not None:
             self.nextback = np.zeros(0, dtype=np.int64)
@@ -725,6 +867,22 @@ class Annchor:
 
         stage("finalise_bounds", self.finalise_bounds, origin)
         stage("get_ann", self.get_ann, origin)
+        if self.refine_frac > 0:
+            # the held-back share of p_work goes to graph expansion
+            stage(
+                "refine_neighbor_graph",
+                lambda: self.refine_neighbor_graph(rounds=self.refine_rounds),
+                origin,
+            )
+
+    def refine_neighbor_graph(self, rounds=2, budget=None):
+        """Post-fit graph-expansion refinement (``refine.py``): certify
+        the reported-but-predicted edges, then spend the rest of the
+        budget on triangle-screened 2-hop candidates.  The default
+        budget is the unspent p_work allowance."""
+        from annchor_tpu_torch.refine import refine_neighbor_graph
+
+        return refine_neighbor_graph(self, rounds=rounds, budget=budget)
 
     def _evaluate_remaining(self):
         """Tiny data sets: the stratified sampler cannot draw on the
@@ -733,7 +891,7 @@ class Annchor:
         whether it did so."""
         ncm = np.asarray(self.not_computed_mask)
         remaining = int(ncm.sum())
-        budget = int(self.p_work * self.N - self.na)
+        budget = int(self._p_work_fit * self.N - self.na)
         if remaining and remaining > budget:
             return False
         ids = np.flatnonzero(ncm).astype(np.int64)

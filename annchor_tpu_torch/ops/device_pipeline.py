@@ -1,7 +1,8 @@
-"""Device-resident fit pipeline, dense single-device mode.
+"""Device-resident fit pipeline on one device.
 
-Port of the JAX package's ``ops/device_pipeline.py`` for nx <= 4096.
-The whole per-pair state of a fit lives on one device as
+Port of the JAX package's single-device ``ops/device_pipeline.py``: the
+dense mode (nx <= 4096) and the scale path's sparse mode.  The whole
+per-pair state of a fit lives on one device as
 
     lb, ub, dad, RA : (m,) f32      ij_i, ij_j : (m,) i32
     ncm             : (m,) bool     P_idx      : (nx, max_deg) i32
@@ -10,6 +11,8 @@ and the orchestrator (``annchor.Annchor``) only moves the sample rows,
 the regression coefficients and the chosen pair ids across the host
 link.  The stage programs are plain functions on tensors, so a test can
 start any of them from the JAX package's own state (``convert.py``).
+Above MAX_FULL_MATRIX_NX points the tropical tighten's (nx, nx) matrix
+gives way to the column-subsampled ``tighten_cols``.
 
 Parity with the JAX programs:
 
@@ -26,6 +29,8 @@ kernel.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -33,6 +38,10 @@ from annchor_tpu_torch.ops.bounds_update import _build_E
 from annchor_tpu_torch.ops.features import bounds_dad_dev
 
 F32_INF = float("inf")
+
+# the tropical tighten's (nx, nx) matrices up to here; beyond it the
+# column-subsampled tighten
+MAX_FULL_MATRIX_NX = 4096
 
 
 def default_uniforms(random_seed: int, loop_num: int, m: int, device):
@@ -90,8 +99,8 @@ def jax_threefry_uniforms(random_seed: int, loop_num: int, m: int, device):
 
 def features(D32, ij_i, ij_j, chunk: int = 1 << 18):
     """LB/UB/dad for every pair (``ops.features.bounds_dad_dev``), in
-    chunks of ``chunk`` pairs."""
-    return bounds_dad_dev(D32, D32, ij_i.long(), ij_j.long(), chunk)
+    chunks of ``chunk`` pairs; the int32 pair columns index directly."""
+    return bounds_dad_dev(D32, D32, ij_i, ij_j, chunk)
 
 
 def regress_update(lb, ub, dad, RA, ncm, inner_edges, coefs, icepts,
@@ -194,23 +203,40 @@ def pidx_full(nx: int, device):
     return (a * nx - a * (a + 1) // 2 + (b - a - 1)).to(torch.int32)
 
 
-def pidx_from_pairs(ij_i, ij_j, nx: int, max_deg: int):
+def pidx_from_pairs(ij_i, ij_j, nx: int, max_deg: int, lb=None):
     """Padded (nx, max_deg) incidence matrix by a counting sort over the
     endpoint list (pad = m).  Row p lists p's pairs in the order of the
     stable sort: first those with p = ij_i, then those with p = ij_j,
-    each in pair-id order."""
+    each in pair-id order.
+
+    With ``lb`` (the pairs' lower bounds) the matrix is degree-capped:
+    each row keeps its ``max_deg`` pairs of smallest lower bound, in
+    ascending lower-bound order (a stable sort by lb, then a stable sort
+    by endpoint), and drops the rest.  Every pair stays in the flat pair
+    state; only the per-point passes lose a hub's farthest candidates."""
     dev = ij_i.device
     m = ij_i.shape[0]
     endpoints = torch.cat([ij_i, ij_j]).long()
-    pair_ids = torch.arange(m, dtype=torch.int32, device=dev).repeat(2)
-    order = torch.argsort(endpoints, stable=True)
+    if lb is None:
+        order = torch.argsort(endpoints, stable=True)
+    else:
+        o1 = torch.argsort(lb.repeat(2), stable=True)
+        order = o1[torch.argsort(endpoints[o1], stable=True)]
     se = endpoints[order]
     counts = torch.bincount(endpoints, minlength=nx)
     starts = torch.cumsum(counts, 0) - counts
     cols = torch.arange(2 * m, device=dev) - starts[se]
+    pair_ids = (order % max(m, 1)).to(torch.int32)  # order indexes [ij_i, ij_j]
+    if lb is not None:
+        fits = cols < max_deg
+        se, cols, pair_ids = se[fits], cols[fits], pair_ids[fits]
     P = torch.full((nx, max_deg), m, dtype=torch.int32, device=dev)
-    P[se, cols] = pair_ids[order]
+    P[se, cols] = pair_ids
     return P
+
+
+# resident (nx, max_deg) incidence budget: 2 GB of int32
+PIDX_BUDGET_ELEMS = 1 << 29
 
 
 def _row_block(nx: int, max_deg: int, budget: int = 1 << 27) -> int:
@@ -339,6 +365,103 @@ def tighten_full(ij_i, ij_j, RA, ncm, lb, ub, nx: int, block: int = 16):
     return lb2, ub2
 
 
+def tighten_cols_prep(ij_i, ij_j, ncm, lb, thresh, ncol: int, ncol_pad: int,
+                      cmax: int):
+    """The column passes' inputs: the pseudo-anchor columns, the ``ncol``
+    points of highest computed degree (ties to the lower index, as
+    ``lax.top_k``: a stable descending sort), padded to ``ncol_pad`` with
+    repeats of the first; and the contender pairs, uncomputed with a
+    lower bound under the larger endpoint threshold, the first ``cmax``
+    in id order.  Returns (cols int64 (ncol_pad,), contender ids int64
+    (<= cmax,))."""
+    nx = thresh.shape[0]
+    done = ~ncm
+    deg = torch.bincount(ij_i[done], minlength=nx) + torch.bincount(
+        ij_j[done], minlength=nx
+    )
+    cols = torch.sort(deg, descending=True, stable=True).indices[:ncol]
+    if ncol_pad > ncol:
+        cols = torch.cat([cols, cols[:1].expand(ncol_pad - ncol)])
+    cap = torch.maximum(thresh[ij_i], thresh[ij_j])
+    ids = torch.nonzero(ncm & (lb < cap))[:cmax, 0]
+    return cols, ids
+
+
+def _column_panel(ij_i, ij_j, RA, ncm, cols, n_real: int, nx: int, P_idx=None):
+    """E (nx, len(cols)) float32: E[p, c] is the computed distance of the
+    pair (p, cols[c]), +inf where that pair is untracked or uncomputed.
+
+    Without ``P_idx`` the panel is a scatter of the computed pairs that
+    touch one of the first ``n_real`` columns (the padding columns stay
+    +inf).  With an uncapped incidence matrix it is built from the
+    column points' incidence rows instead, which enumerate exactly those
+    pairs (padding columns repeat their column's entries).  Either way
+    the target slots are unique, so the panel is the same."""
+    m = RA.shape[0]
+    ncol = cols.shape[0]
+    E = torch.full((nx, ncol), F32_INF, dtype=torch.float32, device=RA.device)
+    if P_idx is None:
+        col_of = torch.full((nx,), -1, dtype=torch.int64, device=RA.device)
+        col_of[cols[:n_real]] = torch.arange(n_real, device=RA.device)
+        done = torch.nonzero(~ncm)[:, 0]
+        i, j, d = ij_i[done], ij_j[done], RA[done]
+        for p, q in ((j, i), (i, j)):
+            c = col_of[q]
+            hit = c >= 0
+            E[p[hit].long(), c[hit]] = d[hit]
+        return E
+    rows = P_idx[cols].long()  # (ncol, max_deg), pad = m
+    tracked = rows < m
+    r = rows.clamp(max=m - 1)
+    good = tracked & ~ncm[r]
+    partner = (ij_i[r].long() + ij_j[r].long()) - cols[:, None]
+    c_idx = torch.arange(ncol, device=RA.device)[:, None].expand_as(rows)
+    E[partner[good], c_idx[good]] = RA[r][good]
+    return E
+
+
+def tighten_cols(ij_i, ij_j, RA, ncm, lb, ub, thresh, ncol: int, cmax: int,
+                 chunk: int = 65536, P_idx=None, col_chunk: int | None = None):
+    """Column-subsampled bound tightening for nx > 4096.
+
+    The full tropical self-product needs an (nx, nx) matrix; here the
+    pseudo-anchors are the ``ncol`` highest-computed-degree points (any
+    column subset gives valid bounds), and only the contender pairs (at
+    most ``cmax``) are updated, ``chunk`` at a time:
+
+        lb' = max(lb, max_c |E[i,c] - E[j,c]|)   (both entries present)
+        ub' = min(ub, min_c  E[i,c] + E[j,c])
+
+    The (nx, ncol) panel is built ``col_chunk`` columns at a time
+    (~2^28 elements) and lb/ub thread through the passes; max and min
+    are order-free, so any split gives the same bits.  ``P_idx`` must be
+    an uncapped incidence matrix or None (``_column_panel``)."""
+    nx = thresh.shape[0]
+    if col_chunk is None:
+        col_chunk = max(256, (1 << 28) // max(nx, 1))
+    col_chunk = min(ncol, col_chunk)
+    ncol_pad = ((ncol + col_chunk - 1) // col_chunk) * col_chunk
+    cols, ids = tighten_cols_prep(ij_i, ij_j, ncm, lb, thresh, ncol, ncol_pad, cmax)
+    lb = lb.clone()
+    ub = ub.clone()
+    for c0 in range(0, ncol_pad, col_chunk):
+        E = _column_panel(
+            ij_i, ij_j, RA, ncm, cols[c0 : c0 + col_chunk],
+            min(col_chunk, ncol - c0), nx, P_idx,
+        )
+        for s in range(0, ids.shape[0], chunk):
+            sel = ids[s : s + chunk]
+            Ei = E[ij_i[sel].long()]
+            Ej = E[ij_j[sel].long()]
+            both = (Ei < F32_INF) & (Ej < F32_INF)
+            lb_new = torch.where(both, (Ei - Ej).abs(), 0.0).amax(dim=1)
+            ub_new = (Ei + Ej).amin(dim=1)
+            lb[sel] = torch.maximum(lb[sel], lb_new)
+            ub[sel] = torch.minimum(ub[sel], ub_new)
+        del E
+    return lb, ub
+
+
 def clip_ra(RA, ncm, lb, ub):
     """Re-clip the never-computed estimates into the tightened interval."""
     return torch.where(ncm, torch.minimum(torch.maximum(RA, lb), ub), RA)
@@ -382,44 +505,107 @@ def knn(RA, ncm, P_idx, ij_i, ij_j, nn: int):
 # the fit state
 
 
+class ExactStore:
+    """Sparse float64 store of computed pair distances, keyed by pair id
+    and kept id-sorted for batched binary-search lookup.  Scale-path fits
+    keep it instead of an m-sized host mirror: only the evaluated pairs
+    (the eval budget) ever exist on the host."""
+
+    def __init__(self):
+        self.ids = np.empty(0, np.int64)
+        self.vals = np.empty(0, np.float64)
+
+    def add(self, ids, vals):
+        """Insert values; an id repeated in the batch keeps its first
+        value, and an id already stored has its value refreshed.  Returns
+        the number of ids not stored before (the sampling budget drops
+        by this, so repeats cannot drift it)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        vals = np.asarray(vals, dtype=np.float64)
+        uids, first = np.unique(ids, return_index=True)
+        uvals = vals[first]
+        pos = np.searchsorted(self.ids, uids)
+        if self.ids.shape[0]:
+            pos_c = np.clip(pos, 0, self.ids.shape[0] - 1)
+            exists = self.ids[pos_c] == uids
+            if exists.any():
+                self.vals[pos_c[exists]] = uvals[exists]
+                uids, uvals, pos = uids[~exists], uvals[~exists], pos[~exists]
+        self.ids = np.insert(self.ids, pos, uids)
+        self.vals = np.insert(self.vals, pos, uvals)
+        return int(uids.shape[0])
+
+    def lookup(self, q):
+        """Values for the pair ids ``q`` (any shape), NaN where none is
+        stored."""
+        q = np.asarray(q, dtype=np.int64)
+        out = np.full(q.shape, np.nan)
+        if self.ids.shape[0] == 0:
+            return out
+        pos = np.clip(np.searchsorted(self.ids, q), 0, self.ids.shape[0] - 1)
+        hit = self.ids[pos] == q
+        out[hit] = self.vals[pos[hit]]
+        return out
+
+
 class DeviceFitState:
-    """Device-resident pair state of a dense fit plus the host mirrors
-    (the not-computed mask and the exact float64 values) that keep the
-    orchestrator's plug-in surface intact."""
+    """Device-resident pair state of a fit plus its host bookkeeping.
+
+    Dense fits (nx <= 4096) keep host mirrors of the not-computed mask
+    and of the exact float64 values (an m-sized array).  Scale-path fits
+    (``ann._ij_dev`` set) run in sparse mode: the pair list comes from
+    the device build and never reaches the host, the not-computed mask
+    lives only on the device, and the exact values sit in an
+    ``ExactStore`` sized by the eval budget."""
 
     CDF_GRID = 4096
+    TIGHTEN_NCOL = 2048  # pseudo-anchor columns above MAX_FULL_MATRIX_NX
+    TIGHTEN_CMAX = 1 << 23  # contender pairs per column tighten
 
     def __init__(self, ann):
         self.ann = ann
         self.device = dev = ann.device
         nx = ann.nx
-        IJs = ann.IJs
-        self.m = IJs.shape[0]
-        self.ij_i = torch.as_tensor(IJs[:, 0].astype(np.int32), device=dev)
-        self.ij_j = torch.as_tensor(IJs[:, 1].astype(np.int32), device=dev)
+        self.sparse = ann._ij_dev is not None
+        if self.sparse:
+            self.ij_i, self.ij_j, self.m = ann._ij_dev
+        else:
+            IJs = ann.IJs
+            self.m = IJs.shape[0]
+            self.ij_i = torch.as_tensor(IJs[:, 0].astype(np.int32), device=dev)
+            self.ij_j = torch.as_tensor(IJs[:, 1].astype(np.int32), device=dev)
 
         D32 = torch.as_tensor(np.asarray(ann.D, dtype=np.float32), device=dev)
-        self.lb, self.ub, self.dad = features(D32, self.ij_i, self.ij_j)
+        # keep the (chunk, na) gathers near 0.5 GB
+        fchunk = max(1 << 18, (1 << 27) // max(D32.shape[1], 1))
+        self.lb, self.ub, self.dad = features(D32, self.ij_i, self.ij_j, fchunk)
 
-        if self.m == nx * (nx - 1) // 2:
+        if not self.sparse and self.m == nx * (nx - 1) // 2:
             self.P_idx_d = pidx_full(nx, dev)
+            self._pidx_capped = True
         else:
-            # dense fits never reach the reference's degree cap
-            # (2^29 // nx entries per row > nx), so the matrix is exact
-            max_deg = int(np.asarray(ann.P_cnt).max())
-            self.P_idx_d = pidx_from_pairs(self.ij_i, self.ij_j, nx, max_deg)
+            self._rebuild_pidx()
 
         anchor_np = np.zeros(nx, dtype=bool)
         if len(ann.A):
             anchor_np[np.asarray(ann.A, dtype=int)] = True
-        self.anchor_flag = anchor_np[IJs[:, 0]] | anchor_np[IJs[:, 1]]
-        self.ncm_host = ~self.anchor_flag
-        self.ncm = torch.as_tensor(self.ncm_host, device=dev)
-        self.pool = int(self.ncm_host.sum())
-        self.exact64 = np.full(self.m, np.nan)
-        ids = np.flatnonzero(self.anchor_flag)
-        self._anchor_ids = ids if ids.shape[0] else None
-        self._fill_anchor_exacts(ids)
+        if self.sparse:
+            self.anchor_flag = self.ncm_host = None
+            is_anchor = torch.as_tensor(anchor_np, device=dev)
+            af = is_anchor[self.ij_i] | is_anchor[self.ij_j]
+            self.ncm = ~af
+            self.exact = ExactStore()
+            ids = torch.nonzero(af)[:, 0].cpu().numpy()
+            self.pool = self.m - ids.shape[0]
+        else:
+            self.anchor_flag = anchor_np[IJs[:, 0]] | anchor_np[IJs[:, 1]]
+            self.ncm_host = ~self.anchor_flag
+            self.ncm = torch.as_tensor(self.ncm_host, device=dev)
+            self.pool = int(self.ncm_host.sum())
+            self.exact64 = np.full(self.m, np.nan)
+            ids = np.flatnonzero(self.anchor_flag)
+        self._anchor_ids = ids.astype(np.int64) if ids.shape[0] else None
+        self._fill_anchor_exacts(self._anchor_ids)
 
         self.RA = torch.zeros(self.m, dtype=torch.float32, device=dev)
         self.thresh = None
@@ -433,22 +619,51 @@ class DeviceFitState:
             ids = self._anchor_ids
             self._override = (
                 torch.as_tensor(ids, device=dev),
-                torch.as_tensor(self.exact64[ids].astype(np.float32), device=dev),
+                torch.as_tensor(self._exact_at(ids).astype(np.float32), device=dev),
             )
+
+    def _rebuild_pidx(self):
+        """Incidence matrix on the device.  Rows are capped at
+        max(2 nn, PIDX budget / nx) entries (``ANNCHOR_TPU_PIDX_BUDGET``
+        overrides the 2^29-element budget); a capped matrix keeps each
+        row's smallest-lower-bound pairs and cannot feed the column
+        tighten's panel build."""
+        ann = self.ann
+        nx = ann.nx
+        max_deg = int(np.asarray(ann.P_cnt).max())
+        budget = int(os.environ.get("ANNCHOR_TPU_PIDX_BUDGET", PIDX_BUDGET_ELEMS))
+        cap = max(2 * ann.n_neighbors, budget // max(nx, 1))
+        self._pidx_capped = max_deg > cap
+        if self._pidx_capped:
+            self.P_idx_d = pidx_from_pairs(self.ij_i, self.ij_j, nx, cap, lb=self.lb)
+        else:
+            self.P_idx_d = pidx_from_pairs(self.ij_i, self.ij_j, nx, max_deg)
 
     def _pairs_at(self, ids):
         """(len, 2) int64 host pair coordinates for pair ids."""
-        return self.ann.IJs[ids].astype(np.int64)
+        if not self.sparse:
+            return self.ann.IJs[ids].astype(np.int64)
+        idd = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        return torch.stack([self.ij_i[idd], self.ij_j[idd]], dim=1).cpu().numpy().astype(
+            np.int64
+        )
+
+    def _exact_at(self, ids):
+        """Stored exact values of pair ids (NaN where none)."""
+        return self.exact.lookup(ids) if self.sparse else self.exact64[ids]
 
     def _store_exact(self, ids, vals):
         # pool decrements by the count of genuinely new ids, so repeats
         # cannot drift the sampling budget
         ids = np.asarray(ids, dtype=np.int64)
         vals = np.asarray(vals, dtype=np.float64)
-        uids, first = np.unique(ids, return_index=True)
-        n_new = int(np.count_nonzero(self.ncm_host[uids]))
-        self.ncm_host[uids] = False
-        self.exact64[uids] = vals[first]
+        if self.sparse:
+            n_new = self.exact.add(ids, vals)
+        else:
+            uids, first = np.unique(ids, return_index=True)
+            n_new = int(np.count_nonzero(self.ncm_host[uids]))
+            self.ncm_host[uids] = False
+            self.exact64[uids] = vals[first]
         self.pool -= n_new
 
     def _fill_anchor_exacts(self, ids):
@@ -464,7 +679,11 @@ class DeviceFitState:
         i_is_anchor = col_of[ii] >= 0
         other = np.where(i_is_anchor, jj, ii)
         col = np.where(i_is_anchor, col_of[ii], col_of[jj])
-        self.exact64[ids] = np.asarray(ann.D)[other, col]
+        vals = np.asarray(ann.D)[other, col]
+        if self.sparse:
+            self.exact.add(ids, vals)
+        else:
+            self.exact64[ids] = vals
 
     # -- stage methods ------------------------------------------------------
 
@@ -540,7 +759,9 @@ class DeviceFitState:
         feats[:, 0] = lb
         feats[:, 1] = ub
         feats[:, 2] = dad
-        feats[:, 3] = self.anchor_flag[ids]
+        # samples come from the not-computed pool, which holds no anchor
+        # pair: the sparse state has no host anchor flag to read
+        feats[:, 3] = 0.0 if self.sparse else self.anchor_flag[ids]
         IJ = np.stack([ii, jj], axis=1).astype(np.int64)
         if y is not None:
             y = y.cpu().numpy().astype(np.float64)[keep]
@@ -637,20 +858,29 @@ class DeviceFitState:
         return n_ref
 
     def _flush_exacts(self):
-        """Land every deferred fused-select batch in the host mirrors."""
+        """Land every deferred fused-select batch in the host store
+        (the pool was settled when the batch ran)."""
         for ch, yv in self._pending_exact:
             ids = ch.cpu().numpy().astype(np.int64)
-            self.ncm_host[ids] = False
-            self.exact64[ids] = yv.cpu().numpy().astype(np.float64)
+            vals = yv.cpu().numpy().astype(np.float64)
+            if self.sparse:
+                self.exact.add(ids, vals)
+            else:
+                self.ncm_host[ids] = False
+                self.exact64[ids] = vals
         self._pending_exact = []
 
     def seed_ra_from_store(self):
         """Scatter every stored exact value into the device RA (for fits
         that end before the first regression predict ran)."""
         self._flush_exacts()
-        ids = np.flatnonzero(~self.ncm_host).astype(np.int64)
+        if self.sparse:
+            ids, vals = self.exact.ids, self.exact.vals
+        else:
+            ids = np.flatnonzero(~self.ncm_host).astype(np.int64)
+            vals = self.exact64[ids]
         if ids.shape[0]:
-            self.apply_exact(ids, self.exact64[ids])
+            self.apply_exact(ids, vals)
 
     def apply_exact(self, ids, vals):
         idd = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
@@ -659,8 +889,22 @@ class DeviceFitState:
         self._store_exact(ids, vals)
 
     def tighten(self):
-        self.lb, self.ub = tighten_full(
-            self.ij_i, self.ij_j, self.RA, self.ncm, self.lb, self.ub, self.ann.nx
+        """Tropical tighten of every pending pair up to
+        MAX_FULL_MATRIX_NX points; above it the column-subsampled
+        tighten of the contender pairs, which needs the thresholds of a
+        selection."""
+        nx = self.ann.nx
+        if nx <= MAX_FULL_MATRIX_NX:
+            self.lb, self.ub = tighten_full(
+                self.ij_i, self.ij_j, self.RA, self.ncm, self.lb, self.ub, nx
+            )
+            return
+        if self.thresh is None:
+            return
+        self.lb, self.ub = tighten_cols(
+            self.ij_i, self.ij_j, self.RA, self.ncm, self.lb, self.ub, self.thresh,
+            min(self.TIGHTEN_NCOL, nx), int(min(self.TIGHTEN_CMAX, self.m)),
+            P_idx=None if self._pidx_capped else self.P_idx_d,
         )
 
     def finalise(self):
@@ -680,7 +924,7 @@ class DeviceFitState:
         pair_ids = pair_ids.astype(np.int64)
         ngi = partners.astype(np.int64)
         ra_sel = ra_sel.astype(np.float64)
-        exact = self.exact64[np.clip(pair_ids, 0, self.m - 1)]
+        exact = self._exact_at(np.clip(pair_ids, 0, self.m - 1))
         is_exact = (pair_ids < self.m) & sel_cm
         self.ng_exact_mask = is_exact
         ngd = np.where(is_exact & ~np.isnan(exact), exact, ra_sel)
@@ -689,23 +933,35 @@ class DeviceFitState:
     # -- host materialisation ------------------------------------------------
 
     def ncm_to_host(self):
+        """The host not-computed mask (downloaded in sparse mode)."""
         self._flush_exacts()
+        if self.sparse:
+            return self.ncm.cpu().numpy()
         return self.ncm_host
 
     def materialise(self):
         """Float64 host arrays (features, RA, ncm); exact values keep
-        full precision from the host mirror."""
+        full precision from the host store."""
         self._flush_exacts()
+        if self.sparse:
+            af = np.zeros(self.m, dtype=np.float64)
+            if self._anchor_ids is not None:
+                af[self._anchor_ids] = 1.0
+        else:
+            af = self.anchor_flag.astype(np.float64)
         features = np.stack(
             [
                 self.lb.cpu().numpy().astype(np.float64),
                 self.ub.cpu().numpy().astype(np.float64),
                 self.dad.cpu().numpy().astype(np.float64),
-                self.anchor_flag.astype(np.float64),
+                af,
             ],
             axis=1,
         )
         RA = self.RA.cpu().numpy().astype(np.float64)
+        if self.sparse:
+            RA[self.exact.ids] = self.exact.vals
+            return features, RA, self.ncm_to_host()
         have = ~np.isnan(self.exact64)
         RA[have] = self.exact64[have]
         return features, RA, self.ncm_host.copy()

@@ -1,4 +1,4 @@
-"""Candidate-pair generation from anchor localities, dense branch.
+"""Candidate-pair generation from anchor localities.
 
 For every point, its `locality` nearest anchors; pair (i, j) is a
 k-NN candidate iff the two sets share enough anchors, with a per-row
@@ -9,18 +9,38 @@ product S @ S.T, and the symmetrised test is
 
     counts[i, j] >= min(eff[i], eff[j])          (i < j)
 
-Only the single-block case (nx <= 4096) is ported; the blocked and
-budgeted builds of the scale path are not.
+Two builds are ported:
+
+* the dense single-block build (``candidate_pairs``, nx <= 4096), which
+  returns the host pair list;
+* the scale path's budgeted two-pass band build
+  (``candidate_pairs_device_budgeted``), which keeps each point's
+  ``per_point_cap`` smallest-lower-bound candidates and returns the pair
+  list as int32 tensors on the device.
+
+The shared-anchor counts are float32 products of 0/1 matrices whose
+sums are at most ``locality``: exact whether or not the caller lets
+matmuls run in TF32, whose 10-bit mantissa holds 0 and 1 exactly.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from annchor_tpu_torch.ops.features import anchor_membership, shared_anchor_counts
+from annchor_tpu_torch.progress import progress
 
 DENSE_MAX_NX = 4096
+
+# max elements of the dense (rows, nxp) keep panel one extraction
+# handles; module-level so tests can shrink it to exercise the row slices
+_EXTRACT_ELEMS = 1 << 28
+
+# max elements of one (rows, cols, na) linf broadcast temporary
+_LINF_ELEMS = 1 << 26
 
 
 def _fused_locality(D32, locality: int, loc_min: int, loc_thresh: int):
@@ -53,8 +73,8 @@ def candidate_pairs(D, locality: int, loc_thresh: int, loc_min: int, device):
     nx = D.shape[0]
     if nx > DENSE_MAX_NX:
         raise NotImplementedError(
-            "nx = %d > %d needs the blocked scale-path locality build "
-            "(ROADMAP Queue 1 item 13), not ported yet" % (nx, DENSE_MAX_NX)
+            "nx = %d > %d needs the blocked host candidate_pairs "
+            "(ROADMAP Queue 1 item 17), not ported yet" % (nx, DENSE_MAX_NX)
         )
     D32 = torch.as_tensor(D.astype(np.float32), device=device)
     S, sid, eff, keep = _fused_locality(
@@ -63,3 +83,225 @@ def candidate_pairs(D, locality: int, loc_thresh: int, loc_min: int, device):
     )
     IJs = torch.nonzero(keep).to(torch.int32).cpu().numpy()
     return IJs, sid, S, eff
+
+
+# ---------------------------------------------------------------------------
+# scale path: blocked thresholds and the budgeted band build
+
+
+def _block_kth(S, Sb, loc_min: int, locality: int):
+    """Per row of the block Sb, the number of c in 1..locality whose
+    count of columns sharing >= c anchors exceeds loc_min: the
+    (loc_min+1)-th largest shared-anchor count, by the integer-histogram
+    trick.  Returns float32 (rows,)."""
+    counts = shared_anchor_counts(Sb, S)
+    kth = torch.zeros(Sb.shape[0], dtype=torch.float32, device=S.device)
+    for c in range(1, locality + 1):
+        kth += ((counts >= c).sum(dim=1) > loc_min).to(torch.float32)
+    return kth
+
+
+def effective_thresholds(S, loc_thresh: float, loc_min: int, block: int = 4096,
+                         locality: int | None = None):
+    """Per-row effective threshold eff[i] = min(loc_thresh,
+    kth_largest_i), in row blocks of ``block`` so no (nx, nx) count
+    matrix exists.  S: (nx, na) float32 0/1 tensor.  Returns float32
+    (nx,) on S's device."""
+    nx = S.shape[0]
+    if locality is None:
+        locality = int(S.sum(dim=1).max())
+    eff = torch.empty(nx, dtype=torch.float32, device=S.device)
+    for s in range(0, nx, block):
+        eff[s : s + block] = _block_kth(S, S[s : s + block], loc_min, locality)
+    return torch.clamp(eff, max=float(np.float32(loc_thresh)))
+
+
+def _band_linf(Db, Dc):
+    """(B, C) triangle lower bounds max_k |Db[i,k] - Dc[j,k]| in float32.
+    The (B, cols, na) broadcast runs over column slices of at most
+    ``_LINF_ELEMS`` elements; max is order-free, so the slicing changes
+    no bit."""
+    B, na = Db.shape
+    C = Dc.shape[0]
+    step = max(1, _LINF_ELEMS // max(B * na, 1))
+    if step >= C:
+        return (Db[:, None, :] - Dc[None, :, :]).abs_().amax(dim=2)
+    out = torch.empty((B, C), dtype=torch.float32, device=Db.device)
+    for c0 in range(0, C, step):
+        out[:, c0 : c0 + step] = (
+            (Db[:, None, :] - Dc[None, c0 : c0 + step, :]).abs_().amax(dim=2)
+        )
+    return out
+
+
+def _band_admitted(Sb, Sc, eb, ec, rows, c0: int, nx: int, upper: bool):
+    """Filter-admitted mask of a band-vs-chunk block: shared-anchor
+    count >= min(eff_row, eff_col), off the diagonal (``upper``: strictly
+    above it), real columns only.  A row whose effective threshold is 0
+    admits every column, the padding past nx included, so the padding is
+    masked here (ROADMAP F6)."""
+    counts = shared_anchor_counts(Sb, Sc)
+    thr = torch.minimum(eb[:, None], ec[None, :])
+    cols = c0 + torch.arange(Sc.shape[0], device=Sb.device)
+    off = cols[None, :] > rows[:, None] if upper else cols[None, :] != rows[:, None]
+    return (counts >= thr) & off & (cols < nx)[None, :]
+
+
+def _band_bins_sym(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin,
+                   nbins: int, cchunk: int):
+    """int16 (B, nxp) binned triangle lower bounds of a row band against
+    every column, symmetric admitted view; the sentinel ``nbins`` marks
+    non-candidates.  ``inv_bin`` is a float32 0-d tensor: the product
+    lb * inv_bin is rounded to float32, then truncated to int32."""
+    B = Sb.shape[0]
+    nxp = Sp.shape[0]
+    rows = row_off + torch.arange(B, device=Sb.device)
+    out = torch.full((B, nxp), nbins, dtype=torch.int16, device=Sb.device)
+    for c0 in range(0, nxp, cchunk):
+        c1 = c0 + cchunk
+        adm = _band_admitted(Sb, Sp[c0:c1], eb, effp[c0:c1], rows, c0, nx, upper=False)
+        lb = _band_linf(Db, D32p[c0:c1])
+        b = (lb * inv_bin).to(torch.int32).clamp_(0, nbins - 1)
+        out[:, c0:c1] = torch.where(adm, b, nbins).to(torch.int16)
+    return out
+
+
+def _band_thr_from_bins(BINs, cap: int, bin_w, nbins: int):
+    """Per-row lower-bound threshold from the binned band: (first bin
+    whose cumulative count reaches ``cap`` + 1) * bin_w, found by
+    log2(nbins) bisection steps; +inf for rows with fewer than ``cap``
+    candidates.  ``bin_w`` is a float32 0-d tensor."""
+    kept = (BINs < nbins).sum(dim=1)
+    B = BINs.shape[0]
+    lo = torch.zeros(B, dtype=torch.int32, device=BINs.device)
+    hi = torch.full((B,), nbins - 1, dtype=torch.int32, device=BINs.device)
+    for _ in range(int(nbins - 1).bit_length()):
+        mid = (lo + hi) // 2
+        hit = (BINs <= mid[:, None].to(torch.int16)).sum(dim=1) >= cap
+        hi = torch.where(hit, mid, hi)
+        lo = torch.where(hit, lo, mid + 1)
+    thr = (lo.to(torch.float32) + 1.0) * bin_w
+    return torch.where(kept >= cap, thr, float("inf"))
+
+
+def _band_keep2_dense(D32p, Sp, Sb, Db, eb, effp, thr_all, row_off: int, nx: int,
+                      cchunk: int):
+    """Pass-2 keep mask of a row band: upper-triangular admitted pairs
+    whose lower bound is under either endpoint's threshold.  Returns
+    (keep (B, nxp) bool, rowcnt (B,), colcnt (nxp,))."""
+    B = Sb.shape[0]
+    nxp = Sp.shape[0]
+    rows = row_off + torch.arange(B, device=Sb.device)
+    thr_rows = thr_all[row_off : row_off + B]
+    keep = torch.empty((B, nxp), dtype=torch.bool, device=Sb.device)
+    for c0 in range(0, nxp, cchunk):
+        c1 = c0 + cchunk
+        adm = _band_admitted(Sb, Sp[c0:c1], eb, effp[c0:c1], rows, c0, nx, upper=True)
+        lb = _band_linf(Db, D32p[c0:c1])
+        keep[:, c0:c1] = adm & (
+            lb <= torch.maximum(thr_rows[:, None], thr_all[None, c0:c1])
+        )
+    return keep, keep.sum(dim=1), keep.sum(dim=0)
+
+
+def _extract_rows(keep, row_off: int, rows_per: int):
+    """The set entries of a band keep mask as int32 (i, j) in row-major
+    order, one ``torch.nonzero`` per slice of ``rows_per`` rows (slices
+    concatenate in row-major order, so the split changes nothing)."""
+    parts_i, parts_j = [], []
+    for r0 in range(0, keep.shape[0], rows_per):
+        nz = torch.nonzero(keep[r0 : r0 + rows_per])
+        if nz.shape[0]:
+            parts_i.append((nz[:, 0] + (row_off + r0)).to(torch.int32))
+            parts_j.append(nz[:, 1].to(torch.int32))
+    return parts_i, parts_j
+
+
+def candidate_pairs_device_budgeted(
+    D,
+    locality: int,
+    loc_thresh: int,
+    loc_min: int,
+    per_point_cap: int,
+    block: int = 4096,
+    nbins: int = 256,
+    verbose: bool = False,
+    device="cpu",
+):
+    """Two-pass band build of the budgeted candidate set: every point
+    keeps its ``per_point_cap`` smallest-lower-bound admitted candidates
+    (bin-conservative), and a pair is tracked if it is under either
+    endpoint's threshold.
+
+    Pass 1 bins each row band's triangle lower bounds (symmetric view,
+    so a row sees every admitted partner) and derives each point's
+    threshold; pass 2 re-streams the bands, keeps the pairs i < j under
+    either threshold and extracts them.  Only one band's (block, nxp)
+    state is live at a time; the result stays on the device.
+
+    D: (nx, na) anchor distances (numpy).  Returns (ij_i, ij_j int32
+    tensors, m, sid, S, eff tensors, P_cnt int32 numpy (nx,)); the pair
+    list is row-major, as the JAX package's."""
+    score = os.environ.get("ANNCHOR_TPU_BUILD_SCORE", "linf")
+    if score == "rms":
+        raise NotImplementedError(
+            "ANNCHOR_TPU_BUILD_SCORE=rms (the matmul-form ranking score) "
+            "is ROADMAP Queue 1 item 16, not ported yet"
+        )
+    D = np.asarray(D)
+    nx = D.shape[0]
+    dev = torch.device(device)
+    S, sid = anchor_membership(D, locality, dev)
+    eff = effective_thresholds(S, loc_thresh, loc_min, block=block, locality=locality)
+    D32 = torch.as_tensor(D.astype(np.float32), device=dev)
+    lb_max = float(2.0 * D.max()) + 1e-6
+    inv_bin = torch.tensor(np.float32(nbins / lb_max), device=dev)
+    bin_w = torch.tensor(np.float32(lb_max / nbins), device=dev)
+
+    # band and column-chunk sizes as the JAX package picks them
+    nblk = min(block, nx)
+    while nblk * nx > (1 << 31) - 1 and nblk > 256:
+        nblk //= 2
+    nxp = ((nx + nblk - 1) // nblk) * nblk
+    while nblk * nxp > (1 << 31) - 1 and nblk > 256:
+        nblk //= 2
+        nxp = ((nx + nblk - 1) // nblk) * nblk
+    cchunk = 2048 if nblk % 2048 == 0 else nblk
+    # padded points: no anchors, an infinite threshold, masked columns
+    pad = nxp - nx
+    Sp = torch.nn.functional.pad(S, (0, 0, 0, pad))
+    D32p = torch.nn.functional.pad(D32, (0, 0, 0, pad))
+    effp = torch.nn.functional.pad(eff, (0, pad), value=float("inf"))
+
+    def band(s):
+        return Sp[s : s + nblk], D32p[s : s + nblk], effp[s : s + nblk]
+
+    thr = torch.empty(nxp, dtype=torch.float32, device=dev)
+    for s in progress(range(0, nxp, nblk), "pair-budget pass 1", verbose):
+        Sb, Db, eb = band(s)
+        BINs = _band_bins_sym(D32p, Sp, Sb, Db, eb, effp, s, nx, inv_bin, nbins, cchunk)
+        thr[s : s + nblk] = _band_thr_from_bins(BINs, int(per_point_cap), bin_w, nbins)
+        del BINs
+
+    rows_per = max(1, min(nblk, _EXTRACT_ELEMS // max(nxp, 1)))
+    parts_i, parts_j = [], []
+    P_cnt = torch.zeros(nxp, dtype=torch.int64, device=dev)
+    for s in progress(range(0, nxp, nblk), "pair-budget pass 2", verbose):
+        Sb, Db, eb = band(s)
+        keep, rowcnt, colcnt = _band_keep2_dense(
+            D32p, Sp, Sb, Db, eb, effp, thr, s, nx, cchunk
+        )
+        P_cnt += colcnt
+        P_cnt[s : s + nblk] += rowcnt
+        pi, pj = _extract_rows(keep, s, rows_per)
+        parts_i += pi
+        parts_j += pj
+        del keep
+    if parts_i:
+        ij_i = torch.cat(parts_i)
+        ij_j = torch.cat(parts_j)
+    else:
+        ij_i = torch.zeros(0, dtype=torch.int32, device=dev)
+        ij_j = torch.zeros(0, dtype=torch.int32, device=dev)
+    P_cnt = P_cnt[:nx].cpu().numpy().astype(np.int32)
+    return ij_i, ij_j, int(ij_i.shape[0]), sid, S, eff, P_cnt

@@ -1,0 +1,237 @@
+"""Post-fit graph-expansion refinement, host screen.
+
+Port of the JAX package's ``refine.py`` host path.  The metric
+evaluations run through the fit's evaluator ``ann.get_exact_ijs`` (the
+hand-written pair kernel for the Levenshtein metric on a card);
+everything else is flat-array numpy over the (point, partner, distance)
+pool.  ``Annchor.refine_neighbor_graph`` is the public entry point.
+
+Not ported yet: the device twin of the 2-hop screen
+(``ANNCHOR_TPU_FORCE_DEVICE_EXPAND``, ROADMAP Queue 1 item 9, after
+F1), and the free merges from a loaded checkpoint's exact store, which
+arrive with persistence (item 11).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+__all__ = ["refine_neighbor_graph"]
+
+
+def refine_neighbor_graph(ann, rounds=2, budget=None):
+    """Post-fit graph-expansion refinement: spend extra exact metric
+    calls on the 2-hop neighbourhood of the fitted graph and re-rank.
+
+    A true neighbour the candidate filter or pair budget discarded is
+    almost always a graph-neighbour of a found one.  First the
+    reported-but-predicted edges are certified (exactly re-evaluated,
+    smallest first); then each round proposes (i, l) for every l in the
+    row of every current neighbour j of i, screens by the triangle lower
+    bound |d(i,j) - d(j,l)| against the rows' kth distances, evaluates
+    the survivors under the budget in per-point fair shares ordered by
+    the triangle upper bound d(i,j) + d(j,l), and merges.
+
+    budget: extra exact evaluations allowed.  Default: the unspent
+    p_work allowance (int(p_work * N) - evals, floored at 0).  Returns
+    the refined (indices, distances) and updates ``ann.neighbor_graph``,
+    ``ann._ng_exact``, ``ann.evals`` and the per-stage accounting
+    ``ann._refine_stats``."""
+    if ann.neighbor_graph is None:
+        raise ValueError("refine_neighbor_graph: fit() has not been run")
+    if os.environ.get("ANNCHOR_TPU_FORCE_DEVICE_EXPAND") and not os.environ.get(
+        "ANNCHOR_TPU_DISABLE_DEVICE_EXPAND"
+    ):
+        raise NotImplementedError(
+            "the device 2-hop screen (ANNCHOR_TPU_FORCE_DEVICE_EXPAND) is "
+            "ROADMAP Queue 1 item 9, not ported yet (it waits for F1)"
+        )
+    nx = ann.nx
+    ngi, ngd = ann.neighbor_graph
+    kk = ngi.shape[1] - 1  # columns past the self-prepend
+    if budget is None:
+        budget = max(0, int(ann.p_work * ann.N) - ann.evals)
+    budget = int(budget)
+
+    stats = []
+    ann._refine_stats = stats
+
+    def _exact(IJ):
+        t0 = time.perf_counter()
+        d = np.asarray(ann.get_exact_ijs(ann.f, ann.X, IJ), dtype=np.float64)
+        stats[-1]["eval_s"] = round(
+            stats[-1].get("eval_s", 0.0) + (time.perf_counter() - t0), 3
+        )
+        stats[-1]["eval_batches"] = stats[-1].get("eval_batches", 0) + 1
+        ann.evals += d.shape[0]
+        return d
+
+    def _close(stage):
+        stage["wall_s"] = round(time.perf_counter() - stage.pop("t0"), 3)
+
+    # canonical pair pool {min*nx+max: value} as sorted arrays
+    rows0 = np.repeat(np.arange(nx, dtype=np.int64), kk)
+    cols0 = ngi[:, 1:].reshape(-1).astype(np.int64)
+    vals0 = ngd[:, 1:].reshape(-1).astype(np.float64)
+    ngx = getattr(ann, "_ng_exact", None)
+    if ngx is not None and ngx.shape == ngi.shape:
+        flags0 = ngx[:, 1:].reshape(-1)
+    else:  # unknown provenance: treat as exact
+        flags0 = np.ones(rows0.shape[0], dtype=bool)
+    ok = (cols0 >= 0) & (cols0 != rows0)
+    keys = np.minimum(rows0[ok], cols0[ok]) * nx + np.maximum(rows0[ok], cols0[ok])
+    order = np.lexsort((~flags0[ok], keys))
+    keys_s = keys[order]
+    first = np.ones(keys_s.shape[0], dtype=bool)
+    first[1:] = keys_s[1:] != keys_s[:-1]
+    pool_keys = keys_s[first]
+    pool_vals = vals0[ok][order][first]
+    # exact wins the dedupe: a pair reported from both endpoint rows
+    # keeps its exact flag if either carries one
+    pool_exact = flags0[ok][order][first]
+
+    spent = 0
+    stats.append({"stage": "certify", "t0": time.perf_counter()})
+    todo = np.flatnonzero(~pool_exact)
+    if todo.size and budget > 0:
+        # certify predicted reported edges, smallest first (they sit
+        # highest in their rows' top-k lists)
+        todo = todo[np.argsort(pool_vals[todo], kind="stable")][:budget]
+        a = pool_keys[todo] // nx
+        b = pool_keys[todo] % nx
+        pool_vals[todo] = _exact(np.stack([a, b], axis=1))
+        pool_exact[todo] = True
+        spent += todo.shape[0]
+    stats[-1]["evals"] = spent
+    _close(stats[-1])
+
+    def row_lists():
+        a = pool_keys // nx
+        b = pool_keys % nx
+        pr = np.concatenate([a, b])
+        pc = np.concatenate([b, a])
+        pv = np.concatenate([pool_vals, pool_vals])
+        px = np.concatenate([pool_exact, pool_exact])
+        order = np.lexsort((pv, pr))
+        pr_s = pr[order]
+        starts = np.searchsorted(pr_s, np.arange(nx))
+        rank = np.arange(pr_s.shape[0]) - starts[pr_s]
+        sel = rank < kk
+        gi = np.full((nx, kk), -1, dtype=np.int64)
+        gd = np.full((nx, kk), np.inf)
+        gx = np.ones((nx, kk), dtype=bool)
+        gi[pr_s[sel], rank[sel]] = pc[order][sel]
+        gd[pr_s[sel], rank[sel]] = pv[order][sel]
+        gx[pr_s[sel], rank[sel]] = px[order][sel]
+        return gi, gd, gx
+
+    me = np.arange(nx, dtype=np.int32)[:, None]
+    for r in range(int(rounds)):
+        left = budget - spent
+        if left <= 0:
+            break
+        share = left if r == rounds - 1 else max(1, left // (rounds - r))
+        stats.append({"stage": f"round{r}", "t0": time.perf_counter()})
+        t_host = time.perf_counter()
+        gi, gd, _ = row_lists()
+        kth = gd[:, -1]
+        q = int(min(kk * kk, max(kk, -(-2 * share // max(nx, 1)) + 2)))
+        # slate width in multiples of 16, as the JAX package buckets it
+        # (its device screen compiles one program per width)
+        q = int(min(kk * kk, ((q + 15) // 16) * 16))
+        # candidates i -> j (d_ij) -> l (d_jl) as per-row (nx, kk*kk)
+        # panels, so the per-point fair-share ranking is a row selection
+        gi32 = gi.astype(np.int32)
+        gd32 = gd.astype(np.float32)
+        kth32 = kth.astype(np.float32)
+        jj = np.where(gi32 >= 0, gi32, 0)
+        l = gi32[jj].reshape(nx, kk * kk)
+        d_jl = gd32[jj].reshape(nx, kk * kk)
+        d_ij = np.repeat(gd32, kk, axis=1)
+        ok = (
+            (np.repeat(gi32, kk, axis=1) >= 0)
+            & (l >= 0)
+            & (l != me)
+            & np.isfinite(d_jl)
+        )
+        lb = np.abs(d_ij - d_jl)
+        ub = d_ij + d_jl
+        lsafe = np.where(l >= 0, l, 0)
+        # displacement screen on either endpoint's kth; within a row,
+        # the triangle upper bound orders the budget (provably close
+        # first), so dense neighbourhoods cannot starve sparse rows
+        adm = ok & (lb < np.maximum(kth32[:, None], kth32[lsafe]))
+        # already-pooled pairs leave the slates up front (the current
+        # edges are the smallest-ub entries and would fill every slate)
+        ckey_m = np.minimum(me, lsafe).astype(np.int64) * nx + np.maximum(me, lsafe)
+        pos_m = np.clip(
+            np.searchsorted(pool_keys, ckey_m), 0, max(pool_keys.shape[0] - 1, 0)
+        )
+        adm &= pool_keys[pos_m] != ckey_m
+        ubm = np.where(adm, ub, np.inf).astype(np.float32)
+        # per-row top-q by a packed key: the column index rides the ub's
+        # low mantissa bits, so keys are unique per row and the order is
+        # the JAX package's
+        cbits = max(1, (kk * kk - 1).bit_length())
+        colh = np.arange(kk * kk, dtype=np.int32)[None, :]
+        maskh = np.int32(-(1 << cbits))
+        keyh = (ubm.view(np.int32) & maskh) | colh
+        part = np.argpartition(keyh, q - 1, axis=1)[:, :q]
+        kq = np.take_along_axis(keyh, part, axis=1)
+        o2 = np.argsort(kq, axis=1)
+        idx2 = np.take_along_axis(part, o2, axis=1)
+        lq = np.take_along_axis(lsafe, idx2, axis=1)
+        ubq = (np.take_along_axis(kq, o2, axis=1) & maskh).view(np.float32)
+
+        keep2 = np.isfinite(ubq)
+        src = np.broadcast_to(me, (nx, q))[keep2].astype(np.int64)
+        rank = np.broadcast_to(np.arange(q, dtype=np.int64)[None, :], (nx, q))[keep2]
+        lf = lq[keep2].astype(np.int64)
+        ub = ubq[keep2]
+        ckey = np.minimum(src, lf) * nx + np.maximum(src, lf)
+        # best (rank, ub) per candidate key wins the dedupe
+        order = np.lexsort((ub, rank, ckey))
+        ckey, ub, rank = ckey[order], ub[order], rank[order]
+        fresh = np.ones(ckey.shape[0], dtype=bool)
+        fresh[1:] = ckey[1:] != ckey[:-1]
+        ckey, ub, rank = ckey[fresh], ub[fresh], rank[fresh]
+        pos = np.clip(
+            np.searchsorted(pool_keys, ckey), 0, max(pool_keys.shape[0] - 1, 0)
+        )
+        new = (
+            pool_keys[pos] != ckey
+            if pool_keys.size
+            else np.ones(ckey.shape[0], dtype=bool)
+        )
+        ckey, ub, rank = ckey[new], ub[new], rank[new]
+        if ckey.size == 0:
+            _close(stats[-1])
+            break
+        if ckey.shape[0] > share:
+            ckey = ckey[np.lexsort((ub, rank))[:share]]
+        stats[-1]["host_screen_s"] = round(time.perf_counter() - t_host, 3)
+        stats[-1]["evals"] = int(ckey.shape[0])
+        d = _exact(np.stack([ckey // nx, ckey % nx], axis=1))
+        spent += ckey.shape[0]
+        pool_keys = np.concatenate([pool_keys, ckey])
+        pool_vals = np.concatenate([pool_vals, d])
+        pool_exact = np.concatenate([pool_exact, np.ones(ckey.shape[0], dtype=bool)])
+        order = np.argsort(pool_keys, kind="stable")
+        pool_keys = pool_keys[order]
+        pool_vals = pool_vals[order]
+        pool_exact = pool_exact[order]
+        _close(stats[-1])
+
+    gi, gd, gx = row_lists()
+    if getattr(ann, "verbose", False):
+        for s in stats:
+            print("    refine", s)
+    ann.neighbor_graph = (
+        np.concatenate([np.arange(nx)[:, None], gi], axis=1),
+        np.concatenate([np.zeros((nx, 1)), gd], axis=1),
+    )
+    ann._ng_exact = np.concatenate([np.ones((nx, 1), dtype=bool), gx], axis=1)
+    return ann.neighbor_graph

@@ -32,10 +32,18 @@ of which exits non-zero when it fails:
 7. a Python-callable metric: an L1 closure evaluated on host threads
    with the fit's state on the card, held to the JAX package's figures;
 8. the host pipeline (a custom sampler): the strings-1600 fit, which
-   must launch K1 and spend exactly the JAX package's evals.
+   must launch K1 and spend exactly the JAX package's evals;
+9. the scale path (nx > 4096: budgeted band build, sparse fit state,
+   column tighten, graph-expansion refinement), K1 first held against
+   its plain version on 20,000 pairs of each corpus: (a) a 5,000-string
+   fit with the JAX sample stream, held to the JAX package's evals and
+   errors; (b) the default-constructor fit of 100,000 evolve strings of
+   ~400 characters, which must run in sparse mode, launch K1, stay
+   within int(p_work * N) evals and reach distance recall >= 0.99 over
+   500 exact rows computed with K1 before the fit.
 
-K1's launches are counted in the fits of phases 4 and 8, each with the
-count set to 0 just before it.
+K1's launches are counted in the fits of phases 4, 8 and 9, each with
+the count set to 0 just before it.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to build/chip_smoke.json.
@@ -86,6 +94,20 @@ CLOSURE_ERRORS = 0
 # errors may only be fewer.
 HOST_EVALS = 157_792
 HOST_ERRORS = 1_356
+# Phase 9(a): make_strings(n=5000, n_clusters=16, length=200,
+# mutation_rate=0.01, seed=42, evolve=True), Annchor(X, "levenshtein",
+# n_neighbors=15, p_work=0.05, random_seed=42) on the scale path (na 48,
+# loc_thresh 3, niters 4, refine_frac 0.05): 624,875 evals, 15,067 of
+# them in the three refinement rounds; 240 errors against BruteForce.
+SCALE5K_EVALS = 624_875
+SCALE5K_ERRORS = 240
+# Phase 9(b): 100,000 strings, the default constructor at p_work 0.01;
+# distance recall over 500 exact rows (the JAX package measured 1.0000
+# on this corpus family).
+SCALE100K_N = 100_000
+SCALE100K_P_WORK = 0.01
+SCALE100K_ROWS = 500
+SCALE100K_MIN_RECALL = 0.99
 
 
 def make_blobs(n_samples, n_features, centers, seed):
@@ -130,9 +152,10 @@ def _random_strings(rng, n, lo, hi, alphabet):
     ]
 
 
-def _check_k1(torch, np, X):
-    """K1 against the plain version on CUDA tensors, bit for bit.
-    Returns (pairs compared, max |K1 - plain|)."""
+def _k1_against_plain(torch, np, name, strs, npairs, rng):
+    """K1 against the plain version on ``npairs`` random pairs of
+    ``strs`` (the first pairs on the diagonal), bit for bit.  Returns
+    max |K1 - plain|."""
     from annchor_tpu_torch.ops.levenshtein import encode_strings
     from annchor_tpu_torch.ops.levenshtein_myers import (
         MyersEncoding,
@@ -140,6 +163,25 @@ def _check_k1(torch, np, X):
         myers_pairs_plain,
     )
 
+    enc = MyersEncoding.from_codes(*encode_strings(strs), "cuda")
+    n = len(strs)
+    I = torch.as_tensor(rng.integers(0, n, size=npairs), device="cuda")
+    J = torch.as_tensor(rng.integers(0, n, size=npairs), device="cuda")
+    I[: min(n, npairs)] = torch.arange(min(n, npairs), device="cuda")
+    got = myers_pairs(enc, I, J)
+    want = myers_pairs_plain(enc, I, J)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    print("  K1 vs plain  %-14s W=%-3d pairs=%-6d max|diff|=%d"
+          % (name, enc.W, npairs, err), flush=True)
+    if err != 0:
+        raise SystemExit("K1 disagrees with its plain version on %s" % name)
+    return err
+
+
+def _check_k1(torch, np, X):
+    """K1 against the plain version on CUDA tensors, bit for bit.
+    Returns (pairs compared, max |K1 - plain|)."""
     rng = np.random.default_rng(0)
     cases = []
     for alphabet in ("ab", "ACGT", "abcdefghijklmnopqrstuvwxyz"):
@@ -152,21 +194,8 @@ def _check_k1(torch, np, X):
     cases.append(("W>64", _random_strings(rng, 48, 2100, 2300, "ACGT"), 2_048))
     total, worst = 0, 0
     for name, strs, npairs in cases:
-        enc = MyersEncoding.from_codes(*encode_strings(strs), "cuda")
-        n = len(strs)
-        I = torch.as_tensor(rng.integers(0, n, size=npairs), device="cuda")
-        J = torch.as_tensor(rng.integers(0, n, size=npairs), device="cuda")
-        I[: min(n, npairs)] = torch.arange(min(n, npairs), device="cuda")
-        got = myers_pairs(enc, I, J)
-        want = myers_pairs_plain(enc, I, J)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        print("  K1 vs plain  %-14s W=%-3d pairs=%-6d max|diff|=%d"
-              % (name, enc.W, npairs, err), flush=True)
-        if err != 0:
-            raise SystemExit("K1 disagrees with its plain version on %s" % name)
+        worst = max(worst, _k1_against_plain(torch, np, name, strs, npairs, rng))
         total += npairs
-        worst = max(worst, err)
     return total, worst
 
 
@@ -323,6 +352,114 @@ def _bruteforce_graph(att, X, func):
     bf = att.BruteForce(X, func, device="cuda")
     bf.fit()
     return bf.neighbor_graph
+
+
+def _recall(np, ngi, rows, R, k):
+    """Id recall and distance-multiset recall of the graph's k-1
+    neighbours over exact rows R[t] = d(rows[t], .): a different but
+    equidistant neighbour counts as a distance hit (the reference's own
+    error semantics, ``compare_neighbor_graphs``)."""
+    from collections import Counter
+
+    hits = d_hits = total = 0
+    for t, r in enumerate(rows):
+        d = R[t].astype(np.float64)
+        d[r] = np.inf
+        exact = set(np.argsort(d, kind="stable")[: k - 1].tolist())
+        got = set(ngi[r, 1:k].tolist())
+        hits += len(exact & got)
+        total += k - 1
+        diff = Counter(np.sort(d[sorted(exact)]).tolist()) - Counter(
+            np.sort(d[sorted(got)]).tolist()
+        )
+        d_hits += (k - 1) - sum(diff.values())
+    return hits / total, d_hits / total
+
+
+def _scale_path(torch, np, att, K1, report):
+    """Phase 9: the scale path on the card, with K1 held against its
+    plain version on each corpus first.  Returns (K1's launches in the
+    two fits, max |K1 - plain|)."""
+    from annchor_tpu_torch.datasets import make_strings
+    from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+
+    X, _ = make_strings(n=5000, n_clusters=16, length=200, mutation_rate=0.01,
+                        seed=42, evolve=True)
+    X = list(X)
+    rng = np.random.default_rng(9)
+    worst = _k1_against_plain(torch, np, "strings-5000", X, 20_000, rng)
+    K1.launches = 0
+    ann, report["scale5k_fit_s"] = _timed_fit(
+        torch, att, X, "levenshtein", n_neighbors=15, p_work=0.05, random_seed=42,
+        uniforms=jax_threefry_uniforms)
+    launches = K1.launches
+    errors = att.compare_neighbor_graphs(
+        ann.neighbor_graph, _bruteforce_graph(att, X, "levenshtein"), 15)
+    report.update(scale5k_evals=int(ann.evals), scale5k_errors=int(errors),
+                  scale5k_m=int(ann._ij_dev[2]), scale5k_k1_launches=launches)
+    print("  (a) 5,000 strings: %.3f s, m %d, %d evals (JAX package: %d), %d errors "
+          "(JAX package: %d), K1 launches %d" % (
+              report["scale5k_fit_s"], ann._ij_dev[2], ann.evals, SCALE5K_EVALS,
+              errors, SCALE5K_ERRORS, launches), flush=True)
+    if ann._dev is None or not ann._dev.sparse or launches == 0:
+        raise SystemExit("the 5,000-string fit did not run the sparse path on K1")
+    if ann.evals != SCALE5K_EVALS or errors > SCALE5K_ERRORS:
+        raise SystemExit("the 5,000-string fit differs from the JAX package's figures")
+
+    t0 = time.perf_counter()
+    X, _ = make_strings(n=SCALE100K_N, n_clusters=32, length=400, mutation_rate=0.01,
+                        seed=42, evolve=True)
+    X = list(X)
+    report["scale100k_data_s"] = time.perf_counter() - t0
+    lengths = [len(x) for x in X]
+    worst = max(worst, _k1_against_plain(torch, np, "strings-100k", X, 20_000, rng))
+    rows = np.sort(np.random.default_rng(0).choice(len(X), SCALE100K_ROWS, replace=False))
+    t0 = time.perf_counter()
+    engine = att.get_function_from_input("levenshtein", device="cuda").batch
+    J = torch.arange(len(X), device="cuda")
+    R = np.stack([
+        engine.batch_dev(X, torch.full_like(J, int(r)), J).cpu().numpy().astype(np.int32)
+        for r in rows
+    ])
+    report["scale100k_rows_s"] = time.perf_counter() - t0
+    print("  (b) %d strings of %d-%d characters (%.1f s); %d exact rows by K1 in "
+          "%.3f s" % (len(X), min(lengths), max(lengths), report["scale100k_data_s"],
+                      len(rows), report["scale100k_rows_s"]), flush=True)
+    del engine
+
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = 0
+    big, wall = _timed_fit(torch, att, X, "levenshtein", n_neighbors=15,
+                           p_work=SCALE100K_P_WORK, random_seed=42)
+    big_launches = K1.launches
+    peak = torch.cuda.max_memory_allocated()
+    budget = int(big.p_work * big.N)
+    id_recall, d_recall = _recall(np, big.neighbor_graph[0], rows, R, 15)
+    report.update(
+        scale100k_fit_s=wall, scale100k_evals=int(big.evals), scale100k_budget=budget,
+        scale100k_m=int(big._ij_dev[2]), scale100k_k1_launches=big_launches,
+        scale100k_peak_bytes=int(peak), scale100k_id_recall=id_recall,
+        scale100k_distance_recall=d_recall,
+        scale100k_knobs=[big.n_anchors, big.loc_thresh, big.niters, big.refine_frac],
+        scale100k_refine=[{k: v for k, v in st.items()} for st in big._refine_stats],
+    )
+    print("  (b) default-ctor fit: %.3f s, m %d, %d evals of %d allowed, K1 launches "
+          "%d, peak device memory %.2f GiB, id recall %.4f, distance recall %.4f "
+          "(n_anchors %d, loc_thresh %d, niters %d, refine_frac %.2f)" % (
+              wall, big._ij_dev[2], big.evals, budget, big_launches, peak / 2**30,
+              id_recall, d_recall, *report["scale100k_knobs"]), flush=True)
+    if big._dev is None or not big._dev.sparse or big._IJs is not None:
+        raise SystemExit("the 100,000-string fit did not keep its pairs on the card")
+    if big_launches == 0:
+        raise SystemExit("the 100,000-string fit never launched K1")
+    if big.evals > budget:
+        raise SystemExit("the 100,000-string fit overspent: %d > %d" % (big.evals, budget))
+    if d_recall < SCALE100K_MIN_RECALL:
+        raise SystemExit("distance recall %.4f < %.2f" % (d_recall, SCALE100K_MIN_RECALL))
+    ngi, ngd = big.neighbor_graph
+    if ngi.shape != (len(X), 15) or not np.isfinite(ngd).all():
+        raise SystemExit("graph of shape %s or with non-finite distances" % (ngi.shape,))
+    return launches + big_launches, worst
 
 
 def main() -> int:
@@ -489,6 +626,10 @@ def main() -> int:
     if host.evals != HOST_EVALS or host_errors > HOST_ERRORS:
         raise SystemExit("the host-pipeline fit differs from the JAX package's figures")
 
+    _phase("9. scale path (%s)" % report["card"])
+    scale_launches, scale_err = _scale_path(torch, np, att, K1, report)
+    max_err = max(max_err, scale_err)
+
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -498,7 +639,7 @@ def main() -> int:
         "route": "cuda",
         "source": "annchor_tpu_torch/csrc/levenshtein_myers.cu",
         "replaces": "annchor_tpu/ops/levenshtein_pallas.py:63",
-        "launches": launches + host_launches,
+        "launches": launches + host_launches + scale_launches,
         "max_abs_err": max_err,
         "ms": refine["ms"],
         "plain_ms": refine["plain_ms"],

@@ -153,9 +153,12 @@ def test_load_strings_caches_bruteforce_graph(tmp_path, monkeypatch):
     np.testing.assert_array_equal(again["neighbor_graph"][0], first["neighbor_graph"][0][:, :5])
 
 
-def test_unported_paths_raise():
-    """Custom strategy objects now take the host pipeline; the scale
-    path and the Wasserstein metrics still raise, naming their items."""
+def test_unported_paths_raise(monkeypatch):
+    """Custom strategy objects take the host pipeline and nx > 4096 the
+    scale path; what the scale path does not cover yet (non-metric fits,
+    the admit-everything build, the rms score, custom strategy objects
+    above 4,096 points) and the Wasserstein metrics raise, naming their
+    items."""
     X, _ = make_strings(n=60, length=20, seed=1)
     ann = att.Annchor(
         list(X), "levenshtein", n_anchors=3, n_neighbors=5, n_samples=100,
@@ -165,8 +168,28 @@ def test_unported_paths_raise():
     ann.sampler = type("Custom", (att.SimpleStratifiedSampler,), {})()
     ann.fit()
     assert ann._dev is None and ann.neighbor_graph[0].shape == (60, 5)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        att.Annchor(["a"] * 4097, "levenshtein", device="cpu")
+
+    big = att.Annchor(["a"] * 4097, "levenshtein", device="cpu")
+    assert big.n_anchors == 48 and big.refine_frac == 0.05
+    big.sampler = type("Custom", (att.SimpleStratifiedSampler,), {})()
+    with pytest.raises(NotImplementedError, match="item 17"):
+        big.get_locality()
+
+    monkeypatch.setenv("ANNCHOR_TPU_FORCE_SPARSE", "1")
+    for kw, env, item in [
+        ({"is_metric": False}, {}, "item 15"),
+        ({}, {"ANNCHOR_TPU_NO_PAIR_BUDGET": "1"}, "item 15"),
+        ({}, {"ANNCHOR_TPU_BUILD_SCORE": "rms"}, "item 16"),
+    ]:
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        ann = att.Annchor(list(X), "levenshtein", n_anchors=3, n_neighbors=5,
+                          device="cpu", **kw)
+        ann.get_anchors()
+        with pytest.raises(NotImplementedError, match=item):
+            ann.get_locality()
+        for k in env:
+            monkeypatch.delenv(k)
     with pytest.raises(NotImplementedError, match="item 7"):
         att.Annchor(np.eye(4), "wasserstein", func_kwargs={"cost_matrix": np.eye(4)},
                     device="cpu")

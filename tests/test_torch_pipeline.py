@@ -81,7 +81,10 @@ def test_candidate_pairs_bit_equal(loc_thresh, loc_min):
 
 
 def test_candidate_pairs_refuses_scale_path():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """The dense build stops at 4,096 points: above it the default
+    strategies take the budgeted build, and the blocked host build for
+    custom strategy objects is not ported yet."""
+    with pytest.raises(NotImplementedError, match="item 17"):
         candidate_pairs(np.zeros((4097, 3)), 2, 1, 1, "cpu")
 
 

@@ -6,6 +6,7 @@ including the degenerate-bins retries."""
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 import annchor_tpu.error_predictors as jax_errors
 import annchor_tpu.regressors as jax_regressors
@@ -51,7 +52,11 @@ def test_sampler_matches_jax(kind, case, capsys):
         for s in (port, ref):
             if kind == "ClusterSampler":
                 np.random.seed(7 + loop)  # KMeans draws from the global state
-            outs.append(s.sample(F, FEATURES, 700, ncm.copy(), 42))
+            # one OpenMP thread: sklearn's Lloyd iteration adds the
+            # threads' partial centre sums in lock order, which varies
+            # from run to run and can move a tied point between clusters
+            with threadpool_limits(limits=1, user_api="openmp"):
+                outs.append(s.sample(F, FEATURES, 700, ncm.copy(), 42))
             outs[-1] = outs[-1] + (capsys.readouterr().out,)
         (ix_t, n_t, bins_t, out_t), (ix_j, n_j, bins_j, out_j) = outs
         np.testing.assert_array_equal(ix_t, ix_j)
