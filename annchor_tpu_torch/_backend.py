@@ -72,17 +72,27 @@ def _nvcc() -> str:
 class Kernel:
     """One CUDA source file built into its own shared library.
 
-    ``launches`` is the launch counter: the wrapper adds one where it
-    launches the kernel, nowhere else."""
+    ``launches`` is the launch counter and ``mode_launches`` holds one
+    plain-integer counter per launch mode of the source: the wrapper
+    calls ``count(mode)`` where it launches the kernel, nowhere else."""
 
-    def __init__(self, name: str, source: str, signatures: dict):
+    def __init__(self, name: str, source: str, signatures: dict, modes=()):
         self.name = name
         self.source = os.path.join(_PKG_DIR, "csrc", source)
         self.signatures = signatures  # C function -> ctypes argtypes
         self.launches = 0
+        self.mode_launches = dict.fromkeys(modes, 0)
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
+
+    def count(self, mode: str) -> None:
+        self.launches += 1
+        self.mode_launches[mode] += 1
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.mode_launches = dict.fromkeys(self.mode_launches, 0)
 
     def library_path(self) -> str:
         with open(self.source, "rb") as fh:
@@ -94,9 +104,14 @@ class Kernel:
 
     def build(self) -> str:
         """Compile the source unless a library built from the same
-        source and flags exists.  Returns the library's path."""
+        source and flags exists.  Returns the library's path.  The
+        compiler's output (ptxas's registers and spills) is kept beside
+        the library and read back into ``build_log`` either way."""
         out = self.library_path()
         if os.path.exists(out):
+            if os.path.exists(out + ".log"):
+                with open(out + ".log") as fh:
+                    self.build_log = fh.read()
             return out
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = "%s.%d.tmp" % (out, os.getpid())
@@ -108,6 +123,8 @@ class Kernel:
                 "building %s failed (%s):\n%s"
                 % (self.name, " ".join(cmd), self.build_log)
             )
+        with open(out + ".log", "w") as fh:
+            fh.write(self.build_log)
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
         return out
 

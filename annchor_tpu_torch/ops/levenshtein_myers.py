@@ -27,6 +27,10 @@ MAX_ALPHABET = 192
 
 _MASK = 0xFFFFFFFF  # a 32-bit word held in an int64 lane
 
+# the share of a dataset's strings (in percent) that K1's main launch is
+# sized for; a pair of two strings from the longest rest overflows
+BULK_PERCENT = 99
+
 
 def encode_alphabet(codes: np.ndarray, lengths: np.ndarray):
     """Map a padded codepoint matrix (pad = -1) to dense alphabet ids.
@@ -79,9 +83,14 @@ class MyersEncoding:
 
     ids (n, L) int32 dense alphabet ids, -1 past each string's end;
     lengths (n,) int32; peq (n, alphabet, W) uint32 words stored as
-    int32 bit patterns (CPU PyTorch has no uint32 bit operations)."""
+    int32 bit patterns (CPU PyTorch has no uint32 bit operations).
+    ``wmax`` is the greatest string's word count and ``wbulk`` the word
+    count that ``BULK_PERCENT`` % of the strings do not exceed, both kept
+    on the host so that a kernel's launch plan needs no read from the
+    device: the plan sizes its main launch for ``wbulk`` and leaves the
+    pairs of two longer strings to an overflow launch."""
 
-    __slots__ = ("ids", "lengths", "peq", "alphabet", "W")
+    __slots__ = ("ids", "lengths", "peq", "alphabet", "W", "wmax", "wbulk")
 
     def __init__(self, ids, lengths, peq, alphabet, device):
         dev = torch.device(device)
@@ -96,6 +105,10 @@ class MyersEncoding:
         ).to(dev)
         self.alphabet = int(alphabet)
         self.W = int(self.peq.shape[2])
+        words = np.sort((np.asarray(lengths, dtype=np.int64) + 31) // 32)
+        self.wmax = int(words[-1]) if words.size else 0
+        bulk = -(-words.size * BULK_PERCENT // 100)  # ceil(n x BULK_PERCENT %)
+        self.wbulk = int(words[bulk - 1]) if words.size else 0
 
     @property
     def device(self) -> torch.device:
@@ -133,7 +146,8 @@ def myers_pairs(enc: MyersEncoding, I, J):
     if enc.device.type == "cuda":
         from annchor_tpu_torch.ops.levenshtein_cuda import myers_pairs_cuda
 
-        return myers_pairs_cuda(enc.peq, enc.ids, enc.lengths, I, J)
+        return myers_pairs_cuda(enc.peq, enc.ids, enc.lengths, I, J,
+                                wmax=enc.wmax, wbulk=enc.wbulk)
     if enc.device.type == "cpu":
         return myers_pairs_plain(enc, I, J)
     raise NotImplementedError("no edit-distance kernel for %s" % enc.device)

@@ -9,22 +9,36 @@ against the exact graph from the port's own ``BruteForce``.  Phases, each
 of which exits non-zero when it fails:
 
 1. device: the card's name and power limit, and the build of every
-   kernel of the path from the sources in this checkout;
-2. kernel check: the CUDA edit-distance kernel (K1) against its plain
-   PyTorch version, bit for bit, on 71,200 pairs (empty strings, word
-   boundaries, alphabets 2/4/26, the strings-1600 shapes, patterns of
-   more than 64 words), then against the pure-Python DP on 64 sampled
-   strings-1600 pairs, then a small fit on the card against the same
-   fit on the CPU;
+   kernel of the path from the sources in this checkout, with ptxas's
+   registers and spills for each instantiation;
+2. kernel check: the CUDA edit-distance kernel (K1), in each launch mode
+   (auto, thread, group), against its plain PyTorch version, bit for
+   bit, on 82,180 pairs (empty strings, word boundaries, alphabets
+   2/4/26, the strings-1600 shapes, patterns of 40-48 and 63-64 words
+   and of more than 64, and strings-1600 with twelve long strings whose
+   pairs run down the overflow lists), then one K1 call in each mode
+   under ``torch.cuda.set_sync_debug_mode("error")`` on strings-1600
+   and on it with one 2,100-character string, then against the
+   pure-Python DP on 64 sampled strings-1600 pairs, then a small fit on
+   the card against the same fit on the CPU;
 3. exact graph: ``BruteForce`` on strings-1600 (1,279,200 pairs);
 4. fit: one warm-up fit, then one timed fit with the stage table, which
    must launch K1 and stay within the evaluation budget; then the same
    fit drawing its samples from the JAX package's stream
    (``jax_threefry_uniforms``), which must spend exactly the JAX
    package's evals on this set and score no more errors against the
-   exact graph than the JAX package does;
-5. timing: K1 against the plain version with CUDA events at the main
-   path's batch shapes;
+   exact graph than the JAX package does; then one fit under
+   ``torch.profiler`` for K1's share of the device time;
+5. timing: K1 at the main path's batch shapes (strings-1600's anchor
+   column, sample batch, refine batch and BruteForce, a 100,000-pair
+   column of the 100k corpus, and the anchor column and BruteForce of
+   strings-1600 with one 2,100-character string): the time through the
+   wrapper, the
+   kernel-only time of the bare launch in the mode the wrapper picks and
+   in each forced mode, the word steps, the bound and its share, the
+   plain version's time and the one-thread-per-pair kernel's it
+   replaced; then the thread/group crossover
+   sweep behind the wrapper's dispatch rule;
 6. vector metrics: the euclidean, sqeuclidean and cosine engine on the
    card against a float64 oracle, the blobs contract (0 errors) and a
    euclidean fit on 4,096 x 64 blobs, held to the JAX package's evals and
@@ -42,8 +56,8 @@ of which exits non-zero when it fails:
    within int(p_work * N) evals and reach distance recall >= 0.99 over
    500 exact rows computed with K1 before the fit.
 
-K1's launches are counted in the fits of phases 4, 8 and 9, each with
-the count set to 0 just before it.
+K1's launches, in all and per mode, are counted in the fits of phases
+4, 8 and 9, each with the counts set to 0 just before it.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to build/chip_smoke.json.
@@ -109,6 +123,30 @@ SCALE100K_P_WORK = 0.01
 SCALE100K_ROWS = 500
 SCALE100K_MIN_RECALL = 0.99
 
+# K1's bound: a word step (one 32-bit pattern word advanced by one text
+# character) is at least 10 INT32 instructions (the add with carry in and
+# out is one IADD3.X; csrc/levenshtein_myers.cu); the H100 SXM issues 132
+# SMs x 64 INT32 lanes x 1.98 GHz of them a second, and moves 3.35e12
+# bytes/s.
+K1_OPS_PER_STEP = 10
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+# K1 through the wrapper before its redesign (one thread per pair, pairs
+# sorted by word count on the card), measured by this script's phase 5 on
+# the same card type and limit; the 100k column is get_anchors' 0.257 s
+# stage wall over its 96 columns; the skewed shapes are the parent
+# commit's wrapper timed by tools/time_k1_wrapper.py on the same card
+BEFORE_MS = {
+    "anchor column": 2.7,
+    "sample batch": 2.17,
+    "refine batch": 2.634,
+    "BruteForce": 19.7,
+    "100k column": 0.257 / 96 * 1e3,
+    # the mean of two parent runs (4.3786 / 4.3877 and 27.2854 / 27.0232)
+    "skewed column": 4.383,
+    "skewed BruteForce": 27.154,
+}
+
 
 def make_blobs(n_samples, n_features, centers, seed):
     """``sklearn.datasets.make_blobs(n_samples, n_features,
@@ -144,6 +182,30 @@ def _card(torch):
     return smi
 
 
+def _ptxas(K1):
+    """Registers and spills of each kernel instantiation, from ptxas -v
+    in the build log: {"k1_group<32,1,1>": (registers, spill stores,
+    spill loads)}."""
+    import re
+
+    table, name, spill = {}, None, (0, 0)
+    for line in K1.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kind = re.search(r"k1_(thread|group|long)", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", m.group(1))
+            name = "k1_%s%s" % (kind.group(1) if kind else "?",
+                                "<%s>" % ",".join(args) if args else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table[name] = (int(m.group(1)), *spill)
+            name = None
+    return table
+
+
 def _random_strings(rng, n, lo, hi, alphabet):
     chars = list(alphabet)
     return [
@@ -152,31 +214,78 @@ def _random_strings(rng, n, lo, hi, alphabet):
     ]
 
 
-def _k1_against_plain(torch, np, name, strs, npairs, rng):
-    """K1 against the plain version on ``npairs`` random pairs of
-    ``strs`` (the first pairs on the diagonal), bit for bit.  Returns
+def _k1_against_plain(torch, np, name, strs, npairs, rng, tail=0):
+    """K1 in each launch mode against the plain version on ``npairs``
+    random pairs of ``strs`` (the first pairs on the diagonal), and on
+    every pair of the last ``tail`` strings, bit for bit.  Returns
     max |K1 - plain|."""
     from annchor_tpu_torch.ops.levenshtein import encode_strings
-    from annchor_tpu_torch.ops.levenshtein_myers import (
-        MyersEncoding,
-        myers_pairs,
-        myers_pairs_plain,
-    )
+    from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding, myers_pairs_plain
+    from annchor_tpu_torch.ops.levenshtein_cuda import myers_pairs_cuda
 
     enc = MyersEncoding.from_codes(*encode_strings(strs), "cuda")
     n = len(strs)
     I = torch.as_tensor(rng.integers(0, n, size=npairs), device="cuda")
     J = torch.as_tensor(rng.integers(0, n, size=npairs), device="cuda")
     I[: min(n, npairs)] = torch.arange(min(n, npairs), device="cuda")
-    got = myers_pairs(enc, I, J)
+    if tail:
+        t = torch.arange(n - tail, n, device="cuda")
+        I = torch.cat([I, t.repeat_interleave(tail)])
+        J = torch.cat([J, t.repeat(tail)])
     want = myers_pairs_plain(enc, I, J)
-    torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max())
-    print("  K1 vs plain  %-14s W=%-3d pairs=%-6d max|diff|=%d"
-          % (name, enc.W, npairs, err), flush=True)
-    if err != 0:
-        raise SystemExit("K1 disagrees with its plain version on %s" % name)
-    return err
+    worst = 0
+    for mode in ("auto", "thread", "group"):
+        got = myers_pairs_cuda(enc.peq, enc.ids, enc.lengths, I, J, enc.wmax, mode,
+                               wbulk=enc.wbulk)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        plans = _plan(enc, int(I.shape[0]), mode)
+        print("  K1 vs plain  %-14s W=%d/%-3d pairs=%-6d %-6s -> %-18s max|diff|=%d"
+              % (name, enc.wbulk, enc.wmax, I.shape[0], mode, _modes(plans), err),
+              flush=True)
+        if err != 0:
+            raise SystemExit("K1 (%s) disagrees with its plain version on %s" % (mode, name))
+        worst = max(worst, err)
+    return worst
+
+
+def _modes(plans):
+    """The modes of a launch plan's launches, "group+thread+long"."""
+    return "+".join(p.mode for p in plans)
+
+
+def _skewed(X, rng):
+    """strings-1600 with one 2,100-character string appended: 99 % of the
+    strings still have at most 17 words, the new one 66."""
+    return list(X) + ["".join(rng.choice(list("ACGT"), size=2100))]
+
+
+def _check_no_sync(torch, np, X):
+    """One K1 call in each mode, an anchor column (an expanded id), under
+    ``torch.cuda.set_sync_debug_mode("error")``, on strings-1600 and on it
+    with one long string (whose plan adds the overflow launches): none
+    may wait for the card."""
+    from annchor_tpu_torch.ops.levenshtein import encode_strings
+    from annchor_tpu_torch.ops.levenshtein_cuda import myers_pairs_cuda
+    from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding
+
+    for name, strs in (("strings-1600", X), ("skewed", _skewed(X, np.random.default_rng(5)))):
+        enc = MyersEncoding.from_codes(*encode_strings(strs), "cuda")
+        I = torch.tensor(1126, device="cuda").expand(len(strs))
+        J = torch.arange(len(strs), device="cuda")
+        outs = []
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for mode in ("auto", "thread", "group"):
+                outs.append(myers_pairs_cuda(enc.peq, enc.ids, enc.lengths, I, J, enc.wmax,
+                                             mode, wbulk=enc.wbulk))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not all(torch.equal(o, outs[0]) for o in outs):
+            raise SystemExit("K1's modes disagree on the %s anchor column" % name)
+        print("  K1 under set_sync_debug_mode('error'), %s (%s): auto, thread, group ran "
+              "with no sync" % (name, _modes(_plan(enc, len(strs)))), flush=True)
 
 
 def _check_k1(torch, np, X):
@@ -191,11 +300,19 @@ def _check_k1(torch, np, X):
         ]
         cases.append((alphabet, strs, 16_384))
     cases.append(("strings-1600", list(X), 20_000))
+    cases.append(("W 40-48", _random_strings(rng, 48, 1249, 1536, "ACGT"), 2_048))
+    cases.append(("W 63-64", _random_strings(rng, 48, 1985, 2048, "ACGT"), 2_048))
     cases.append(("W>64", _random_strings(rng, 48, 2100, 2300, "ACGT"), 2_048))
+    # eight strings of 35-44 words and four of 66-72 after strings-1600:
+    # the main launch holds 17 words, the pairs among the twelve overflow
+    tail = (_random_strings(rng, 8, 1100, 1400, "ACGT")
+            + _random_strings(rng, 4, 2100, 2300, "ACGT"))
+    cases.append(("skewed", list(X) + tail, 6_740))
     total, worst = 0, 0
     for name, strs, npairs in cases:
-        worst = max(worst, _k1_against_plain(torch, np, name, strs, npairs, rng))
-        total += npairs
+        k = len(tail) if name == "skewed" else 0
+        worst = max(worst, _k1_against_plain(torch, np, name, strs, npairs, rng, tail=k))
+        total += npairs + k * k
     return total, worst
 
 
@@ -260,38 +377,167 @@ def _time(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _timings(torch, np, X, IJs):
-    """K1 (through its wrapper, as the fit calls it) and the plain
-    version at the main path's batch shapes."""
+def _k1_bound(torch, enc, I, J):
+    """(word steps, bound in ms, what bounds it) of K1 on these pairs:
+    the larger of 11 INT32 instructions per word step at the card's INT32
+    rate and the inputs read once and the output written once at its
+    memory rate."""
+    from annchor_tpu_torch.ops.levenshtein_cuda import word_steps
+
+    steps = word_steps(enc.lengths, I, J)
+    ops_ms = steps * K1_OPS_PER_STEP / INT32_OPS_PER_S * 1e3
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (enc.peq, enc.ids, enc.lengths, I, J)) + 4 * I.shape[0]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return steps, max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def _plan(enc, B, mode="auto"):
+    """K1's launch plan for B pairs of ``enc``, as the wrapper makes it."""
+    from annchor_tpu_torch.ops.levenshtein_cuda import launch_plan
+
+    return launch_plan(B, enc.wbulk, enc.wmax, enc.alphabet, mode)
+
+
+def _device_profile(torch, fn):
+    """Run ``fn`` once under torch.profiler: (K1's device ms, K1 kernels,
+    all device ms, wall s).  Device times sum the kernels' own spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_us = dev_us = 0.0
+    k1_n = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        dev_us += us
+        if "k1_" in e.name:
+            k1_us += us
+            k1_n += 1
+    return k1_us / 1e3, k1_n, dev_us / 1e3, wall
+
+
+def _kernel_ms(torch, enc, I, J, mode, reps):
+    """Kernel-only time: CUDA events around bare launches of one plan,
+    the output allocated once."""
+    from annchor_tpu_torch.ops.levenshtein_cuda import launch
+
+    plans = _plan(enc, int(I.shape[0]), mode)
+    out = torch.empty(I.shape[0], dtype=torch.int32, device="cuda")
+    return _time(torch, lambda: launch(plans, enc.peq, enc.ids, enc.lengths, I, J, out), reps)
+
+
+def _timings(torch, np, X, IJs, big_X):
+    """K1 at the main path's batch shapes: through its wrapper (as the
+    fit calls it), the bare launch of the wrapper's plan and of each
+    forced mode, the bound, the plain version and the time before the
+    redesign."""
     from annchor_tpu_torch.ops.levenshtein import encode_strings
     from annchor_tpu_torch.ops.levenshtein_myers import (
         MyersEncoding,
+        myers_maxmin,
         myers_pairs,
         myers_pairs_plain,
     )
 
     enc = MyersEncoding.from_codes(*encode_strings(list(X)), "cuda")
+    big = MyersEncoding.from_codes(*encode_strings(big_X), "cuda")
     rng = np.random.default_rng(2)
+    skew = MyersEncoding.from_codes(
+        *encode_strings(_skewed(X, np.random.default_rng(5))), "cuda")
     n = len(X)
     ij = torch.as_tensor(IJs.astype(np.int64), device="cuda")
+    tri = torch.triu_indices(n, n, 1, device="cuda")
+    stri = torch.triu_indices(n + 1, n + 1, 1, device="cuda")
     shapes = {
-        "anchor column (1,600 pairs)": (
-            torch.full((n,), 1126, device="cuda"), torch.arange(n, device="cuda"), 20, 3),
-        "sample batch (5,000 pairs)": (
-            *ij[torch.as_tensor(rng.choice(len(IJs), 5000, replace=False))].T, 20, 2),
-        "refine batch (58,707 pairs)": (
-            *ij[torch.as_tensor(rng.choice(len(IJs), REFINE_BATCH, replace=False))].T,
-            10, 1),
-        "BruteForce (1,279,200 pairs)": (
-            *torch.triu_indices(n, n, 1, device="cuda"), 3, 1),
+        "anchor column": (enc, torch.tensor(1126, device="cuda").expand(n),
+                          torch.arange(n, device="cuda"), 50, 3),
+        "sample batch": (enc, *ij[torch.as_tensor(rng.choice(len(IJs), 5000,
+                                                             replace=False))].T, 50, 2),
+        "refine batch": (enc, *ij[torch.as_tensor(rng.choice(len(IJs), REFINE_BATCH,
+                                                             replace=False))].T, 20, 1),
+        "BruteForce": (enc, tri[0], tri[1], 5, 1),
+        "100k column": (big, torch.tensor(0, device="cuda").expand(len(big_X)),
+                        torch.arange(len(big_X), device="cuda"), 20, 1),
+        # strings-1600 and one 2,100-character string; its BruteForce's
+        # plain version (every chunk runs 2,100 characters) is not timed
+        "skewed column": (skew, torch.tensor(1126, device="cuda").expand(n + 1),
+                          torch.arange(n + 1, device="cuda"), 50, 1),
+        "skewed BruteForce": (skew, stri[0], stri[1], 5, 0),
     }
     rows = {}
-    for name, (I, J, reps, plain_reps) in shapes.items():
-        I, J = I.contiguous(), J.contiguous()
-        ms = _time(torch, lambda: myers_pairs(enc, I, J), reps)
-        plain_ms = _time(torch, lambda: myers_pairs_plain(enc, I, J), plain_reps)
-        rows[name] = {"pairs": int(I.shape[0]), "ms": ms, "plain_ms": plain_ms}
-        print("  %-30s K1 %10.3f ms   plain %10.3f ms" % (name, ms, plain_ms), flush=True)
+    for name, (e, I, J, reps, plain_reps) in shapes.items():
+        if I.stride(0) != 0:
+            I, J = I.contiguous(), J.contiguous()
+        B = int(I.shape[0])
+        steps, bound_ms, bound_by = _k1_bound(torch, e, I, J)
+        row = {
+            "pairs": B, "wbulk": e.wbulk, "wmax": e.wmax,
+            "mode": _modes(_plan(e, B)),
+            "ms": _time(torch, lambda: myers_pairs(e, I, J), reps),
+            "kernel_ms": _kernel_ms(torch, e, I, J, "auto", reps),
+            "thread_ms": _kernel_ms(torch, e, I, J, "thread", reps),
+            "group_ms": _kernel_ms(torch, e, I, J, "group", reps),
+            "word_steps": steps, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": (_time(torch, lambda: myers_pairs_plain(e, I, J), plain_reps)
+                         if plain_reps else None),
+            "before_ms": BEFORE_MS.get(name),
+        }
+        row["bound_share"] = bound_ms / row["kernel_ms"]
+        rows[name] = row
+        print("  %-17s %9d pairs W %2d/%2d %-18s wrapper %8.4f ms | kernel %8.4f ms (thread "
+              "%8.4f, group %8.4f) | %d word steps, bound %.4f ms (%s), %.1f %% of it | "
+              "plain %s ms | before %s ms" % (
+                  name, B, e.wbulk, e.wmax, row["mode"], row["ms"], row["kernel_ms"],
+                  row["thread_ms"], row["group_ms"], steps, bound_ms, bound_by,
+                  100 * row["bound_share"],
+                  "not timed" if row["plain_ms"] is None else "%.3f" % row["plain_ms"],
+                  "not measured" if row["before_ms"] is None else "%.3f" % row["before_ms"]),
+              flush=True)
+        if row["before_ms"] is not None and row["ms"] > row["before_ms"]:
+            print("    slower through the wrapper than before (%.3f ms)" % row["before_ms"],
+                  flush=True)
+    # get_anchors of the 100k fit: 96 columns of the max-min loop
+    k1_ms, k1_n, dev_ms, wall = _device_profile(torch, lambda: myers_maxmin(big, 96, 0))
+    rows["100k anchors"] = {"k1_device_ms": k1_ms, "k1_kernels": k1_n,
+                            "device_ms": dev_ms, "wall_s": wall}
+    print("  100k max-min anchors (96 columns, profiled): K1 %.3f ms in %d kernels of "
+          "%.3f ms device time, %.3f s wall" % (k1_ms, k1_n, dev_ms, wall), flush=True)
+    rows["crossover"] = _crossover(torch, np, enc, big, rng)
+    return rows
+
+
+def _crossover(torch, np, enc, big, rng):
+    """Kernel-only ms of thread mode and of group mode against the batch
+    size: the measurement behind the wrapper's dispatch rule."""
+    rows = []
+    for label, e, sizes in (
+        ("strings-1600", enc, (1_600, 5_000, 20_000, 30_000, 40_000, 58_707, 131_072,
+                               1_279_200)),
+        # 9,474,796: a select_refine batch of the 100k fit
+        ("strings-100k", big, (25_000, 50_000, 100_000, 1_048_576, 9_474_796)),
+    ):
+        n = e.n
+        for B in sizes:
+            I = torch.as_tensor(rng.integers(0, n, size=B), device="cuda")
+            J = torch.as_tensor(rng.integers(0, n, size=B), device="cuda")
+            reps = 20 if B <= 131_072 else 3
+            grp = _plan(e, B, "group")[0]
+            row = {"set": label, "pairs": B, "wbulk": e.wbulk, "wmax": e.wmax,
+                   "auto": _modes(_plan(e, B)),
+                   "thread_ms": _kernel_ms(torch, e, I, J, "thread", reps),
+                   "group_ms": _kernel_ms(torch, e, I, J, "group", reps),
+                   "group_layout": "%dx%d" % (grp.g, grp.wpl)}
+            rows.append(row)
+            print("  crossover %-12s %9d pairs (auto: %-6s) thread %9.4f ms, group %s "
+                  "%9.4f ms" % (label, B, row["auto"], row["thread_ms"],
+                                row["group_layout"], row["group_ms"]), flush=True)
     return rows
 
 
@@ -376,10 +622,10 @@ def _recall(np, ngi, rows, R, k):
     return hits / total, d_hits / total
 
 
-def _scale_path(torch, np, att, K1, report):
+def _scale_path(torch, np, att, K1, report, big_X):
     """Phase 9: the scale path on the card, with K1 held against its
-    plain version on each corpus first.  Returns (K1's launches in the
-    two fits, max |K1 - plain|)."""
+    plain version on each corpus first.  ``big_X`` is the 100k corpus.
+    Returns (K1's launches per mode in the two fits, max |K1 - plain|)."""
     from annchor_tpu_torch.datasets import make_strings
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
 
@@ -388,11 +634,12 @@ def _scale_path(torch, np, att, K1, report):
     X = list(X)
     rng = np.random.default_rng(9)
     worst = _k1_against_plain(torch, np, "strings-5000", X, 20_000, rng)
-    K1.launches = 0
+    K1.reset_counts()
     ann, report["scale5k_fit_s"] = _timed_fit(
         torch, att, X, "levenshtein", n_neighbors=15, p_work=0.05, random_seed=42,
         uniforms=jax_threefry_uniforms)
     launches = K1.launches
+    modes = dict(K1.mode_launches)
     errors = att.compare_neighbor_graphs(
         ann.neighbor_graph, _bruteforce_graph(att, X, "levenshtein"), 15)
     report.update(scale5k_evals=int(ann.evals), scale5k_errors=int(errors),
@@ -406,11 +653,7 @@ def _scale_path(torch, np, att, K1, report):
     if ann.evals != SCALE5K_EVALS or errors > SCALE5K_ERRORS:
         raise SystemExit("the 5,000-string fit differs from the JAX package's figures")
 
-    t0 = time.perf_counter()
-    X, _ = make_strings(n=SCALE100K_N, n_clusters=32, length=400, mutation_rate=0.01,
-                        seed=42, evolve=True)
-    X = list(X)
-    report["scale100k_data_s"] = time.perf_counter() - t0
+    X = big_X
     lengths = [len(x) for x in X]
     worst = max(worst, _k1_against_plain(torch, np, "strings-100k", X, 20_000, rng))
     rows = np.sort(np.random.default_rng(0).choice(len(X), SCALE100K_ROWS, replace=False))
@@ -428,26 +671,28 @@ def _scale_path(torch, np, att, K1, report):
     del engine
 
     torch.cuda.reset_peak_memory_stats()
-    K1.launches = 0
+    K1.reset_counts()
     big, wall = _timed_fit(torch, att, X, "levenshtein", n_neighbors=15,
                            p_work=SCALE100K_P_WORK, random_seed=42)
     big_launches = K1.launches
+    big_modes = dict(K1.mode_launches)
     peak = torch.cuda.max_memory_allocated()
     budget = int(big.p_work * big.N)
     id_recall, d_recall = _recall(np, big.neighbor_graph[0], rows, R, 15)
     report.update(
         scale100k_fit_s=wall, scale100k_evals=int(big.evals), scale100k_budget=budget,
         scale100k_m=int(big._ij_dev[2]), scale100k_k1_launches=big_launches,
+        scale100k_k1_mode_launches=big_modes,
         scale100k_peak_bytes=int(peak), scale100k_id_recall=id_recall,
         scale100k_distance_recall=d_recall,
         scale100k_knobs=[big.n_anchors, big.loc_thresh, big.niters, big.refine_frac],
         scale100k_refine=[{k: v for k, v in st.items()} for st in big._refine_stats],
     )
     print("  (b) default-ctor fit: %.3f s, m %d, %d evals of %d allowed, K1 launches "
-          "%d, peak device memory %.2f GiB, id recall %.4f, distance recall %.4f "
+          "%d %s, peak device memory %.2f GiB, id recall %.4f, distance recall %.4f "
           "(n_anchors %d, loc_thresh %d, niters %d, refine_frac %.2f)" % (
-              wall, big._ij_dev[2], big.evals, budget, big_launches, peak / 2**30,
-              id_recall, d_recall, *report["scale100k_knobs"]), flush=True)
+              wall, big._ij_dev[2], big.evals, budget, big_launches, big_modes,
+              peak / 2**30, id_recall, d_recall, *report["scale100k_knobs"]), flush=True)
     if big._dev is None or not big._dev.sparse or big._IJs is not None:
         raise SystemExit("the 100,000-string fit did not keep its pairs on the card")
     if big_launches == 0:
@@ -459,7 +704,7 @@ def _scale_path(torch, np, att, K1, report):
     ngi, ngd = big.neighbor_graph
     if ngi.shape != (len(X), 15) or not np.isfinite(ngd).all():
         raise SystemExit("graph of shape %s or with non-finite distances" % (ngi.shape,))
-    return launches + big_launches, worst
+    return {m: modes[m] + big_modes[m] for m in modes}, worst
 
 
 def main() -> int:
@@ -488,14 +733,18 @@ def main() -> int:
     K1.lib()
     report["k1_build_s"] = time.perf_counter() - t0
     print("  built %s in %.3f s" % (K1.name, report["k1_build_s"]))
-    for line in K1.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("   ", line.strip())
+    report["k1_ptxas"] = _ptxas(K1)
+    for name, (regs, st, ld) in report["k1_ptxas"].items():
+        print("    %-22s %3d registers, spill stores %d B, spill loads %d B"
+              % (name, regs, st, ld))
+    if not report["k1_ptxas"]:
+        raise SystemExit("no ptxas report in K1's build log")
 
     _phase("2. kernel check")
     X, _ = make_strings()
     X = list(X)
     report["k1_check_pairs"], max_err = _check_k1(torch, np, X)
+    _check_no_sync(torch, np, X)
     _check_oracle(torch, np, X)
     _check_small_fit(torch, np)
 
@@ -516,7 +765,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     ann = att.Annchor(X, "levenshtein", verbose=True, **kw)
-    K1.launches = 0
+    K1.reset_counts()
     t0 = time.perf_counter()
     ann.fit()
     torch.cuda.synchronize()
@@ -524,10 +773,12 @@ def main() -> int:
     launches = K1.launches
     errors = att.compare_neighbor_graphs(ann.neighbor_graph, gt, N_NEIGHBORS)
     ngi, ngd = ann.neighbor_graph
+    fit_modes = dict(K1.mode_launches)
     report.update(evals=int(ann.evals), errors=int(errors), k1_launches=launches,
+                  k1_mode_launches=fit_modes,
                   anchors=[int(a) for a in ann.A[:5]], m=int(ann.IJs.shape[0]))
-    print("  fit: %.3f s, %d evals, %d errors, K1 launches %d, anchors %s..."
-          % (report["fit_s"], ann.evals, errors, launches, report["anchors"]),
+    print("  fit: %.3f s, %d evals, %d errors, K1 launches %d %s, anchors %s..."
+          % (report["fit_s"], ann.evals, errors, launches, fit_modes, report["anchors"]),
           flush=True)
     if launches == 0:
         raise SystemExit("the fit never launched K1")
@@ -558,9 +809,21 @@ def main() -> int:
         raise SystemExit("%d errors against the exact graph, the JAX package %d"
                          % (ref_errors, REFERENCE_ERRORS))
 
+    k1_ms, k1_n, dev_ms, wall = _device_profile(
+        torch, lambda: att.Annchor(X, "levenshtein", **kw).fit())
+    report["fit_profile"] = {"k1_device_ms": k1_ms, "k1_kernels": k1_n,
+                             "device_ms": dev_ms, "wall_s": wall}
+    print("  fit under torch.profiler: K1 %.3f ms in %d kernels of %.3f ms device "
+          "time, %.3f s wall" % (k1_ms, k1_n, dev_ms, wall), flush=True)
+
     _phase("5. timing (%s)" % report["card"])
-    report["k1_timing"] = _timings(torch, np, X, ann.IJs)
-    refine = report["k1_timing"]["refine batch (58,707 pairs)"]
+    t0 = time.perf_counter()
+    big_X, _ = make_strings(n=SCALE100K_N, n_clusters=32, length=400,
+                            mutation_rate=0.01, seed=42, evolve=True)
+    big_X = list(big_X)
+    report["scale100k_data_s"] = time.perf_counter() - t0
+    report["k1_timing"] = _timings(torch, np, X, ann.IJs, big_X)
+    refine = report["k1_timing"]["refine batch"]
 
     _phase("6. vector metrics (%s)" % report["card"])
     X64, _ = make_blobs(4096, 64, 10, 42)
@@ -609,11 +872,12 @@ def main() -> int:
         """A do-nothing subclass: custom strategy objects take the host
         pipeline."""
 
-    K1.launches = 0
+    K1.reset_counts()
     host, report["host_fit_s"] = _timed_fit(
         torch, att, X, "levenshtein", n_neighbors=N_NEIGHBORS, p_work=P_WORK,
         random_seed=42, sampler=HostSampler())
     host_launches = K1.launches
+    host_modes = dict(K1.mode_launches)
     host_errors = att.compare_neighbor_graphs(host.neighbor_graph, gt, N_NEIGHBORS)
     report.update(host_evals=int(host.evals), host_errors=int(host_errors),
                   host_k1_launches=host_launches)
@@ -627,8 +891,12 @@ def main() -> int:
         raise SystemExit("the host-pipeline fit differs from the JAX package's figures")
 
     _phase("9. scale path (%s)" % report["card"])
-    scale_launches, scale_err = _scale_path(torch, np, att, K1, report)
+    scale_modes, scale_err = _scale_path(torch, np, att, K1, report, big_X)
     max_err = max(max_err, scale_err)
+    main_modes = {m: fit_modes[m] + host_modes[m] + scale_modes[m] for m in fit_modes}
+    print("  K1 launches on the main path (phases 4, 8, 9) by mode: %s" % main_modes)
+    if not (main_modes["thread"] and main_modes["group"]):
+        raise SystemExit("the main path did not launch both K1 modes: %s" % main_modes)
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -639,10 +907,16 @@ def main() -> int:
         "route": "cuda",
         "source": "annchor_tpu_torch/csrc/levenshtein_myers.cu",
         "replaces": "annchor_tpu/ops/levenshtein_pallas.py:63",
-        "launches": launches + host_launches + scale_launches,
+        "launches": sum(main_modes.values()),
+        "launches_thread": main_modes["thread"],
+        "launches_group": main_modes["group"],
+        "launches_long": main_modes["long"],
         "max_abs_err": max_err,
         "ms": refine["ms"],
         "plain_ms": refine["plain_ms"],
+        "bound_ms": refine["bound_ms"],
+        "bound_by": refine["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -14,7 +14,7 @@ from annchor_tpu_torch import Annchor
 from annchor_tpu_torch.datasets import make_strings
 from annchor_tpu_torch.ops.device_pipeline import default_uniforms
 from annchor_tpu_torch.ops.levenshtein import encode_strings, levenshtein_scalar
-from annchor_tpu_torch.ops.levenshtein_cuda import K1, myers_pairs_cuda
+from annchor_tpu_torch.ops.levenshtein_cuda import K1, launch_plan, myers_pairs_cuda
 from annchor_tpu_torch.ops.levenshtein_myers import (
     MyersEncoding,
     myers_pairs,
@@ -60,6 +60,105 @@ def test_k1_bit_equal_to_plain(cuda, alphabet, lo, hi):
     Ih, Jh = I[:16].tolist(), J[:16].tolist()
     want = [levenshtein_scalar(strs[i], strs[j]) for i, j in zip(Ih, Jh)]
     assert got[:16].tolist() == want
+
+
+GREEK = "".join(chr(0x100 + i) for i in range(192))
+
+
+def _mode_case(rng, case):
+    """(strings, I, J) of one named case: patterns of 1, 31-33, 40-48,
+    63-64 and 63-65 words and of more than 64, alphabets of 2, 4, 26 and
+    192 symbols, a one-pair batch, a 1,600-pair column, and a skewed set
+    whose few long strings send their pairs down the overflow lists."""
+    if case == "one pair":
+        strs = _strings(rng, 2, 400, 500, "ACGT")
+        return strs, [0], [1]
+    if case == "column":
+        strs = list(make_strings()[0])
+        return strs, [1126] * len(strs), list(range(len(strs)))
+    if case == "skewed":
+        # 400 short strings, then 2 of 35-44 words and 2 of 66-72: under
+        # 1 % of the set, so the main launch holds only the short ones
+        strs = (_strings(rng, 400, 0, 300, "ACGT") + _strings(rng, 2, 1100, 1400, "ACGT")
+                + _strings(rng, 2, 2100, 2300, "ACGT"))
+        tail = np.arange(400, 404)
+        I = np.concatenate([rng.integers(0, 404, size=2000), np.repeat(tail, 4),
+                            rng.choice(tail, 200)])
+        J = np.concatenate([rng.integers(0, 404, size=2000), np.tile(tail, 4),
+                            rng.integers(0, 404, size=200)])
+        return strs, I, J
+    alphabet, lo, hi = {
+        "words 1": ("ACGT", 0, 32),
+        "words 31-33": ("ab", 961, 1056),
+        "words 40-48": ("ACGT", 1249, 1536),
+        "words 63-64": ("ACGT", 1985, 2048),
+        "words 63-65": ("ACGT", 1985, 2080),
+        "words >64": ("ACGT", 2100, 2300),
+        "alphabet 26": ("abcdefghijklmnopqrstuvwxyz", 0, 140),
+        "alphabet 192": (GREEK, 150, 400),
+    }[case]
+    strs = _strings(rng, 48, lo, hi, alphabet)
+    if alphabet == GREEK:
+        strs[2] = GREEK  # every symbol present: the encoding has 192
+    if case == "words 63-65":
+        strs[3] = "A" * 2080  # 65 words
+    I = rng.integers(0, len(strs), size=2000)
+    J = rng.integers(0, len(strs), size=2000)
+    I[: len(strs)] = np.arange(len(strs))
+    return strs, I, J
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["words 1", "words 31-33", "words 40-48", "words 63-64", "words 63-65", "words >64",
+     "alphabet 26", "alphabet 192", "one pair", "column", "skewed"],
+)
+@pytest.mark.parametrize("mode", ["thread", "group"])
+def test_k1_mode_bit_equal_to_plain(cuda, mode, case):
+    rng = np.random.default_rng(sum(map(ord, case)))
+    strs, I, J = _mode_case(rng, case)
+    enc = MyersEncoding.from_codes(*encode_strings(strs), cuda)
+    if case == "alphabet 192":
+        assert enc.alphabet == 192
+    I = torch.as_tensor(np.asarray(I), device=cuda)
+    J = torch.as_tensor(np.asarray(J), device=cuda)
+    plans = launch_plan(len(I), enc.wbulk, enc.wmax, enc.alphabet, mode)
+    if enc.wbulk <= 64:
+        assert plans[0].mode == mode
+    if case == "skewed":  # the main launch, then thread and long mode on lists
+        assert [p.mode for p in plans] == [mode, "thread", "long"]
+    before = dict(K1.mode_launches)
+    got = myers_pairs_cuda(enc.peq, enc.ids, enc.lengths, I, J, enc.wmax, mode,
+                           wbulk=enc.wbulk)
+    torch.cuda.synchronize()
+    for m in K1.mode_launches:
+        assert K1.mode_launches[m] - before[m] == sum(p.mode == m for p in plans)
+    assert torch.equal(got, myers_pairs_plain(enc, I, J))
+    Ih, Jh = I[:12].tolist(), J[:12].tolist()
+    assert got[:12].tolist() == [levenshtein_scalar(strs[i], strs[j]) for i, j in zip(Ih, Jh)]
+
+
+@pytest.mark.parametrize("data", ["uniform", "skewed"])
+@pytest.mark.parametrize("mode", ["auto", "thread", "group"])
+def test_k1_call_does_not_sync(cuda, mode, data):
+    """No K1 call waits for the card: not the launch plan, not the
+    expanded (stride 0) id of an anchor column, not the overflow lists
+    that a skewed set's long strings take."""
+    strs = list(make_strings(n=200, length=300, seed=3)[0])
+    if data == "skewed":
+        strs[7] = strs[7] * 7  # the anchor: 2,100 characters or so
+    enc = MyersEncoding.from_codes(*encode_strings(strs), cuda)
+    I = torch.tensor(7, device=cuda).expand(len(strs))
+    J = torch.arange(len(strs), device=cuda, dtype=torch.int32)
+    want = myers_pairs_plain(enc, I, J)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = myers_pairs_cuda(enc.peq, enc.ids, enc.lengths, I, J, enc.wmax, mode,
+                               wbulk=enc.wbulk)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
 
 
 def test_k1_wrapper_checks_inputs(cuda):
