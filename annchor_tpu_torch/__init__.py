@@ -8,9 +8,11 @@ plain PyTorch version when ``device="cpu"``.
 Ported so far: fits at nx <= 4096 under ``levenshtein``, ``euclidean``,
 ``sqeuclidean``, ``cosine`` or any Python callable, with the default
 strategies (device pipeline) or custom strategy objects (host
-pipeline); ``BruteForce``, ``compare_neighbor_graphs`` and the scalar
-``distances``.  This package imports neither ``jax`` nor
-``annchor_tpu``.
+pipeline), and above 4,096 points the scale path; ``BruteForce``,
+``compare_neighbor_graphs`` and the scalar ``distances``; after a fit,
+``query``/``legacy_query``, ``save``/``load`` (the JAX package's file
+formats) and the nearest-enemy extras.  This package imports neither
+``jax`` nor ``annchor_tpu``.
 """
 
 from annchor_tpu_torch import distances

@@ -17,12 +17,15 @@ state is host numpy, as the JAX package's, and whose per-pair passes
 (``ops/features``, ``ops/pairs``, ``ops/bounds_update``) run as torch on
 the fit's device.  Every metric evaluation goes through the evaluator
 ``get_exact_ijs``; for the Levenshtein metric on a CUDA device that is
-the hand-written pair kernel.
+the hand-written pair kernel.  A fitted index serves out-of-sample
+queries (``query.py``), is saved and loaded in the JAX package's file
+formats (``io.py``), and gives the nearest-enemy graph and the
+selective subsets (``enemies.py``).
 
 Not ported yet (each raises NotImplementedError or is absent): the
 Wasserstein metrics with the scout/certify hybrid, non-metric fits and
-custom strategy objects above 4,096 points, query, persistence and the
-nearest-enemy extras (ROADMAP Queue 1).
+custom strategy objects above 4,096 points, and the exact-graph
+certification of ``exact.py`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -883,6 +886,80 @@ class Annchor:
         from annchor_tpu_torch.refine import refine_neighbor_graph
 
         return refine_neighbor_graph(self, rounds=rounds, budget=budget)
+
+    # -- serving: query, persistence, extras --------------------------------
+
+    def query(self, Q, nn=15, p_work=0.3, get_exact_query_ijs=None,
+              loc_thresh=None, locality=None, seed_frac=0.5, expand_rounds=3):
+        """Query new points against the fitted index (reference
+        annchor.py:643-683; ``query.py``).  Returns (indices, distances),
+        each (len(Q), nn + 1).
+
+        loc_thresh/locality override the fitted filter knobs for the
+        query-side candidates only; seed_frac/expand_rounds split the
+        p_work budget between the error-model seed and the graph walk."""
+        from annchor_tpu_torch.query import query_
+
+        nq = len(Q)
+        limit = ((nq * nn * 3) // 2 - 1 + self.n_anchors * nq) / (nq * self.nx)
+        if p_work < limit:
+            print("Warning: p_work too low")
+            print("Increasing p_work to %5.3f" % limit)
+            p_work = limit
+        return query_(
+            self, Q, nn=nn, p_work=p_work,
+            get_exact_query_ijs=get_exact_query_ijs,
+            loc_thresh=loc_thresh, locality=locality,
+            seed_frac=seed_frac, expand_rounds=expand_rounds,
+        )
+
+    def legacy_query(self, Z, k=5, alpha=1.4, beta=1.4, get_exact_query_ijs=None):
+        """The older landmark-descent query (reference
+        query_functions.py:218-338, unwired there; ``query.py``)."""
+        from annchor_tpu_torch.query import legacy_query_
+
+        return legacy_query_(
+            self, Z, get_exact_query_ijs=get_exact_query_ijs, k=k, alpha=alpha,
+            beta=beta,
+        )
+
+    def save(self, path, include_exact=True):
+        """Persist the fitted index (``io.py``; the dataset and metric are
+        supplied again at load time).  Scale-path fits are saved as v2,
+        without the m-sized pair state; include_exact=False drops its
+        exact-store dump."""
+        from annchor_tpu_torch.io import save_annchor
+
+        save_annchor(self, path, include_exact=include_exact)
+
+    @classmethod
+    def load(cls, path, X, func, func_kwargs=None, device="cuda", **kwargs):
+        """Rebuild an index saved by ``save`` (by either package) on
+        ``device``.  For a v2 checkpoint, rebuild_pairs=True re-runs the
+        pair build from the stored anchor columns (no metric calls)."""
+        from annchor_tpu_torch.io import load_annchor
+
+        return load_annchor(path, X, func, func_kwargs=func_kwargs, device=device,
+                            **kwargs)
+
+    def get_nearest_enemies(self, y, nn=3, loc_min=100):
+        """The nn nearest differently-labelled points of every point
+        (``enemies.py``)."""
+        from annchor_tpu_torch.enemies import get_nearest_enemies
+
+        return get_nearest_enemies(self, y, nn=nn, loc_min=loc_min)
+
+    def annchor_selective_subset(self, y, dne=None, alpha=0):
+        """A selective subset for 1-NN classification (``enemies.py``)."""
+        from annchor_tpu_torch.enemies import annchor_selective_subset
+
+        return annchor_selective_subset(self, y, dne=dne, alpha=alpha)
+
+    def alpha_rss(self, y, dne=None, alpha=0):
+        """The sequential alpha-RSS subset (``enemies.py``)."""
+        from annchor_tpu_torch.enemies import alpha_rss
+
+        return alpha_rss(self, y, dne=dne, alpha=alpha)
 
     def _evaluate_remaining(self):
         """Tiny data sets: the stratified sampler cannot draw on the

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import atexit
 import concurrent.futures as cf
+import contextlib
 import multiprocessing as mp
 import os
 import threading
@@ -231,6 +232,21 @@ class _LevenshteinEngine:
     def __init__(self, device):
         self.device = resolve_device(device)
         self._cache = {}
+        self._holds = 0
+        self._pair_enc = None  # (X, Z, encoding) while a hold is open
+
+    @contextlib.contextmanager
+    def hold_pair_encoding(self):
+        """Within the block, query-path calls on the same (X, Z) objects
+        share one joint encoding of X + Z instead of encoding it anew per
+        call; it is dropped when the outermost hold closes."""
+        self._holds += 1
+        try:
+            yield
+        finally:
+            self._holds -= 1
+            if not self._holds:
+                self._pair_enc = None
 
     def _encode(self, X):
         # keyed by identity, but the entry holds a strong reference to X
@@ -267,11 +283,17 @@ class _LevenshteinEngine:
         if Z is X:
             enc = self._encode(X)
             return self._pairs(enc, IJ[:, 0], IJ[:, 1]).astype(np.float64)
-        # query path: X and Z share one encoding (not cached, so the
-        # fitted dataset's entry survives)
-        enc = MyersEncoding.from_codes(
-            *_encode_codes(list(X) + list(Z)), self.device
-        )
+        # query path: X and Z share one encoding, kept only while a hold
+        # is open, so the fitted dataset's cache entry survives
+        held = self._pair_enc
+        if held is not None and held[0] is X and held[1] is Z:
+            enc = held[2]
+        else:
+            enc = MyersEncoding.from_codes(
+                *_encode_codes(list(X) + list(Z)), self.device
+            )
+            if self._holds:
+                self._pair_enc = (X, Z, enc)
         return self._pairs(enc, IJ[:, 0], IJ[:, 1] + len(X)).astype(
             np.float64
         )

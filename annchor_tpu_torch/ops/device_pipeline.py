@@ -12,7 +12,10 @@ the regression coefficients and the chosen pair ids across the host
 link.  The stage programs are plain functions on tensors, so a test can
 start any of them from the JAX package's own state (``convert.py``).
 Above MAX_FULL_MATRIX_NX points the tropical tighten's (nx, nx) matrix
-gives way to the column-subsampled ``tighten_cols``.
+gives way to the column-subsampled ``tighten_cols``.  After the fit the
+nearest-enemy extras append pairs to the live state and run their
+per-point passes over its incidence matrix (``enemy_refine_select``,
+``enemy_knn``, ``cover_incidence``).
 
 Parity with the JAX programs:
 
@@ -103,6 +106,21 @@ def features(D32, ij_i, ij_j, chunk: int = 1 << 18):
     return bounds_dad_dev(D32, D32, ij_i, ij_j, chunk)
 
 
+def _linear_predict(lb, ub, dad, inner_edges, coefs, icepts):
+    """The per-bin linear model at every pair (bins (lo, hi])."""
+    labels = torch.searchsorted(inner_edges, dad, right=False)
+    c = coefs[labels]
+    return lb * c[:, 0] + ub * c[:, 1] + dad * c[:, 2] + icepts[labels]
+
+
+def predict_pairs(lb, ub, dad, inner_edges, coefs, icepts):
+    """Prediction of appended pairs (the nearest-enemy path), clipped to
+    their bounds whether or not the fit is metric, as the JAX package's
+    ``_predict_pairs``."""
+    pred = _linear_predict(lb, ub, dad, inner_edges, coefs, icepts)
+    return torch.minimum(torch.maximum(pred, lb), ub)
+
+
 def regress_update(lb, ub, dad, RA, ncm, inner_edges, coefs, icepts,
                    sample_ids, sample_y, is_metric: bool, init: bool):
     """Predict every pair from the per-bin linear model, clip to the
@@ -112,9 +130,7 @@ def regress_update(lb, ub, dad, RA, ncm, inner_edges, coefs, icepts,
     The prediction is lb*c0 + ub*c1 + dad*c2 + ic, rounded after every
     operation; XLA may contract it into fused multiply-adds, so RA can
     differ from the JAX program's in the last few ulps."""
-    labels = torch.searchsorted(inner_edges, dad, right=False)
-    c = coefs[labels]
-    pred = lb * c[:, 0] + ub * c[:, 1] + dad * c[:, 2] + icepts[labels]
+    pred = _linear_predict(lb, ub, dad, inner_edges, coefs, icepts)
     if is_metric:
         pred = torch.minimum(torch.maximum(pred, lb), ub)
     ncm2 = ncm.clone()
@@ -467,6 +483,17 @@ def clip_ra(RA, ncm, lb, ub):
     return torch.where(ncm, torch.minimum(torch.maximum(RA, lb), ub), RA)
 
 
+def _ext(t, fill):
+    """t with one sentinel entry ``fill`` appended (read at pad id m)."""
+    return torch.cat([t, torch.full((1,), fill, dtype=t.dtype, device=t.device)])
+
+
+def _pair_sums(ij_i, ij_j):
+    """i + j per pair, with a 0 sentinel at id m: a row's partner is the
+    pair sum minus the row."""
+    return _ext(ij_i.long() + ij_j.long(), 0)
+
+
 def knn(RA, ncm, P_idx, ij_i, ij_j, nn: int):
     """Graph assembly (reference get_nn, utils.py:383-429): per point,
     the nn smallest of its incidence row, where uncomputed pairs carry a
@@ -476,11 +503,9 @@ def knn(RA, ncm, P_idx, ij_i, ij_j, nn: int):
     dev = RA.device
     m = RA.shape[0]
     nx, max_deg = P_idx.shape
-    RA_pad = torch.cat([RA, torch.tensor([F32_INF], device=dev)])
-    ncm_ext = torch.cat([ncm, torch.ones(1, dtype=torch.bool, device=dev)])
-    pair_sum = torch.cat(
-        [ij_i.long() + ij_j.long(), torch.zeros(1, dtype=torch.int64, device=dev)]
-    )
+    RA_pad = _ext(RA, F32_INF)
+    ncm_ext = _ext(ncm, True)
+    pair_sum = _pair_sums(ij_i, ij_j)
     ids = torch.zeros((nx, nn), dtype=torch.int64, device=dev)
     part = torch.zeros((nx, nn), dtype=torch.int64, device=dev)
     ra = torch.zeros((nx, nn), dtype=torch.float32, device=dev)
@@ -499,6 +524,107 @@ def knn(RA, ncm, P_idx, ij_i, ij_j, nn: int):
         ra[start : start + blk] = torch.gather(vals, 1, cols)
         cm[start : start + blk] = ~torch.gather(ncm_rows, 1, cols)
     return ids, part, ra, cm
+
+
+# ---------------------------------------------------------------------------
+# nearest-enemy and selective-subset passes (reference annchor.py:685-940):
+# the per-point passes of ``select``/``knn`` restricted to differently
+# labelled partners, so the extras run on the live fit state
+
+
+def _row_view(P_idx, pair_sum, start: int, blk: int, m: int):
+    """(rows, valid, row ids, partners) of an incidence row block."""
+    nx = P_idx.shape[0]
+    rows = P_idx[start : start + blk].long()
+    row_ids = torch.arange(start, start + blk, device=P_idx.device)
+    others = pair_sum[rows] - row_ids[:, None]
+    return rows, rows < m, row_ids, others.clamp(0, nx - 1), others
+
+
+def enemy_refine_select(RA, ncm, P_idx, ij_i, ij_j, y, k: int):
+    """Per point, its k closest predicted differently-labelled partners
+    among its tracked pairs, ties to the lower column, where still
+    uncomputed (reference annchor.py:753-769).  y: int64 label codes.
+    Returns int64 (nx, min(k, max_deg)) pair ids, m where none."""
+    m = RA.shape[0]
+    nx, max_deg = P_idx.shape
+    RA_pad = _ext(RA, F32_INF)
+    ncm_ext = _ext(ncm, False)
+    pair_sum = _pair_sums(ij_i, ij_j)
+    kk = min(int(k), max_deg)
+    out = torch.full((nx, kk), m, dtype=torch.int64, device=RA.device)
+    blk = _row_block(nx, max_deg)
+    for start in _row_blocks(nx, blk):
+        rows, valid, row_ids, oc, _ = _row_view(P_idx, pair_sum, start, blk, m)
+        emask = valid & (y[oc] != y[row_ids][:, None])
+        dmat = torch.where(emask, RA_pad[rows], F32_INF)
+        cols = torch.sort(dmat, dim=1, stable=True).indices[:, :kk]
+        ids_sel = torch.gather(rows, 1, cols)
+        sel_ok = torch.gather(emask, 1, cols) & ncm_ext[ids_sel]
+        out[start : start + blk] = torch.where(sel_ok, ids_sel, m)
+    return out
+
+
+def enemy_knn(RA, ncm, P_idx, ij_i, ij_j, y, nn: int):
+    """Nearest-enemy graph assembly (reference annchor.py:771-787): per
+    point the nn smallest of its incidence row, where uncomputed and
+    same-label partners each carry a +rowmax penalty (ties to the lower
+    column).  Returns (pair ids, partners (0 where none), RA values),
+    each (nx, nn)."""
+    dev = RA.device
+    m = RA.shape[0]
+    nx, max_deg = P_idx.shape
+    RA_pad = _ext(RA, F32_INF)
+    ncm_ext = _ext(ncm, True)
+    pair_sum = _pair_sums(ij_i, ij_j)
+    ids = torch.zeros((nx, nn), dtype=torch.int64, device=dev)
+    part = torch.zeros((nx, nn), dtype=torch.int64, device=dev)
+    ra = torch.zeros((nx, nn), dtype=torch.float32, device=dev)
+    blk = _row_block(nx, max_deg)
+    for start in _row_blocks(nx, blk):
+        rows, valid, row_ids, oc, others = _row_view(P_idx, pair_sum, start, blk, m)
+        vals = RA_pad[rows]
+        same = y[oc] == y[row_ids][:, None]
+        mx = torch.where(valid, vals, -F32_INF).amax(dim=1, keepdim=True)
+        mx = torch.where(torch.isfinite(mx), mx, 0.0)
+        dpen = torch.where(
+            valid,
+            vals + torch.where(valid & ncm_ext[rows], mx, 0.0)
+            + torch.where(valid & same, mx, 0.0),
+            F32_INF,
+        )
+        cols = torch.sort(dpen, dim=1, stable=True).indices[:, :nn]
+        pair_ids = torch.gather(rows, 1, cols)
+        ids[start : start + blk] = pair_ids
+        # the host assembly leaves a missing partner at 0
+        part[start : start + blk] = torch.where(
+            pair_ids < m, torch.gather(others, 1, cols), 0
+        )
+        ra[start : start + blk] = torch.gather(
+            torch.where(valid, vals, F32_INF), 1, cols
+        )
+    return ids, part, ra
+
+
+def cover_incidence(RA, ncm, ub, P_idx, ij_i, ij_j, slot, radii, S: int):
+    """Selective-subset cover incidence: inc[p, s] = 1 iff subset member
+    s (``slot`` maps a point to its member index, -1 for non-members) is
+    a tracked partner of p strictly inside p's enemy radius, by the
+    pair's exact value or, where uncomputed, its upper bound.
+    Returns int32 (nx, S)."""
+    m = RA.shape[0]
+    nx, max_deg = P_idx.shape
+    dists_pad = _ext(torch.where(ncm, ub, RA), F32_INF)
+    pair_sum = _pair_sums(ij_i, ij_j)
+    inc = torch.zeros((nx, S), dtype=torch.int32, device=RA.device)
+    blk = _row_block(nx, max_deg)
+    for start in _row_blocks(nx, blk):
+        rows, valid, row_ids, oc, _ = _row_view(P_idx, pair_sum, start, blk, m)
+        sl = slot[oc]
+        live = valid & (sl >= 0) & (dists_pad[rows] < radii[row_ids][:, None] - 1e-6)
+        r = row_ids[:, None].expand_as(rows)
+        inc[r[live], sl[live]] = 1
+    return inc
 
 
 # ---------------------------------------------------------------------------
@@ -611,6 +737,7 @@ class DeviceFitState:
         self.thresh = None
         self._started = False
         self._pending_exact = []
+        self._tracked_keys = None  # sorted packed pair keys (tracked_mask)
 
         # non-metric fits: anchor pairs keep their exact column values
         # once predictions stop being clipped to the bounds
@@ -929,6 +1056,135 @@ class DeviceFitState:
         self.ng_exact_mask = is_exact
         ngd = np.where(is_exact & ~np.isnan(exact), exact, ra_sel)
         return ngi, ngd
+
+    # -- nearest enemies and the selective subset ----------------------------
+
+    def tracked_mask(self, IJ):
+        """Host bool mask: which pairs (i < j) of the (k, 2) array ``IJ``
+        are in the tracked pair list.  The packed keys i*nx + j of the
+        list are sorted once (until the list grows) and searched with
+        ``torch.searchsorted``; the pair list never reaches the host."""
+        IJ = np.asarray(IJ, dtype=np.int64)
+        if IJ.shape[0] == 0 or self.m == 0:
+            return np.zeros(IJ.shape[0], dtype=bool)
+        nx = self.ann.nx
+        if self._tracked_keys is None:
+            self._tracked_keys = torch.sort(
+                self.ij_i.long() * nx + self.ij_j.long()
+            ).values
+        keys = self._tracked_keys
+        q = torch.as_tensor(IJ[:, 0] * nx + IJ[:, 1], device=self.device)
+        pos = torch.searchsorted(keys, q).clamp_(max=self.m - 1)
+        return (keys[pos] == q).cpu().numpy()
+
+    def append_pairs(self, IJ_new, regression):
+        """Append candidate pairs (the nearest-enemy path's new enemy
+        candidates) to the state: features and clipped predictions on
+        the device, anchor pairs exact from the D columns, and the pair
+        list, ``ann.IJs``, ``ann.P_cnt`` and the incidence matrix kept
+        aligned at the new m (reference annchor.py:734-742)."""
+        self._flush_exacts()
+        ann = self.ann
+        nx = ann.nx
+        dev = self.device
+        IJ_new = np.asarray(IJ_new)
+        k = IJ_new.shape[0]
+        if k == 0:
+            return
+        m_old = self.m
+        ii = torch.as_tensor(IJ_new[:, 0].astype(np.int32), device=dev)
+        jj = torch.as_tensor(IJ_new[:, 1].astype(np.int32), device=dev)
+        D32 = torch.as_tensor(np.asarray(ann.D, dtype=np.float32), device=dev)
+        fchunk = max(1 << 18, (1 << 27) // max(D32.shape[1], 1))
+        lb2, ub2, dad2 = features(D32, ii, jj, fchunk)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+        pred = predict_pairs(
+            lb2, ub2, dad2, f32(regression.sample_bins[1:-1]),
+            f32(regression.coefs), f32(regression.intercepts),
+        )
+        anchor_np = np.zeros(nx, dtype=bool)
+        anchor_np[np.asarray(ann.A, dtype=int)] = True
+        is_anchor = anchor_np[IJ_new[:, 0]] | anchor_np[IJ_new[:, 1]]
+        ncm_new = ~is_anchor
+
+        self.ij_i = torch.cat([self.ij_i, ii])
+        self.ij_j = torch.cat([self.ij_j, jj])
+        self.lb = torch.cat([self.lb, lb2])
+        self.ub = torch.cat([self.ub, ub2])
+        self.dad = torch.cat([self.dad, dad2])
+        self.RA = torch.cat([self.RA, pred])
+        self.ncm = torch.cat([self.ncm, torch.as_tensor(ncm_new, device=dev)])
+        self.m = m_old + k
+        self._tracked_keys = None
+
+        # the orchestrator's pair-list views follow the state
+        if ann._IJs is not None:
+            ann._IJs = np.concatenate(
+                [ann._IJs, IJ_new.astype(ann._IJs.dtype)], axis=0
+            )
+        if ann._ij_dev is not None:
+            ann._ij_dev = (self.ij_i, self.ij_j, self.m)
+        ann._P_idx = None
+
+        self.pool += int(ncm_new.sum())
+        anchor_ids = m_old + np.flatnonzero(is_anchor).astype(np.int64)
+        if not self.sparse:
+            self.anchor_flag = np.concatenate([self.anchor_flag, is_anchor])
+            self.ncm_host = np.concatenate([self.ncm_host, ncm_new])
+            self.exact64 = np.concatenate([self.exact64, np.full(k, np.nan)])
+        if anchor_ids.size:
+            prev = self._anchor_ids if self._anchor_ids is not None else anchor_ids[:0]
+            self._anchor_ids = np.concatenate([prev, anchor_ids])
+            self._fill_anchor_exacts(anchor_ids)
+
+        ann.P_cnt = (
+            np.asarray(ann.P_cnt, dtype=np.int64)
+            + np.bincount(IJ_new[:, 0], minlength=nx)
+            + np.bincount(IJ_new[:, 1], minlength=nx)
+        ).astype(np.int32)
+        self._rebuild_pidx()
+
+    def enemy_refine_ids(self, y_codes, k=50):
+        """Pair ids of each point's k closest predicted enemies that are
+        still uncomputed, deduplicated and sorted (host int64)."""
+        self._flush_exacts()
+        y = torch.as_tensor(np.asarray(y_codes, dtype=np.int64), device=self.device)
+        ids = enemy_refine_select(
+            self.RA, self.ncm, self.P_idx_d, self.ij_i, self.ij_j, y, k
+        ).reshape(-1)
+        return torch.unique(ids[ids < self.m]).cpu().numpy()
+
+    def enemy_knn_graph(self, y_codes, nn):
+        """The nearest-enemy graph: exact distances from the float64
+        host store, predicted ones from the f32 estimates."""
+        self._flush_exacts()
+        nn = min(int(nn), int(self.P_idx_d.shape[1]))
+        y = torch.as_tensor(np.asarray(y_codes, dtype=np.int64), device=self.device)
+        pair_ids, partners, ra_sel = (
+            t.cpu().numpy()
+            for t in enemy_knn(self.RA, self.ncm, self.P_idx_d, self.ij_i, self.ij_j, y, nn)
+        )
+        exact = self._exact_at(np.clip(pair_ids, 0, self.m - 1))
+        is_exact = (pair_ids < self.m) & ~np.isnan(exact)
+        return partners, np.where(is_exact, exact, ra_sel.astype(np.float64))
+
+    def cover_incidence(self, slot, radii):
+        """(nx, S) int64 0/1 incidence of the subset members strictly
+        inside each point's enemy radius among its tracked partners
+        (S = subset size): the selective-subset prune's working set."""
+        self._flush_exacts()
+        slot = np.asarray(slot, dtype=np.int64)
+        S = int(slot.max()) + 1
+        dev = self.device
+        inc = cover_incidence(
+            self.RA, self.ncm, self.ub, self.P_idx_d, self.ij_i, self.ij_j,
+            torch.as_tensor(slot, device=dev),
+            torch.as_tensor(np.asarray(radii, dtype=np.float32), device=dev), S,
+        )
+        return inc.cpu().numpy().astype(np.int64)
 
     # -- host materialisation ------------------------------------------------
 

@@ -18,6 +18,11 @@ Two builds are ported:
   ``per_point_cap`` smallest-lower-bound candidates and returns the pair
   list as int32 tensors on the device.
 
+and the same counts serve the post-fit surface: the query candidates
+(``query_candidates``) and the nearest-enemy candidates
+(``enemy_candidate_pairs``, with the label-masked thresholds of
+``effective_thresholds``).
+
 The shared-anchor counts are float32 products of 0/1 matrices whose
 sums are at most ``locality``: exact whether or not the caller lets
 matmuls run in TF32, whose 10-bit mantissa holds 0 and 1 exactly.
@@ -30,7 +35,7 @@ import os
 import numpy as np
 import torch
 
-from annchor_tpu_torch.ops.features import anchor_membership, shared_anchor_counts
+from annchor_tpu_torch.ops.features import _f32, anchor_membership, shared_anchor_counts
 from annchor_tpu_torch.progress import progress
 
 DENSE_MAX_NX = 4096
@@ -89,31 +94,121 @@ def candidate_pairs(D, locality: int, loc_thresh: int, loc_min: int, device):
 # scale path: blocked thresholds and the budgeted band build
 
 
-def _block_kth(S, Sb, loc_min: int, locality: int):
+def _block_kth(S, Sb, loc_min: int, locality: int, mask_cols=None):
     """Per row of the block Sb, the number of c in 1..locality whose
     count of columns sharing >= c anchors exceeds loc_min: the
     (loc_min+1)-th largest shared-anchor count, by the integer-histogram
-    trick.  Returns float32 (rows,)."""
+    trick.  ``mask_cols`` (rows, nx) bool: only these columns count.
+    Returns float32 (rows,)."""
     counts = shared_anchor_counts(Sb, S)
+    if mask_cols is not None:
+        counts = torch.where(mask_cols, counts, -1.0)
     kth = torch.zeros(Sb.shape[0], dtype=torch.float32, device=S.device)
     for c in range(1, locality + 1):
         kth += ((counts >= c).sum(dim=1) > loc_min).to(torch.float32)
     return kth
 
 
+def label_codes(y, device):
+    """Dense int64 codes of the labels ``y`` (``np.unique``'s inverse) as
+    a tensor on ``device``."""
+    _, codes = np.unique(np.asarray(y), return_inverse=True)
+    return torch.as_tensor(codes.reshape(-1).astype(np.int64), device=device)
+
+
 def effective_thresholds(S, loc_thresh: float, loc_min: int, block: int = 4096,
-                         locality: int | None = None):
+                         locality: int | None = None, label_neq=None,
+                         label_mask=None, device=None):
     """Per-row effective threshold eff[i] = min(loc_thresh,
     kth_largest_i), in row blocks of ``block`` so no (nx, nx) count
-    matrix exists.  S: (nx, na) float32 0/1 tensor.  Returns float32
-    (nx,) on S's device."""
+    matrix exists.  S: (nx, na) 0/1, a tensor or a host array (then
+    moved to ``device``).
+
+    label_neq: a label vector y; only the columns j with y[j] != y[i]
+    count toward row i's loc_min guarantee (the nearest-enemy path,
+    reference annchor.py:713-717), the mask built per row block on the
+    device.  label_mask: the same restriction as an (nx, nx)-broadcastable
+    host bool array.  Returns float32 (nx,) on the device."""
+    S = _f32(S, device)
     nx = S.shape[0]
     if locality is None:
         locality = int(S.sum(dim=1).max())
+    codes = None if label_neq is None else label_codes(label_neq, S.device)
     eff = torch.empty(nx, dtype=torch.float32, device=S.device)
     for s in range(0, nx, block):
-        eff[s : s + block] = _block_kth(S, S[s : s + block], loc_min, locality)
+        mask = None
+        if codes is not None:
+            mask = codes[s : s + block, None] != codes[None, :]
+        elif label_mask is not None:
+            mb = np.broadcast_to(np.asarray(label_mask), (nx, nx))[s : s + block]
+            mask = torch.tensor(mb, device=S.device)
+        eff[s : s + block] = _block_kth(S, S[s : s + block], loc_min, locality, mask)
     return torch.clamp(eff, max=float(np.float32(loc_thresh)))
+
+
+def enemy_candidate_pairs(S, y, eff_e, loc_eff, block: int = 4096, device=None):
+    """New enemy candidate pairs (i < j), in row blocks on the device:
+    differently labelled, admitted by the enemy thresholds ``eff_e``,
+    and not admitted by the main thresholds ``loc_eff`` (an infinite
+    ``loc_eff`` excludes nothing), with the same symmetrised test
+    counts >= min(eff[i], eff[j]) as the main filter (reference
+    annchor.py:713-733).  Returns host int32 (m_new, 2) in row-major
+    order."""
+    S = _f32(S, device)
+    dev = S.device
+    nx = S.shape[0]
+    codes = label_codes(y, dev)
+    effE = _f32(eff_e, dev)
+    effO = _f32(loc_eff, dev)
+    # (block, nx) bool panels stay near 2^28 elements
+    block = max(1, min(block, (1 << 28) // max(nx, 1)))
+    cols = torch.arange(nx, device=dev)
+    parts = []
+    for s in range(0, nx, block):
+        rows = cols[s : s + block]
+        counts = shared_anchor_counts(S[s : s + block], S)
+        keep = (
+            (codes[s : s + block, None] != codes[None, :])
+            & (counts >= torch.minimum(effE[s : s + block, None], effE[None, :]))
+            & ~(counts >= torch.minimum(effO[s : s + block, None], effO[None, :]))
+            & (cols[None, :] > rows[:, None])
+        )
+        nz = torch.nonzero(keep)
+        if nz.shape[0]:
+            nz[:, 0] += s
+            parts.append(nz.to(torch.int32))
+    if not parts:
+        return np.zeros((0, 2), dtype=np.int32)
+    return torch.cat(parts).cpu().numpy()
+
+
+def query_candidates(S_X, QD, locality: int, loc_thresh: int, block: int = 4096,
+                     device="cpu"):
+    """Candidate database points for each query (reference
+    get_query_locality, query_functions.py:18-37): the shared-anchor
+    count between query q's ``locality`` nearest anchors and each
+    database point's, admitted at ``>= loc_thresh``; no adaptive
+    threshold and no symmetrisation.  The count is a 0/1 product on the
+    device, and the admitted pairs come out of ``torch.nonzero`` in
+    (query, database) row-major order.
+
+    S_X: (nx, na) database membership; QD: (nq, na) query anchor
+    distances.  Returns host int64 (db_ids, q_ids)."""
+    SX = _f32(S_X, device)
+    Sq, _ = anchor_membership(QD, locality, SX.device)
+    nx = SX.shape[0]
+    nq = Sq.shape[0]
+    block = max(1, min(block, (1 << 28) // max(nx, 1)))
+    thr = float(np.float32(loc_thresh))
+    parts = []
+    for s in range(0, nq, block):
+        nz = torch.nonzero(shared_anchor_counts(Sq[s : s + block], SX) >= thr)
+        nz[:, 0] += s
+        parts.append(nz)
+    if not parts:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    qd = torch.cat(parts).cpu().numpy()
+    return qd[:, 1].copy(), qd[:, 0].copy()
 
 
 def _band_linf(Db, Dc):

@@ -1,0 +1,481 @@
+"""Out-of-sample query (reference annchor/query_functions.py:10-338).
+
+Port of the JAX package's ``query.py``.  A query re-uses the fitted
+regression and error model (no retraining) with the asymmetric
+query-side bounds
+
+    lb = max_a |D[i,a] - QD[j,a]|     ub = min_a (D[i,a] + QD[j,a]).
+
+Each candidate pair is (database index, query index), indexed by its
+query in the padded incidence layout of the fit path.  The per-pair
+passes run on ``ann.device`` through the port's helpers (candidate
+counts, features, incidence, thresholds, probabilities, graph
+assembly); the budget walk and the legacy profile match stay host
+numpy, as in the JAX package, so their tie orders are its own.  Every
+metric call goes through ``ann._get_exact_query_ijs_for(ann.f)``: for
+the Levenshtein metric on a card, the hand-written pair kernel on the
+joint encoding of the database and the queries, which one call of
+``query_`` or ``legacy_query_`` encodes once (``_held_encoding``).
+
+The JAX package's scout/certify branch needs the hybrid fits of the
+Wasserstein metrics (ROADMAP Queue 1 item 7); the port has none, so
+every query takes the plain branch.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+
+from annchor_tpu_torch.ops import pairs as pair_ops
+from annchor_tpu_torch.ops.features import bounds_and_dad
+from annchor_tpu_torch.ops.locality import query_candidates
+
+
+def _anchor_objects(X, A):
+    try:
+        return np.asarray(X)[np.asarray(A, dtype=int)]
+    except Exception:
+        return [X[int(a)] for a in A]
+
+
+def _held_encoding(ann):
+    """Keep the metric engine's joint (database + queries) encoding for
+    the duration of one query call, where the engine offers it; results
+    are the same with or without the hold."""
+    hold = getattr(ann.metric.batch, "hold_pair_encoding", None)
+    return hold() if hold is not None else contextlib.nullcontext()
+
+
+def get_query_anchor_dists(ann, Q, geq):
+    """nq x na exact anchor distances for the queries
+    (reference query_functions.py:10-15)."""
+    nq = len(Q)
+    na = ann.n_anchors
+    XA = _anchor_objects(ann.X, ann.A)
+    IJ = np.stack(
+        [
+            np.tile(np.arange(na, dtype=np.int64), nq),
+            np.repeat(np.arange(nq, dtype=np.int64), na),
+        ],
+        axis=1,
+    )
+    D = np.asarray(geq(ann.f, XA, Q, IJ), dtype=np.float64)
+    return D.reshape(nq, na)
+
+
+def get_query_features(ann, Q, QD, check):
+    """Pairs, padded index and features for the query candidates
+    (reference query_functions.py:40-129).  ``check`` is the flat
+    (db_ids, q_ids) candidate layout of ``query_candidates``."""
+    nq = len(Q)
+    db_ids, q_ids = check
+    IJs = np.stack([db_ids, q_ids], axis=1)
+    P_idx, P_cnt = pair_ops.build_point_index_single(IJs[:, 1], nq, ann.device)
+    lb, ub, dad = bounds_and_dad(ann.D, IJs[:, 0], IJs[:, 1], DJ=QD, device=ann.device)
+    if len(ann.A):
+        anchors = np.isin(IJs[:, 0], np.asarray(ann.A, dtype=int)).astype(np.float64)
+    else:
+        anchors = np.zeros(IJs.shape[0])
+    Qfeatures = np.stack([lb, ub, dad, anchors], axis=1)
+    Qncm = Qfeatures[:, 3] < 1
+    return IJs, P_idx, P_cnt, Qfeatures, Qncm
+
+
+def _per_query_topk(eq, ed, nq: int, k: int):
+    """Per-query head of the evaluated pair lists: (order, rank), where
+    order sorts by (query, distance) and rank is each entry's position
+    within its query; entries with rank < k are the query's current k
+    best evaluated pairs."""
+    order = np.lexsort((ed, eq))
+    eq_s = eq[order]
+    starts = np.searchsorted(eq_s, np.arange(nq))
+    rank = np.arange(eq_s.shape[0]) - starts[eq_s]
+    return order, rank
+
+
+def _kth_evaluated(aq, ad, nq: int, nn: int):
+    """Per query, its nn-th smallest evaluated distance (+inf while it
+    has fewer than nn evaluations), with the (order, rank) of
+    ``_per_query_topk``."""
+    o, rank = _per_query_topk(aq, ad, nq, nn)
+    cnt = np.bincount(aq, minlength=nq)
+    kth = np.full(nq, np.inf)
+    last = o[rank == np.minimum(nn - 1, cnt[aq[o]] - 1)]
+    kth[aq[last]] = np.where(cnt[aq[last]] >= nn, ad[last], np.inf)
+    return o, rank, kth
+
+
+def select_refine_candidate_query_pairs(
+    ann, IJs, Q, P_idx, P_cnt, QRA, Qncm, Qerrors, p_work, nn, geq,
+    seed_frac: float = 0.5, expand_rounds: int = 3,
+):
+    """Graph-guided refinement with the query work budget: (1) seed with
+    the error-model ranking on ``seed_frac`` of the budget (the
+    reference's rule, query_functions.py:132-180), (2) walk the fitted
+    graph from each query's current best evaluated points, screened by
+    the triangle lower bound and spent in per-query fair shares ordered
+    by the triangle upper bound, (3) spend the rest on the remaining
+    candidates ranked by the error model against the now-exact per-query
+    thresholds.
+
+    Returns (IJ_all, RA_all, ncm_all): the candidate pairs plus the
+    graph-walk pairs outside the locality candidate set."""
+    nq = len(Q)
+    nx = ann.nx
+    dev = ann.device
+    nbf = nq * nx
+    na = ann.n_anchors * nq
+    budget = max(0, int(p_work * nbf - na) + 1)
+
+    keys_c = IJs[:, 1].astype(np.int64) * nx + IJs[:, 0]
+    korder = np.argsort(keys_c, kind="stable")
+    keys_sorted = keys_c[korder]
+
+    def cand_lookup(keys):
+        """Candidate row ids of pair keys (-1 when absent)."""
+        pos = np.searchsorted(keys_sorted, keys)
+        pos = np.clip(pos, 0, keys_sorted.shape[0] - 1)
+        hit = keys_sorted[pos] == keys
+        return np.where(hit, korder[pos], -1)
+
+    # ---- seed: the error-model ranking ------------------------------
+    thresh = np.asarray(
+        pair_ops.kth_smallest_per_point(QRA, P_idx, nn, dev), dtype=np.float64
+    )
+    QRAg = pair_ops.guarantee_nmin(QRA, Qncm, P_idx, P_cnt, 3 * nn // 2, dev)
+    p = (thresh[IJs[:, 1]] - QRAg)[Qncm]
+    prob = pair_ops.empirical_cdf_probs(
+        p, Qerrors[Qncm], ann.error_predictor.errs, dev
+    )
+    n_seed = min(int(budget * seed_frac), prob.shape[0])
+    # the empirical CDF saturates at 0 and 1: the raw margin breaks
+    # those ties deterministically
+    order = np.lexsort((-p, -prob))[:n_seed]
+    mapback = np.flatnonzero(Qncm)[order]
+    exact = np.asarray(geq(ann.f, ann.X, Q, IJs[mapback]), dtype=np.float64)
+    QRA = QRAg
+    QRA[mapback] = exact
+    Qncm[mapback] = False
+    spent = mapback.shape[0]
+
+    eq = [IJs[mapback, 1].astype(np.int64)]
+    edb = [IJs[mapback, 0].astype(np.int64)]
+    ed = [exact]
+    visited = np.sort(keys_c[mapback])
+
+    # ---- expansion: walk the fitted k-NN graph ----------------------
+    # Each round proposes (q, l) for every graph neighbour l of the
+    # query's current best evaluated points j, drops those whose
+    # triangle lower bound |d(q,j) - d(j,l)| cannot beat the query's kth
+    # evaluated distance, and spends the round's share in per-query fair
+    # slots ordered by the upper bound d(q,j) + d(j,l).  The walk graph
+    # is symmetrised: each point's in-neighbours (up to one row width,
+    # nearest first) are appended to its row, so the walk crosses edges
+    # in both directions.
+    G = np.asarray(ann.neighbor_graph[0])
+    GD = np.asarray(ann.neighbor_graph[1])
+    deg0 = G.shape[1]
+    src_e = np.repeat(np.arange(G.shape[0], dtype=np.int64), deg0)
+    dst_e = G.reshape(-1).astype(np.int64)
+    d_e = GD.reshape(-1)
+    oke = (dst_e >= 0) & (dst_e != src_e) & np.isfinite(d_e)
+    order_e = np.lexsort((d_e[oke], dst_e[oke]))
+    dst_s = dst_e[oke][order_e]
+    starts_e = np.searchsorted(dst_s, np.arange(G.shape[0]))
+    rank_e = np.arange(dst_s.shape[0]) - starts_e[dst_s]
+    keep_e = rank_e < deg0
+    Grev = np.full((G.shape[0], deg0), -1, dtype=G.dtype)
+    GrevD = np.full((G.shape[0], deg0), np.inf)
+    Grev[dst_s[keep_e], rank_e[keep_e]] = src_e[oke][order_e][keep_e]
+    GrevD[dst_s[keep_e], rank_e[keep_e]] = d_e[oke][order_e][keep_e]
+    G = np.concatenate([G, Grev], axis=1)
+    GD = np.concatenate([GD, GrevD], axis=1)
+    for r in range(expand_rounds):
+        left = budget - spent
+        if left <= 0:
+            break
+        share = left if r == expand_rounds - 1 else max(1, left // (expand_rounds - r))
+        aq = np.concatenate(eq)
+        adb = np.concatenate(edb)
+        ad = np.concatenate(ed)
+        o, rank, kth = _kth_evaluated(aq, ad, nq, nn)
+        head = o[rank < nn]
+        src_q = aq[head]
+        src_db = adb[head]
+        src_d = ad[head]
+        deg = G.shape[1]
+        cand_q = np.repeat(src_q, deg)
+        cand_db = G[src_db].reshape(-1).astype(np.int64)
+        d_jl = GD[src_db].reshape(-1)
+        d_qj = np.repeat(src_d, deg)
+        ok = (cand_db >= 0) & np.isfinite(d_jl)
+        lb = np.abs(d_qj - d_jl)
+        ub = d_qj + d_jl
+        adm = ok & (lb < kth[cand_q])
+        keys = cand_q[adm] * nx + cand_db[adm]
+        ubk = ub[adm]
+        # best-ub-wins dedupe, then drop already-evaluated pairs
+        ordk = np.lexsort((ubk, keys))
+        keys, ubk = keys[ordk], ubk[ordk]
+        fresh = np.ones(keys.shape[0], dtype=bool)
+        fresh[1:] = keys[1:] != keys[:-1]
+        keys, ubk = keys[fresh], ubk[fresh]
+        if visited.size:
+            pos = np.clip(np.searchsorted(visited, keys), 0, visited.shape[0] - 1)
+            unseen = visited[pos] != keys
+            keys, ubk = keys[unseen], ubk[unseen]
+        if keys.size == 0:
+            break
+        if keys.size > share:
+            # per-query fair share: priority (rank within the query's
+            # ub-ordered slate, then ub)
+            qb = keys // nx
+            oq = np.lexsort((ubk, qb))
+            qb_s = qb[oq]
+            qstarts = np.searchsorted(qb_s, np.arange(nq))
+            wrank = np.arange(qb_s.shape[0]) - qstarts[qb_s]
+            pick = oq[np.lexsort((ubk[oq], wrank))[:share]]
+            keys = keys[pick]
+        new = np.sort(keys)
+        cq = (new // nx).astype(np.int64)
+        cdb = (new % nx).astype(np.int64)
+        d = np.asarray(geq(ann.f, ann.X, Q, np.stack([cdb, cq], axis=1)), dtype=np.float64)
+        eq.append(cq)
+        edb.append(cdb)
+        ed.append(d)
+        visited = np.sort(np.concatenate([visited, new]))
+        spent += new.shape[0]
+        # walk pairs already in the candidate set become computed
+        crow = cand_lookup(new)
+        hit = crow >= 0
+        QRA[crow[hit]] = d[hit]
+        Qncm[crow[hit]] = False
+
+    # ---- fill: the leftover budget back on the error model ----------
+    left = budget - spent
+    rem = np.flatnonzero(Qncm)
+    if left > 0 and rem.size:
+        _, _, kth = _kth_evaluated(np.concatenate(eq), np.concatenate(ed), nq, nn)
+        pm = kth[IJs[rem, 1]] - QRA[rem]
+        pr = pair_ops.empirical_cdf_probs(pm, Qerrors[rem], ann.error_predictor.errs, dev)
+        sel = rem[np.lexsort((-pm, -pr))[:left]]
+        d = np.asarray(geq(ann.f, ann.X, Q, IJs[sel]), dtype=np.float64)
+        QRA[sel] = d
+        Qncm[sel] = False
+        eq.append(IJs[sel, 1].astype(np.int64))
+        edb.append(IJs[sel, 0].astype(np.int64))
+        ed.append(d)
+
+    # ---- union: candidates + walk pairs outside the filter ----------
+    aq = np.concatenate(eq)
+    adb = np.concatenate(edb)
+    ad = np.concatenate(ed)
+    akeys = aq * nx + adb
+    extra = cand_lookup(akeys) < 0
+    if not extra.any():
+        return IJs, QRA, Qncm
+    _, ex_first = np.unique(akeys[extra], return_index=True)
+    ex_q = aq[extra][ex_first]
+    ex_db = adb[extra][ex_first]
+    ex_d = ad[extra][ex_first]
+    IJ_all = np.concatenate([IJs, np.stack([ex_db, ex_q], axis=1)], axis=0)
+    RA_all = np.concatenate([QRA, ex_d])
+    ncm_all = np.concatenate([Qncm, np.zeros(ex_q.shape[0], dtype=bool)])
+    return IJ_all, RA_all, ncm_all
+
+
+def query_dm(Q, P, DP, f, geq, k=0, alpha=1.2, init=0):
+    """Landmark-descent query against an anchor set (the reference's
+    legacy path, query_functions.py:262-338, as a masked batched
+    descent: one metric batch per step).
+
+    Each query walks the anchor graph: evaluate the current anchor,
+    extend the query's anchor profile lM[a] = sqrt(sum_t (d_t -
+    DP[a_t, a])^2) over the visited anchors a_t, and descend to the
+    profile-minimising anchor until it revisits one.  Then every anchor
+    whose profile norm is under ``alpha`` times the (k+1)-smallest is
+    evaluated exactly.
+
+    Q: queries; P: anchor objects; DP: (na, na) anchor distances; geq:
+    evaluator geq(f, Q, P, IJ) over (query, anchor) pairs.  Returns
+    (As, Ds, lMs, nevals): per query the anchor ids and exact distances
+    in ascending order, the final profile norms, and the metric calls."""
+    nq, mp = len(Q), len(P)
+    DP = np.asarray(DP, dtype=np.float64)
+
+    visited = [[] for _ in range(nq)]
+    dvis = [[] for _ in range(nq)]
+    sq = np.zeros((nq, mp))  # running sum of squared profile deviations
+    cur = np.full(nq, int(init))
+    active = np.ones(nq, dtype=bool)
+    nevals = 0
+
+    for _ in range(mp):
+        ids = np.nonzero(active)[0]
+        if ids.size == 0:
+            break
+        IJ = np.stack([ids, cur[ids]], axis=1)
+        d = np.asarray(geq(f, Q, P, IJ), dtype=np.float64)
+        nevals += ids.size
+        for i, di in zip(ids, d):
+            visited[i].append(int(cur[i]))
+            dvis[i].append(float(di))
+        sq[ids] += (d[:, None] - DP[cur[ids], :]) ** 2
+        nxt = np.argmin(np.sqrt(sq[ids]), axis=1)
+        for row, i in enumerate(ids):
+            if int(nxt[row]) in visited[i]:
+                active[i] = False
+            else:
+                cur[i] = int(nxt[row])
+
+    lMs = {i: np.sqrt(sq[i]) for i in range(nq)}
+
+    # expansion: every anchor within alpha of the (k+1)-smallest profile
+    todo_per_q = []
+    for i in range(nq):
+        lm = lMs[i]
+        radius = np.sort(lm)[min(k, mp - 1)] * alpha
+        cand = np.nonzero(lm < radius)[0]
+        todo_per_q.append(cand[~np.isin(cand, visited[i], assume_unique=True)])
+    flat = np.array(
+        [[i, j] for i in range(nq) for j in todo_per_q[i]], dtype=np.int64
+    ).reshape(-1, 2)
+    if flat.shape[0]:
+        dflat = np.asarray(geq(f, Q, P, flat), dtype=np.float64)
+        nevals += flat.shape[0]
+    else:
+        dflat = np.zeros(0)
+    offs = np.cumsum([0] + [len(t) for t in todo_per_q])
+
+    As, Ds = {}, {}
+    for i in range(nq):
+        a = np.concatenate([visited[i], todo_per_q[i]]).astype(int)
+        d = np.concatenate([dvis[i], dflat[offs[i] : offs[i + 1]]])
+        order = np.argsort(d, kind="stable")
+        As[i], Ds[i] = a[order], d[order]
+    return As, Ds, lMs, nevals
+
+
+def legacy_query_(ann, Z, get_exact_query_ijs=None, k=5, alpha=1.4, beta=1.4):
+    """Legacy anchor-profile query (reference query_functions.py:218-259):
+    rank the database points by how well their anchor-distance profile
+    matches the query's measured anchor distances, then evaluate the
+    beta-expanded head exactly.  The profile match is the JAX package's
+    float64 numpy code, so its stable sort sees the same bits.
+
+    Returns (indices (nz, k), distances (nz, k))."""
+    if get_exact_query_ijs is not None:
+        ann.get_exact_query_ijs = get_exact_query_ijs
+    geq = ann._get_exact_query_ijs_for(ann.f)
+    with _held_encoding(ann):
+        return _legacy_query(ann, Z, geq, k, alpha, beta)
+
+
+def _legacy_query(ann, Z, geq, k, alpha, beta):
+    XA = _anchor_objects(ann.X, ann.A)
+    DP = ann.D[np.asarray(ann.A, dtype=int)]  # (na, na)
+    As, Ds, _, _ = query_dm(Z, XA, DP, ann.f, geq, k=k, alpha=alpha, init=0)
+
+    nz = len(Z)
+    nx = ann.nx
+
+    # pad the ragged per-query profiles (visited anchors + distances)
+    # to a rectangle so the profile match vectorises across queries
+    lens = np.array([len(As[i]) for i in range(nz)], dtype=np.int64)
+    L = int(lens.max())
+    rows = np.repeat(np.arange(nz, dtype=np.int64), lens)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    pos = np.arange(rows.shape[0]) - starts[rows]
+    A_pad = np.zeros((nz, L), dtype=np.int64)
+    D_pad = np.zeros((nz, L))
+    A_pad[rows, pos] = np.concatenate([As[i] for i in range(nz)])
+    D_pad[rows, pos] = np.concatenate([Ds[i] for i in range(nz)])
+    pmask = np.arange(L)[None, :] < lens[:, None]
+
+    # chunked profile match: one (nx, chunk, L) gather per chunk keeps
+    # the temporary near 128 MB however many queries arrive
+    qblk = max(1, (1 << 24) // max(nx * L, 1))
+    head_q_parts, head_db_parts = [], []
+    for s in range(0, nz, qblk):
+        e = min(s + qblk, nz)
+        cols = ann.D[:, A_pad[s:e].reshape(-1)].reshape(nx, e - s, L)
+        diff = (cols - D_pad[None, s:e]) * pmask[None, s:e]
+        DD = np.sqrt(np.einsum("xql,xql->xq", diff, diff))
+        isort = np.argsort(DD, axis=0, kind="stable")  # (nx, q)
+        dds = np.take_along_axis(DD, isort, axis=0)
+        # beta-expanded head: every database point within ratio beta of
+        # the (k+1)-smallest profile distance
+        selq = dds < beta * dds[k][None, :]
+        # degenerate profiles: >= k+1 points match the query's profile
+        # exactly (dds[k] == 0) and the ratio cut selects nothing; keep
+        # the zero-distance matches (a prefix of the sort) instead
+        zerok = dds[k] == 0
+        if zerok.any():
+            selq |= (dds == 0) & zerok[None, :]
+        cut = selq.sum(axis=0)
+        qq, rank = np.nonzero(np.arange(nx)[None, :] < cut[:, None])
+        head_db_parts.append(isort[rank, qq].astype(np.int64))
+        head_q_parts.append((qq + s).astype(np.int64))
+    head_q = np.concatenate(head_q_parts)
+    head_db = np.concatenate(head_db_parts)
+
+    # one exact batch for every query's head
+    IJ = np.stack([head_db, head_q], axis=1)
+    nd = np.asarray(geq(ann.f, ann.X, Z, IJ), dtype=np.float64)
+
+    # per-query top-k of the evaluated heads
+    order = np.lexsort((nd, head_q))
+    hq_s = head_q[order]
+    qstarts = np.searchsorted(hq_s, np.arange(nz))
+    rank = np.arange(hq_s.shape[0]) - qstarts[hq_s]
+    sel = rank < k
+    out_i = np.zeros((nz, k), dtype=np.int64)
+    out_d = np.zeros((nz, k))
+    out_i[hq_s[sel], rank[sel]] = head_db[order][sel]
+    out_d[hq_s[sel], rank[sel]] = nd[order][sel]
+    return out_i, out_d
+
+
+def query_(ann, Q, nn=15, p_work=0.3, get_exact_query_ijs=None,
+           loc_thresh=None, locality=None, seed_frac=0.5, expand_rounds=3):
+    """Full query pipeline (reference query_functions.py:183-212).
+
+    Returns (ngi, ngd): the nn + 1 nearest database indices and
+    distances per query row.  ``loc_thresh``/``locality`` override the
+    fitted filter knobs for the query-side candidates only (the eval
+    budget stays p_work)."""
+    if get_exact_query_ijs is not None:
+        ann.get_exact_query_ijs = get_exact_query_ijs
+    geq = ann._get_exact_query_ijs_for(ann.f)
+    with _held_encoding(ann):
+        QD = get_query_anchor_dists(ann, Q, geq)
+        check = query_candidates(
+            ann._S_raw, QD,
+            ann.locality if locality is None else locality,
+            ann.loc_thresh if loc_thresh is None else loc_thresh,
+            device=ann.device,
+        )
+        IJs, P_idx, P_cnt, Qfeatures, Qncm = get_query_features(ann, Q, QD, check)
+
+        Qpred = ann.regression.predict(Qfeatures, ann.feature_names)
+        if ann.is_metric:
+            ilb = ann.feature_names.index("lower bound")
+            iub = ann.feature_names.index("upper bound")
+            Qpred = np.clip(Qpred, Qfeatures[:, ilb], Qfeatures[:, iub])
+        Qerrors = ann.error_predictor.predict(Qfeatures, ann.feature_names)
+
+        IJ_all, RA_all, ncm_all = select_refine_candidate_query_pairs(
+            ann, IJs, Q, P_idx, P_cnt, Qpred.copy(), Qncm, Qerrors, p_work, nn,
+            geq, seed_frac=seed_frac, expand_rounds=expand_rounds,
+        )
+    if IJ_all.shape[0] != IJs.shape[0]:
+        # the graph walk found pairs outside the locality candidates
+        P_idx, _ = pair_ops.build_point_index_single(IJ_all[:, 1], len(Q), ann.device)
+
+    # reference quirk: the query graph carries nn + 1 columns
+    # (reference query_functions.py:210 calls get_nn with nn + 1)
+    ngi, ngd, _ = pair_ops.knn_from_pairs(RA_all, IJ_all, P_idx, ncm_all, nn + 1,
+                                          ann.device)
+    return ngi, ngd

@@ -6,10 +6,12 @@ hand-written pair kernel for the Levenshtein metric on a card);
 everything else is flat-array numpy over the (point, partner, distance)
 pool.  ``Annchor.refine_neighbor_graph`` is the public entry point.
 
+An index loaded from a v2 checkpoint (``io.py``) carries the fit's exact
+store as sorted canonical keys ``_exact_keys`` with ``_exact_vals``:
+edges and 2-hop candidates found there merge at no metric cost.
+
 Not ported yet: the device twin of the 2-hop screen
-(``ANNCHOR_TPU_FORCE_DEVICE_EXPAND``, ROADMAP Queue 1 item 9, after
-F1), and the free merges from a loaded checkpoint's exact store, which
-arrive with persistence (item 11).
+(``ANNCHOR_TPU_FORCE_DEVICE_EXPAND``, ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -20,6 +22,16 @@ import time
 import numpy as np
 
 __all__ = ["refine_neighbor_graph"]
+
+
+def _merge(keys, vals, exact, new_keys, new_vals):
+    """The pool with exact values of new pair keys added, kept sorted by
+    key."""
+    keys = np.concatenate([keys, new_keys])
+    order = np.argsort(keys, kind="stable")
+    vals = np.concatenate([vals, new_vals])[order]
+    exact = np.concatenate([exact, np.ones(new_keys.shape[0], dtype=bool)])[order]
+    return keys[order], vals, exact
 
 
 def refine_neighbor_graph(ann, rounds=2, budget=None):
@@ -47,7 +59,7 @@ def refine_neighbor_graph(ann, rounds=2, budget=None):
     ):
         raise NotImplementedError(
             "the device 2-hop screen (ANNCHOR_TPU_FORCE_DEVICE_EXPAND) is "
-            "ROADMAP Queue 1 item 9, not ported yet (it waits for F1)"
+            "ROADMAP Queue 1 item 9, not ported yet"
         )
     nx = ann.nx
     ngi, ngd = ann.neighbor_graph
@@ -71,6 +83,18 @@ def refine_neighbor_graph(ann, rounds=2, budget=None):
 
     def _close(stage):
         stage["wall_s"] = round(time.perf_counter() - stage.pop("t0"), 3)
+
+    # a loaded v2 checkpoint's exact store: sorted canonical
+    # (min*nx+max) keys with the fit's computed distances
+    store_keys = getattr(ann, "_exact_keys", None)
+    store_vals = getattr(ann, "_exact_vals", None)
+    have_store = store_keys is not None and store_keys.size > 0
+
+    def _store_lookup(keys):
+        """(hit mask, values of the hits) for canonical pair keys."""
+        pos = np.clip(np.searchsorted(store_keys, keys), 0, store_keys.shape[0] - 1)
+        hit = store_keys[pos] == keys
+        return hit, store_vals[pos[hit]]
 
     # canonical pair pool {min*nx+max: value} as sorted arrays
     rows0 = np.repeat(np.arange(nx, dtype=np.int64), kk)
@@ -96,6 +120,13 @@ def refine_neighbor_graph(ann, rounds=2, budget=None):
     spent = 0
     stats.append({"stage": "certify", "t0": time.perf_counter()})
     todo = np.flatnonzero(~pool_exact)
+    if todo.size and have_store:
+        hit, vals = _store_lookup(pool_keys[todo])
+        if hit.any():
+            pool_vals[todo[hit]] = vals
+            pool_exact[todo[hit]] = True
+            stats[-1]["store_hits"] = int(hit.sum())
+            todo = todo[~hit]
     if todo.size and budget > 0:
         # certify predicted reported edges, smallest first (they sit
         # highest in their rows' top-k lists)
@@ -207,8 +238,21 @@ def refine_neighbor_graph(ann, rounds=2, budget=None):
             else np.ones(ckey.shape[0], dtype=bool)
         )
         ckey, ub, rank = ckey[new], ub[new], rank[new]
+        hits_merged = 0
+        if have_store and ckey.size:
+            # candidates the fit already evaluated merge for free
+            hit, hvals = _store_lookup(ckey)
+            hits_merged = int(hit.sum())
+            if hits_merged:
+                pool_keys, pool_vals, pool_exact = _merge(
+                    pool_keys, pool_vals, pool_exact, ckey[hit], hvals
+                )
+                stats[-1]["store_hits"] = hits_merged
+                ckey, ub, rank = ckey[~hit], ub[~hit], rank[~hit]
         if ckey.size == 0:
             _close(stats[-1])
+            if hits_merged:
+                continue  # the free merges changed the graph; go on
             break
         if ckey.shape[0] > share:
             ckey = ckey[np.lexsort((ub, rank))[:share]]
@@ -216,13 +260,7 @@ def refine_neighbor_graph(ann, rounds=2, budget=None):
         stats[-1]["evals"] = int(ckey.shape[0])
         d = _exact(np.stack([ckey // nx, ckey % nx], axis=1))
         spent += ckey.shape[0]
-        pool_keys = np.concatenate([pool_keys, ckey])
-        pool_vals = np.concatenate([pool_vals, d])
-        pool_exact = np.concatenate([pool_exact, np.ones(ckey.shape[0], dtype=bool)])
-        order = np.argsort(pool_keys, kind="stable")
-        pool_keys = pool_keys[order]
-        pool_vals = pool_vals[order]
-        pool_exact = pool_exact[order]
+        pool_keys, pool_vals, pool_exact = _merge(pool_keys, pool_vals, pool_exact, ckey, d)
         _close(stats[-1])
 
     gi, gd, gx = row_lists()

@@ -54,10 +54,25 @@ of which exits non-zero when it fails:
    errors; (b) the default-constructor fit of 100,000 evolve strings of
    ~400 characters, which must run in sparse mode, launch K1, stay
    within int(p_work * N) evals and reach distance recall >= 0.99 over
-   500 exact rows computed with K1 before the fit.
+   500 exact rows computed with K1 before the fit;
+10. serve, the post-fit surface, held to the JAX package's figures
+   pinned at the top of the script: (a) ``query`` of 1,000 mutated
+   strings against phase 4's JAX-stream fit, scored over their exact
+   rows by K1; (b) that index saved as v1 and loaded into a new object,
+   whose graph and query must be bit-equal; (c) nearest enemies,
+   selective subset, alpha-RSS and ``legacy_query`` on 1,000 blobs;
+   (d) nearest enemies and the selective subset on the 5,000-string
+   fit's sparse device state, which must survive them; (e) the 100k
+   index saved as v2, loaded with ``rebuild_pairs=True`` (the same
+   graph and pair list), queried with 500 mutated strings (distance
+   recall >= 0.99 over their exact rows by K1) and refined with free
+   merges from the stored exact values.  Each query is timed, with the
+   share of its wall spent encoding strings, then run again without the
+   engine's encoding hold, which must give the same answer.
 
 K1's launches, in all and per mode, are counted in the fits of phases
-4, 8 and 9, each with the counts set to 0 just before it.
+4, 8 and 9 and in the calls of phase 10 (a), (b), (d) and (e), each with
+the counts set to 0 just before it.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to build/chip_smoke.json.
@@ -65,6 +80,7 @@ The line before the last is the kernels' JSON summary; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -122,6 +138,31 @@ SCALE100K_N = 100_000
 SCALE100K_P_WORK = 0.01
 SCALE100K_ROWS = 500
 SCALE100K_MIN_RECALL = 0.99
+# Phase 10 (serve), from ``tools/pin_serve_figures.py`` (annchor_tpu on
+# the CPU, same data and arguments).  (a) The JAX package's own
+# strings-1600 fit (phase 4's arguments) queried with
+# mutate_strings(X[:1000], 0.05, 7) at nn=15, p_work=0.2: distance recall
+# 1.000000 over the exact query rows, every query's source first.
+SERVE_QUERY_RECALL = 1.0
+SERVE_QUERY_SLACK = 0.005
+# (c) make_blobs(1000, 2, 5, 1), euclidean, n_anchors=12, n_neighbors=15,
+# p_work=0.4, random_seed=42: 204,880 fit evals, 20,952 more in
+# get_nearest_enemies(y, nn=3) (first-enemy accuracy 0.98), a selective
+# subset of 85 points, an alpha_rss subset of 81.
+SERVE_BLOBS_EVALS = 204_880
+SERVE_BLOBS_ENEMY_EVALS = 20_952
+SERVE_BLOBS_SUBSET = 85
+# (d) phase 9(a)'s strings-5000 fit with make_strings' cluster ids as
+# labels: 227,812 evals in get_nearest_enemies(y, nn=3); the first enemy
+# distance equals the exact nearest enemy for 0.7120 of 500 rows
+# (default_rng(3)), 0.4460 edits over it on average; a selective subset
+# of 155.  Every enemy of a row sits in one narrow band of distances
+# (the clusters are mutation trees of unrelated seeds), so the 50
+# closest predicted enemies a row evaluates often miss the nearest by an
+# edit or two.
+SERVE_5K_ENEMY_EVALS = 227_812
+SERVE_5K_ENEMY_EXACT = 0.7120
+SERVE_5K_SUBSET = 155
 
 # K1's bound: a word step (one 32-bit pattern word advanced by one text
 # character) is at least 10 INT32 instructions (the add with carry in and
@@ -167,6 +208,42 @@ def make_blobs(n_samples, n_features, centers, seed):
     order = np.arange(n_samples)
     rng.shuffle(order)
     return X[order], y[order]
+
+
+def mutate_strings(strings, rate, seed, alphabet="ACGT"):
+    """Query copies of ``strings``: each character is replaced, with
+    probability ``rate``, by a symbol drawn uniformly from ``alphabet``
+    (which may be the same symbol), from ``np.random.default_rng(seed)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    chars = np.array(list(alphabet))
+    out = []
+    for s in strings:
+        a = np.array(list(s))
+        hit = rng.random(a.shape[0]) < rate
+        a[hit] = rng.choice(chars, size=int(hit.sum()))
+        out.append("".join(a))
+    return out
+
+
+def query_recall(ngi, R, k):
+    """Distance-multiset recall of each query's first ``k`` reported
+    neighbours ``ngi[q, :k]`` against its exact row ``R[q]`` (distances
+    from query q to every database point): a different but equidistant
+    neighbour counts as a hit, as in ``compare_neighbor_graphs``."""
+    from collections import Counter
+
+    import numpy as np
+
+    hits = 0
+    for q in range(R.shape[0]):
+        d = R[q].astype(np.float64)
+        exact = np.sort(np.partition(d, k - 1)[:k])
+        got = ngi[q, :k]
+        dg = np.where(got >= 0, d[np.clip(got, 0, None)], np.inf)
+        hits += k - sum((Counter(exact.tolist()) - Counter(dg.tolist())).values())
+    return hits / (R.shape[0] * k)
 
 
 def _phase(name):
@@ -625,12 +702,13 @@ def _recall(np, ngi, rows, R, k):
 def _scale_path(torch, np, att, K1, report, big_X):
     """Phase 9: the scale path on the card, with K1 held against its
     plain version on each corpus first.  ``big_X`` is the 100k corpus.
-    Returns (K1's launches per mode in the two fits, max |K1 - plain|)."""
+    Returns (K1's launches per mode in the two fits, max |K1 - plain|,
+    (the 5,000 strings, their cluster ids, their fit), the 100k fit)."""
     from annchor_tpu_torch.datasets import make_strings
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
 
-    X, _ = make_strings(n=5000, n_clusters=16, length=200, mutation_rate=0.01,
-                        seed=42, evolve=True)
+    X, y5 = make_strings(n=5000, n_clusters=16, length=200, mutation_rate=0.01,
+                         seed=42, evolve=True)
     X = list(X)
     rng = np.random.default_rng(9)
     worst = _k1_against_plain(torch, np, "strings-5000", X, 20_000, rng)
@@ -653,6 +731,7 @@ def _scale_path(torch, np, att, K1, report, big_X):
     if ann.evals != SCALE5K_EVALS or errors > SCALE5K_ERRORS:
         raise SystemExit("the 5,000-string fit differs from the JAX package's figures")
 
+    X5 = X
     X = big_X
     lengths = [len(x) for x in X]
     worst = max(worst, _k1_against_plain(torch, np, "strings-100k", X, 20_000, rng))
@@ -704,7 +783,310 @@ def _scale_path(torch, np, att, K1, report, big_X):
     ngi, ngd = big.neighbor_graph
     if ngi.shape != (len(X), 15) or not np.isfinite(ngd).all():
         raise SystemExit("graph of shape %s or with non-finite distances" % (ngi.shape,))
-    return {m: modes[m] + big_modes[m] for m in modes}, worst
+    return {m: modes[m] + big_modes[m] for m in modes}, worst, (X5, y5, ann), big
+
+
+@contextlib.contextmanager
+def _encode_clock():
+    """Seconds and calls of the metric engine's string encoding while the
+    block runs: ``metrics._encode_codes`` (strings to code points) and
+    ``MyersEncoding.from_codes`` (alphabet, Peq and the upload)."""
+    import annchor_tpu_torch.metrics as tm
+    from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding
+
+    clock = {"codes_s": 0.0, "from_codes_s": 0.0, "encodes": 0}
+    real_codes = tm._encode_codes
+    real_from = MyersEncoding.__dict__["from_codes"]
+
+    def codes(X):
+        t0 = time.perf_counter()
+        try:
+            return real_codes(X)
+        finally:
+            clock["codes_s"] += time.perf_counter() - t0
+
+    def from_codes(cls, *args):
+        t0 = time.perf_counter()
+        try:
+            return real_from.__func__(cls, *args)
+        finally:
+            clock["from_codes_s"] += time.perf_counter() - t0
+            clock["encodes"] += 1
+
+    tm._encode_codes = codes
+    MyersEncoding.from_codes = classmethod(from_codes)
+    try:
+        yield clock
+    finally:
+        tm._encode_codes = real_codes
+        MyersEncoding.from_codes = real_from
+
+
+def _timed_query(torch, ann, Q, nn, p_work, hold=True):
+    """One ``query`` on the card: ((ngi, ngd), wall s, encode clock).
+    ``hold=False`` runs it with the engine's encoding hold replaced by a
+    null context, so every metric call encodes the database again."""
+    import annchor_tpu_torch.query as tq
+
+    real = tq._held_encoding
+    if not hold:
+        tq._held_encoding = lambda ann: contextlib.nullcontext()
+    try:
+        with _encode_clock() as clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ann.query(Q, nn=nn, p_work=p_work)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        tq._held_encoding = real
+    return out, wall, clock
+
+
+def _exact_query_rows(torch, np, db, Q):
+    """R[q] = edit distances from query Q[q] to every string of ``db``,
+    by K1 on the joint encoding, one row of pairs per call."""
+    from annchor_tpu_torch.ops.levenshtein import encode_strings
+    from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding, myers_pairs
+
+    enc = MyersEncoding.from_codes(*encode_strings(list(db) + list(Q)), "cuda")
+    I = torch.arange(len(db), device="cuda")
+    return np.stack([
+        myers_pairs(enc, I, torch.full_like(I, len(db) + q)).cpu().numpy()
+        for q in range(len(Q))
+    ])
+
+
+def _query_report(torch, np, K1, ann, Q, R, sources, nn, p_work, label):
+    """The timed query with K1's launches and the encode clock, then the
+    same query without the encoding hold, which must give the same
+    answer.  ``sources[q]``: the database string query q was made from.
+    Returns (ngi, ngd, report row, K1 launches per mode)."""
+    K1.reset_counts()
+    (ngi, ngd), wall, clock = _timed_query(torch, ann, Q, nn, p_work)
+    launches, modes = K1.launches, dict(K1.mode_launches)
+    (ngi2, ngd2), wall2, clock2 = _timed_query(torch, ann, Q, nn, p_work, hold=False)
+    if not (np.array_equal(ngi, ngi2) and np.array_equal(ngd, ngd2)):
+        raise SystemExit("%s: the query differs without the encoding hold" % label)
+    row = {
+        "queries": len(Q), "wall_s": wall, "ms_per_query": 1e3 * wall / len(Q),
+        "k1_launches": launches, "k1_mode_launches": modes,
+        "distance_recall": query_recall(ngi, R, nn),
+        "source_first": float(np.mean(ngi[:, 0] == sources)),
+        "encode": clock, "wall_s_no_hold": wall2, "encode_no_hold": clock2,
+    }
+    enc = clock["codes_s"] + clock["from_codes_s"]
+    enc2 = clock2["codes_s"] + clock2["from_codes_s"]
+    print("  %s: %d queries in %.4f s (%.3f ms/query), K1 launches %d %s, distance recall "
+          "%.6f, source first %.4f; encoding %.3f s in %d encodes (%.1f %% of the wall); "
+          "without the hold %.4f s, encoding %.3f s in %d encodes (%.1f %%)" % (
+              label, len(Q), wall, row["ms_per_query"], launches, modes,
+              row["distance_recall"], row["source_first"], enc, clock["encodes"],
+              100 * enc / wall, wall2, enc2, clock2["encodes"], 100 * enc2 / wall2),
+          flush=True)
+    if ngi.shape != (len(Q), nn + 1) or not np.isfinite(ngd).all():
+        raise SystemExit("%s: result of shape %s or with non-finite distances"
+                         % (label, ngi.shape))
+    if launches == 0:
+        raise SystemExit("%s never launched K1" % label)
+    return ngi, ngd, row, modes
+
+
+def _serve(torch, np, att, K1, report, X, ref, scale5k, big, big_X, out_dir):
+    """Phase 10: the post-fit surface on the card.  (a) query of the
+    strings-1600 index, (b) its v1 round trip, (c) the extras on blobs,
+    (d) the extras on the 5,000-string scale fit's device state, (e) the
+    100k index saved as v2, loaded with its pair list rebuilt, queried
+    and refined.  Returns K1's launches per mode over (a), (b), (d), (e),
+    each counted from 0."""
+    from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+
+    serve = report["serve"] = {}
+    modes_all = {}
+
+    def add(modes):
+        for k, v in modes.items():
+            modes_all[k] = modes_all.get(k, 0) + v
+
+    os.makedirs(os.path.join(out_dir, "serve"), exist_ok=True)
+
+    # (a) query of the strings-1600 index (phase 4's JAX-stream fit)
+    Q = mutate_strings(X[:1000], 0.05, 7)
+    R = _exact_query_rows(torch, np, X, Q)
+    ref.query(Q, nn=15, p_work=0.2)  # warm-up
+    ngi, ngd, serve["a"], modes = _query_report(torch, np, K1, ref, Q, R, np.arange(len(Q)),
+                                                15, 0.2, "(a) strings-1600 query")
+    add(modes)
+    floor = max(0.99, SERVE_QUERY_RECALL - SERVE_QUERY_SLACK)
+    if serve["a"]["distance_recall"] < floor:
+        raise SystemExit("(a) distance recall %.6f < %.3f (JAX package: %.6f)" % (
+            serve["a"]["distance_recall"], floor, SERVE_QUERY_RECALL))
+    if serve["a"]["source_first"] < 0.99:
+        raise SystemExit("(a) only %.4f of the queries find their source first"
+                         % serve["a"]["source_first"])
+
+    # (b) v1 round trip
+    path = os.path.join(out_dir, "serve", "strings1600_v1.npz")
+    t0 = time.perf_counter()
+    ref.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = att.Annchor.load(path, X, "levenshtein", device="cuda")
+    load_s = time.perf_counter() - t0
+    same_graph = all(np.array_equal(a, b) for a, b in zip(loaded.neighbor_graph,
+                                                          ref.neighbor_graph))
+    K1.reset_counts()
+    li, ld = loaded.query(Q, nn=15, p_work=0.2)
+    torch.cuda.synchronize()
+    launches, modes = K1.launches, dict(K1.mode_launches)
+    add(modes)
+    same_query = np.array_equal(li, ngi) and np.array_equal(ld, ngd)
+    serve["b"] = {"save_s": save_s, "load_s": load_s, "bytes": os.path.getsize(path),
+                  "graph_equal": same_graph, "query_equal": same_query,
+                  "k1_launches": launches}
+    print("  (b) v1 round trip: save %.3f s, %d bytes, load %.3f s; graph bit-equal %s, "
+          "loaded index's query bit-equal %s, K1 launches %d %s" % (
+              save_s, serve["b"]["bytes"], load_s, same_graph, same_query, launches,
+              modes), flush=True)
+    if not (same_graph and same_query and launches):
+        raise SystemExit("(b) the loaded strings-1600 index differs")
+
+    # (c) the extras on blobs (no K1: euclidean)
+    Xb, yb = make_blobs(1000, 2, 5, 1)
+    eb = att.Annchor(Xb, "euclidean", n_anchors=12, n_neighbors=15, p_work=0.4,
+                     random_seed=42, device="cuda", uniforms=jax_threefry_uniforms)
+    eb.fit()
+    fit_evals = eb.evals
+    t0 = time.perf_counter()
+    egi, egd = eb.get_nearest_enemies(yb, nn=3)
+    enemy_s = time.perf_counter() - t0
+    enemy_evals = eb.evals - fit_evals
+    D = np.linalg.norm(Xb[:, None] - Xb[None], axis=2)
+    exact_enemy = np.where(yb[None, :] != yb[:, None], D, np.inf).min(axis=1)
+    enemy_acc = float(np.isclose(egd[:, 0], exact_enemy, rtol=1e-6).mean())
+    t0 = time.perf_counter()
+    ss = eb.annchor_selective_subset(yb)
+    subset_s = time.perf_counter() - t0
+    ss_acc = float(np.mean(yb[ss[np.argmin(D[:, ss], axis=1)]] == yb))
+    t0 = time.perf_counter()
+    rss = eb.alpha_rss(yb)
+    rss_s = time.perf_counter() - t0
+    rss_acc = float(np.mean(yb[rss[np.argmin(D[:, rss], axis=1)]] == yb))
+    rng = np.random.default_rng(12)
+    ids = rng.choice(len(Xb), 100, replace=False)
+    Qb = Xb[ids] + rng.normal(scale=0.02, size=(100, 2))
+    t0 = time.perf_counter()
+    lgi, lgd = eb.legacy_query(Qb, k=5)
+    legacy_s = time.perf_counter() - t0
+    DQ = np.linalg.norm(Qb[:, None] - Xb[None], axis=2)
+    top5 = np.argsort(DQ, axis=1, kind="stable")[:, :5]
+    overlap = float(np.mean([len(set(lgi[i]) & set(top5[i])) / 5 for i in range(100)]))
+    serve["c"] = {"fit_evals": fit_evals, "enemy_evals": enemy_evals, "enemy_s": enemy_s,
+                  "enemy_accuracy": enemy_acc, "subset": len(ss), "subset_s": subset_s,
+                  "subset_accuracy": ss_acc, "rss": len(rss), "rss_s": rss_s,
+                  "rss_accuracy": rss_acc, "legacy_overlap": overlap,
+                  "legacy_s": legacy_s}
+    print("  (c) blobs 1000 x 2: fit %d evals (JAX package: %d); nearest enemies %.3f s, "
+          "%d evals (JAX package: %d), first enemy exact for %.4f; selective subset %d "
+          "(JAX package: %d) in %.3f s, 1-NN accuracy %.4f; alpha_rss %d in %.3f s, "
+          "1-NN accuracy %.4f; legacy_query 100 x k=5 in %.3f s, top-5 overlap %.4f" % (
+              fit_evals, SERVE_BLOBS_EVALS, enemy_s, enemy_evals, SERVE_BLOBS_ENEMY_EVALS,
+              enemy_acc, len(ss), SERVE_BLOBS_SUBSET, subset_s, ss_acc, len(rss), rss_s,
+              rss_acc, legacy_s, overlap), flush=True)
+    if fit_evals != SERVE_BLOBS_EVALS:
+        raise SystemExit("(c) the blobs fit differs from the JAX package's")
+    if not (yb[egi] != yb[:, None]).all() or enemy_acc < 0.97:
+        raise SystemExit("(c) nearest enemies wrong")
+    if ss_acc < 0.99 or len(ss) != SERVE_BLOBS_SUBSET:
+        raise SystemExit("(c) selective subset wrong")
+    if rss_acc < 0.97 or overlap < 0.9:
+        raise SystemExit("(c) alpha_rss or legacy_query below its floor")
+
+    # (d) the extras on the 5,000-string fit's device state
+    X5, y5, s5 = scale5k
+    ev0 = s5.evals
+    K1.reset_counts()
+    t0 = time.perf_counter()
+    sgi, sgd = s5.get_nearest_enemies(y5, nn=3)
+    sss = s5.annchor_selective_subset(y5)
+    torch.cuda.synchronize()
+    extras_s = time.perf_counter() - t0
+    launches, modes = K1.launches, dict(K1.mode_launches)
+    add(modes)
+    alive = s5._dev is not None and s5._IJs is None
+    rows = np.sort(np.random.default_rng(3).choice(len(X5), 500, replace=False))
+    R5 = _exact_query_rows(torch, np, X5, [X5[r] for r in rows])
+    exact5 = np.where(y5[None, :] != y5[rows][:, None], R5, np.iinfo(np.int32).max).min(axis=1)
+    acc5 = float(np.mean(sgd[rows, 0] == exact5))
+    excess5 = float(np.mean(sgd[rows, 0] - exact5))
+    ss_acc5 = float(np.mean(y5[sss[np.argmin(R5[:, sss], axis=1)]] == y5[rows]))
+    serve["d"] = {"extras_s": extras_s, "evals": s5.evals - ev0, "m": int(s5._dev.m),
+                  "k1_launches": launches, "enemy_exact": acc5, "enemy_excess": excess5,
+                  "exact_enemy_mean": float(exact5.mean()), "subset": len(sss),
+                  "subset_accuracy_500": ss_acc5, "device_state_alive": alive}
+    print("  (d) 5,000 strings, 16 labels, on the sparse device state: enemies + subset "
+          "%.3f s, %d evals (JAX package: %d), m now %d, K1 launches %d %s; first enemy "
+          "exact for %.4f of 500 rows (JAX package: %.4f), %.4f edits over the exact "
+          "nearest enemy (%.2f) on average; subset %d (JAX package: %d; 1-NN accuracy %.4f "
+          "on those rows); _dev alive and _IJs None: %s" % (
+              extras_s, serve["d"]["evals"], SERVE_5K_ENEMY_EVALS, serve["d"]["m"],
+              launches, modes, acc5, SERVE_5K_ENEMY_EXACT, excess5, exact5.mean(),
+              len(sss), SERVE_5K_SUBSET, ss_acc5, alive), flush=True)
+    if not alive or launches == 0:
+        raise SystemExit("(d) the extras left the device state or never launched K1")
+    if not (y5[sgi] != y5[:, None]).all() or acc5 < SERVE_5K_ENEMY_EXACT - 0.005:
+        raise SystemExit("(d) nearest enemies wrong")
+
+    # (e) the 100k index: v2 save, load with the pair build, query, refine
+    path = os.path.join(out_dir, "serve", "strings100k_v2.npz")
+    t0 = time.perf_counter()
+    big.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = att.Annchor.load(path, big_X, "levenshtein", rebuild_pairs=True,
+                              device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    m = int(big._dev.m)
+    same_graph = all(np.array_equal(a, b) for a, b in zip(loaded.neighbor_graph,
+                                                          big.neighbor_graph))
+    same_pairs = loaded._ij_dev[2] == m and all(
+        torch.equal(a, b[:m]) for a, b in zip(loaded._ij_dev[:2], (big._dev.ij_i,
+                                                                  big._dev.ij_j)))
+    print("  (e) v2 save %.3f s, %d bytes; load with rebuild_pairs %.3f s; graph bit-equal "
+          "%s, pair list equal (m %d) %s" % (save_s, os.path.getsize(path), load_s,
+                                              same_graph, m, same_pairs), flush=True)
+    if not (same_graph and same_pairs):
+        raise SystemExit("(e) the loaded 100k index differs")
+    rng = np.random.default_rng(11)
+    src = rng.choice(len(big_X), 500, replace=False)
+    Qe = mutate_strings([big_X[i] for i in src], 0.01, 11)
+    t0 = time.perf_counter()
+    Re = _exact_query_rows(torch, np, big_X, Qe)
+    rows_s = time.perf_counter() - t0
+    loaded.query(Qe[:20], nn=15, p_work=SCALE100K_P_WORK)  # warm-up
+    _, _, row, modes = _query_report(torch, np, K1, loaded, Qe, Re, src, 15,
+                                     SCALE100K_P_WORK, "(e) 100k query")
+    add(modes)
+    ev0 = loaded.evals
+    K1.reset_counts()
+    t0 = time.perf_counter()
+    loaded.refine_neighbor_graph(rounds=1, budget=200_000)
+    refine_s = time.perf_counter() - t0
+    spent = loaded.evals - ev0
+    hits = sum(s.get("store_hits", 0) for s in loaded._refine_stats)
+    serve["e"] = dict(row, save_s=save_s, bytes=os.path.getsize(path), load_s=load_s,
+                      exact_rows_s=rows_s, refine_s=refine_s, refine_evals=spent,
+                      refine_store_hits=hits, refine_k1_launches=K1.launches,
+                      refine=loaded._refine_stats)
+    print("  (e) refine_neighbor_graph(rounds=1, budget=200,000) on the loaded index: "
+          "%.3f s, %d evals, %d pairs merged from the stored exact values, K1 launches %d"
+          % (refine_s, spent, hits, K1.launches), flush=True)
+    if row["distance_recall"] < 0.99:
+        raise SystemExit("(e) distance recall %.4f < 0.99" % row["distance_recall"])
+    if hits < 1 or spent > 200_000:
+        raise SystemExit("(e) refine merged nothing from the store or overspent")
+    return modes_all
 
 
 def main() -> int:
@@ -891,15 +1273,19 @@ def main() -> int:
         raise SystemExit("the host-pipeline fit differs from the JAX package's figures")
 
     _phase("9. scale path (%s)" % report["card"])
-    scale_modes, scale_err = _scale_path(torch, np, att, K1, report, big_X)
+    scale_modes, scale_err, scale5k, big = _scale_path(torch, np, att, K1, report, big_X)
     max_err = max(max_err, scale_err)
-    main_modes = {m: fit_modes[m] + host_modes[m] + scale_modes[m] for m in fit_modes}
-    print("  K1 launches on the main path (phases 4, 8, 9) by mode: %s" % main_modes)
-    if not (main_modes["thread"] and main_modes["group"]):
-        raise SystemExit("the main path did not launch both K1 modes: %s" % main_modes)
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(out_dir, exist_ok=True)
+    _phase("10. serve (%s)" % report["card"])
+    serve_modes = _serve(torch, np, att, K1, report, X, ref, scale5k, big, big_X, out_dir)
+    main_modes = {m: fit_modes[m] + host_modes[m] + scale_modes[m] + serve_modes.get(m, 0)
+                  for m in fit_modes}
+    print("  K1 launches on the main path (phases 4, 8, 9, 10) by mode: %s; phase 10: %s"
+          % (main_modes, serve_modes))
+    if not (main_modes["thread"] and main_modes["group"]):
+        raise SystemExit("the main path did not launch both K1 modes: %s" % main_modes)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     print(json.dumps({"kernels": [{
@@ -911,6 +1297,7 @@ def main() -> int:
         "launches_thread": main_modes["thread"],
         "launches_group": main_modes["group"],
         "launches_long": main_modes["long"],
+        "launches_serve": sum(serve_modes.values()),
         "max_abs_err": max_err,
         "ms": refine["ms"],
         "plain_ms": refine["plain_ms"],
