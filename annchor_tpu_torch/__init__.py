@@ -6,9 +6,13 @@ kernel (``csrc/levenshtein_myers.cu``) on an NVIDIA card, or by its
 plain PyTorch version when ``device="cpu"``.
 
 Ported so far: fits at nx <= 4096 under ``levenshtein``, ``euclidean``,
-``sqeuclidean``, ``cosine`` or any Python callable, with the default
-strategies (device pipeline) or custom strategy objects (host
-pipeline), and above 4,096 points the scale path; ``BruteForce``,
+``sqeuclidean``, ``cosine``, ``wasserstein`` (exact EMD on the host,
+with ``scout="sinkhorn"`` the scout/certify hybrid whose scout runs on
+the device), ``wasserstein_sinkhorn``, ``GraphShortestPathMetric`` or
+any Python callable, with the default strategies (device pipeline) or
+custom strategy objects (host pipeline), and above 4,096 points the
+scale path for metric fits; ``BruteForce``, the exact oracles
+``exact_knn``/``exact_rows``/``exact_query_rows``,
 ``compare_neighbor_graphs`` and the scalar ``distances``; after a fit,
 ``query``/``legacy_query``, ``save``/``load`` (the JAX package's file
 formats) and the nearest-enemy extras.  This package imports neither
@@ -18,6 +22,8 @@ formats) and the nearest-enemy extras.  This package imports neither
 from annchor_tpu_torch import distances
 from annchor_tpu_torch.annchor import Annchor, BruteForce, compare_neighbor_graphs
 from annchor_tpu_torch.error_predictors import SimpleStratifiedErrorRegression
+from annchor_tpu_torch.exact import exact_knn, exact_query_rows, exact_rows
+from annchor_tpu_torch.graph_sp import GraphShortestPathMetric
 from annchor_tpu_torch.metrics import Metric, get_function_from_input
 from annchor_tpu_torch.pickers import (
     ExternalAnchorPicker,
@@ -50,4 +56,8 @@ __all__ = [
     "SimpleStratifiedLinearRegression",
     "SimpleStratifiedErrorRegression",
     "distances",
+    "exact_knn",
+    "exact_rows",
+    "exact_query_rows",
+    "GraphShortestPathMetric",
 ]

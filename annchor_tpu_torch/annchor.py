@@ -17,15 +17,18 @@ state is host numpy, as the JAX package's, and whose per-pair passes
 (``ops/features``, ``ops/pairs``, ``ops/bounds_update``) run as torch on
 the fit's device.  Every metric evaluation goes through the evaluator
 ``get_exact_ijs``; for the Levenshtein metric on a CUDA device that is
-the hand-written pair kernel.  A fitted index serves out-of-sample
-queries (``query.py``), is saved and loaded in the JAX package's file
-formats (``io.py``), and gives the nearest-enemy graph and the
-selective subsets (``enemies.py``).
+the hand-written pair kernel.  A metric with a scout (``wasserstein``
+with ``scout="sinkhorn"``) runs the scout/certify hybrid: the search
+evaluates the cheap scout, and ``_certify`` re-ranks the reported graph
+with the exact metric.  A fitted index serves out-of-sample queries
+(``query.py``), is saved and loaded in the JAX package's file formats
+(``io.py``), and gives the nearest-enemy graph and the selective
+subsets (``enemies.py``).
 
-Not ported yet (each raises NotImplementedError or is absent): the
-Wasserstein metrics with the scout/certify hybrid, non-metric fits and
-custom strategy objects above 4,096 points, and the exact-graph
-certification of ``exact.py`` (ROADMAP Queue 1).
+Not ported yet (each raises NotImplementedError naming its ROADMAP
+item): non-metric fits (hybrids included) and custom strategy objects
+above 4,096 points, the ``rms`` build score and the device 2-hop screen
+of the refinement.
 """
 
 from __future__ import annotations
@@ -88,8 +91,13 @@ class Annchor:
 
     X: list or array — the data set.
     func: callable, Metric or string — the metric.  Supported strings:
-        euclidean, sqeuclidean, cosine, levenshtein.
-    func_kwargs: dict of metric kwargs, bound to a callable metric.
+        euclidean, sqeuclidean, cosine, levenshtein, wasserstein,
+        wasserstein_sinkhorn.
+    func_kwargs: dict of metric kwargs, bound to a callable metric; the
+        Wasserstein metrics take cost_matrix, and wasserstein with
+        scout="sinkhorn" fits as the scout/certify hybrid (non-metric,
+        every reported distance exact; a user get_exact_ijs turns the
+        scout off).
     n_anchors, n_neighbors, n_samples, p_work: budget knobs; p_work is
         the fraction of brute-force metric calls the fit may spend.
     anchor_picker / sampler / regression / error_predictor: duck-typed
@@ -108,6 +116,8 @@ class Annchor:
     niters: refinement iterations.
     lookahead: the host pipeline's refinement over-selection factor;
         the pairs selected beyond the batch are tightened first.
+    trace_dir: run ``fit`` under ``torch.profiler`` and write its trace
+        there (TensorBoard's trace handler).
     refine_frac / refine_rounds: hold back refine_frac of the p_work
         allowance and spend it after the fit on ``refine_rounds`` rounds
         of graph-expansion refinement (``refine_neighbor_graph``); 0
@@ -153,6 +163,7 @@ class Annchor:
         backend=None,
         niters=None,
         lookahead=5,
+        trace_dir=None,
         refine_frac=None,
         refine_rounds=3,
         pair_cap=None,
@@ -235,6 +246,7 @@ class Annchor:
         self.max_resident_pairs = (
             None if max_resident_pairs is None else int(max_resident_pairs)
         )
+        self.trace_dir = trace_dir
 
         self._features = None
         self._RefineApprox = None
@@ -261,6 +273,31 @@ class Annchor:
             )
         else:
             self.get_exact_ijs = get_exact_ijs
+
+        # scout/certify hybrid: when the metric ships a cheap approximate
+        # engine, exploration runs on it and only the reported graph is
+        # evaluated with the exact metric (``_certify``).  A user-supplied
+        # evaluator always wins.
+        self.scout_evals = 0
+        self.certify_pad = 8
+        self.certify_expand_rounds = 2  # scout-screened expansion in _certify
+        self.certify_expand_cap = None  # None -> 32 * nx
+        self._scouting = False
+        scout = getattr(self.metric, "scout", None)
+        if scout is not None and getattr(self.get_exact_ijs, "_annchor_default", False):
+            self._exact_eval = self.get_exact_ijs
+
+            def scout_eval(f, X, IJ):
+                return scout(X, X, np.asarray(IJ))
+
+            scout_eval._annchor_default = True
+            self.get_exact_ijs = scout_eval
+            self._scouting = True
+            # entropic values carry an O(eps) bias that can break the
+            # triangle inequality: the non-metric path (reference
+            # annchor.py:73-76)
+            self.is_metric = False
+
         test_parallelisation(self.get_exact_ijs, self.f, self.X, self.nx, s=20)
         self.get_exact_query_ijs = None
 
@@ -370,12 +407,28 @@ class Annchor:
             )
         return self.get_exact_query_ijs
 
+    def _count(self, n):
+        """Count n evaluations of the active evaluator: scout calls
+        during a hybrid fit, metric calls otherwise."""
+        if self._scouting:
+            self.scout_evals += n
+        else:
+            self.evals += n
+
     def _eval_pairs(self, IJ):
-        """Evaluate pairs through the active evaluator, counting evals."""
+        """Evaluate pairs through the active evaluator (the scout during a
+        hybrid fit), counting them."""
         d = np.asarray(
             self.get_exact_ijs(self.f, self.X, np.asarray(IJ)),
             dtype=np.float64,
         )
+        self._count(d.shape[0])
+        return d
+
+    def _exact_pairs(self, IJ):
+        """Evaluate pairs with the exact metric of a hybrid fit, counting
+        them as evals."""
+        d = np.asarray(self._exact_eval(self.f, self.X, IJ), dtype=np.float64)
         self.evals += d.shape[0]
         return d
 
@@ -395,7 +448,16 @@ class Annchor:
         """Anchors + (nx, n_anchors) distance columns
         (reference annchor.py:191-206)."""
         self.A, self.D, evals = self.anchor_picker.get_anchors(self)
-        self.evals += evals
+        self._count(evals)
+        # an infinite distance (a vertex outside the anchors' component of
+        # a graph metric) would poison every bound and the regression
+        bad = np.flatnonzero(~np.isfinite(np.asarray(self.D)).all(axis=1))
+        if bad.size:
+            raise ValueError(
+                "the metric gave non-finite anchor distances for %d points (first: "
+                "%s); the fit needs finite distances: for a disconnected graph, "
+                "fit each connected component on its own" % (bad.size, bad[:5].tolist())
+            )
 
     def get_locality(self):
         """Candidate pairs from shared near-anchor sets
@@ -467,7 +529,11 @@ class Annchor:
     @property
     def _p_work_fit(self):
         """The in-fit share of the eval allowance: refine_frac of p_work
-        is held back for the post-fit graph-expansion refinement."""
+        is held back for the post-fit graph-expansion refinement.  Hybrid
+        fits keep the whole allowance: they explore on the scout, and
+        ``_certify`` does its own graph expansion."""
+        if self._scouting:
+            return self.p_work
         return self.p_work * (1.0 - self.refine_frac)
 
     def _dense_locality(self, device_ok):
@@ -519,10 +585,11 @@ class Annchor:
     def _make_device_eval(self):
         """Device-id metric eval for the fused pipeline, or None when the
         user supplied get_exact_ijs (whose call sequence is then part of
-        the plug-in contract) or the metric has no device engine."""
+        the plug-in contract) or the active engine (the scout during a
+        hybrid fit) has no device entry."""
         if not getattr(self.get_exact_ijs, "_annchor_default", False):
             return None
-        eng = self.metric.batch
+        eng = self.metric.scout if self._scouting else self.metric.batch
         if eng is None or not hasattr(eng, "batch_dev"):
             return None
         if not eng.batch_dev_ready(self.X):
@@ -555,7 +622,7 @@ class Annchor:
             self.n_samples = self.sample_ixs.shape[0]
             if sample_y is not None:
                 self.sample_y = sample_y
-                self.evals += sample_y.shape[0]
+                self._count(sample_y.shape[0])
             else:
                 self.sample_y = self._eval_pairs(self.sample_ijs)
             return
@@ -637,10 +704,10 @@ class Annchor:
         if self._dev is not None:
             self.nextback = np.zeros(0, dtype=np.int64)
             if self._dev_eval is not None:
-                self.evals += self._dev.select_refine_fused(
+                self._count(self._dev.select_refine_fused(
                     self.error_predictor, n_refine, nn, it == 0, 3 * nn // 2,
                     self._dev_eval,
-                )
+                ))
                 return
             candidates, cand_IJ = self._dev.select(
                 self.error_predictor, n_refine, nn, it == 0, 3 * nn // 2
@@ -772,10 +839,102 @@ class Annchor:
             self.RefineApprox[contenders], lb_new, ub_new
         )
 
+    def _certify(self, ngi, ngd):
+        """Exact re-evaluation of the scout-built candidate graph, then
+        scout-screened graph expansion (the JAX package's host numpy).
+
+        Pass 1: the scout selected ``k-1+certify_pad`` candidates per
+        point; the exact metric scores the deduplicated candidate edges
+        and each row keeps its exact top k-1.
+
+        Expansion: a missed true neighbour is almost always a graph
+        neighbour of a found one, but can sit deep in the scout ranking.
+        Each round takes the neighbours-of-neighbours of the current exact
+        top lists, scout-evaluates them fresh, and exactly evaluates only
+        those whose scout value could beat a row's exact kth distance,
+        with the admission margin calibrated from the scout-vs-exact
+        residuals of the pass-1 edges."""
+        nx, nsel = ngi.shape
+        kk = self.n_neighbors - 1
+
+        rows = np.repeat(np.arange(nx, dtype=np.int64), nsel)
+        cols = ngi.reshape(-1).astype(np.int64)
+        valid = (cols >= 0) & (cols != rows)
+        key = (np.minimum(rows, cols) * nx + np.maximum(rows, cols))[valid]
+        uniq = np.unique(key)
+        IJ = np.stack([uniq // nx, uniq % nx], axis=1)
+        # queue the scout values of the same edges first, run the host's
+        # exact batch while the device computes them, then download once
+        scout_dev = None
+        scout = self.metric.scout
+        if hasattr(scout, "dispatch"):
+            scout_dev, _ = scout.dispatch(self.X, self.X, IJ)
+        exact = self._exact_pairs(IJ)
+        if scout_dev is not None:
+            scout_d = scout_dev.cpu().numpy().astype(np.float64)
+            self.scout_evals += IJ.shape[0]
+        else:
+            scout_d = self._eval_pairs(IJ)
+        lo = float(np.quantile(exact - scout_d, 0.001)) - 1e-3
+
+        seen = uniq
+        pool_keys = uniq
+        pool_vals = exact
+
+        def row_topk():
+            a = pool_keys // nx
+            b = pool_keys % nx
+            pr = np.concatenate([a, b])
+            pc = np.concatenate([b, a])
+            pv = np.concatenate([pool_vals, pool_vals])
+            order = np.lexsort((pv, pr))
+            pr_s = pr[order]
+            starts = np.searchsorted(pr_s, np.arange(nx))
+            rank = np.arange(pr_s.shape[0]) - starts[pr_s]
+            sel = rank < kk
+            gi = np.full((nx, kk), -1, dtype=np.int64)
+            gd = np.full((nx, kk), np.inf)
+            gi[pr_s[sel], rank[sel]] = pc[order][sel]
+            gd[pr_s[sel], rank[sel]] = pv[order][sel]
+            return gi, gd
+
+        cap = self.certify_expand_cap
+        if cap is None:
+            cap = 32 * nx
+        for _ in range(self.certify_expand_rounds):
+            gi, gd = row_topk()
+            kth = gd[:, -1]
+            vi, vj = np.nonzero(gi >= 0)
+            j = gi[vi, vj]
+            ri = np.repeat(vi, kk)
+            ci = gi[j].reshape(-1)
+            ok = (ci >= 0) & (ci != ri)
+            ek = np.minimum(ri, ci) * nx + np.maximum(ri, ci)
+            new = np.setdiff1d(np.unique(ek[ok]), seen, assume_unique=True)
+            if new.size == 0:
+                break
+            a = new // nx
+            b = new % nx
+            sdn = self._eval_pairs(np.stack([a, b], axis=1))
+            margin = sdn + lo - np.maximum(kth[a], kth[b])
+            admit = np.flatnonzero(margin <= 0.0)
+            if admit.size > cap:
+                admit = admit[np.argpartition(margin[admit], cap)[:cap]]
+            seen = np.union1d(seen, new)
+            if admit.size == 0:
+                continue
+            ex = self._exact_pairs(np.stack([a[admit], b[admit]], axis=1))
+            pool_keys = np.concatenate([pool_keys, new[admit]])
+            pool_vals = np.concatenate([pool_vals, ex])
+        return row_topk()
+
     def get_ann(self):
         """Assemble the k-NN graph, self-prepended
-        (reference annchor.py:514-530)."""
+        (reference annchor.py:514-530).  Hybrid fits over-select by
+        certify_pad and re-rank the rows with exact distances."""
         nsel = self.n_neighbors - 1
+        if self._scouting:
+            nsel += self.certify_pad
         if self._dev is not None:
             ngi, ngd = self._dev.knn_graph(nsel)
             ng_exact = self._dev.ng_exact_mask
@@ -792,6 +951,9 @@ class Annchor:
             ng_exact = (pair_ids < m) & ~self.not_computed_mask[
                 np.clip(pair_ids, 0, m - 1)
             ]
+        if self._scouting:
+            ngi, ngd = self._certify(ngi, ngd)
+            ng_exact = np.ones(ngi.shape, dtype=bool)  # every edge certified
         self._ng_exact = np.concatenate(
             [np.ones((self.nx, 1), dtype=bool), ng_exact[:, : ngi.shape[1]]],
             axis=1,
@@ -807,7 +969,20 @@ class Annchor:
         With verbose=True prints the reference's stage-timer table
         (reference annchor.py:538-543) with the per-stage metric-call
         count; every stage ends in a device synchronisation, so the
-        times are the device's."""
+        times are the device's.  With trace_dir set, the whole fit runs
+        under ``torch.profiler`` and its trace is written there."""
+        if self.trace_dir is None:
+            return self._fit_impl()
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(self.trace_dir)):
+            return self._fit_impl()
+
+    def _fit_impl(self):
         evals_seen = [self.evals]
 
         def timeit(item, origin, start):
@@ -870,7 +1045,7 @@ class Annchor:
 
         stage("finalise_bounds", self.finalise_bounds, origin)
         stage("get_ann", self.get_ann, origin)
-        if self.refine_frac > 0:
+        if self.refine_frac > 0 and not self._scouting:
             # the held-back share of p_work goes to graph expansion
             stage(
                 "refine_neighbor_graph",

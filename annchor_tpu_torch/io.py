@@ -73,8 +73,7 @@ def _common_payload(ann, fmt):
         "loc_thresh": np.int64(ann.loc_thresh),
         "is_metric": np.bool_(ann.is_metric),
         "evals": np.int64(ann.evals),
-        # the JAX package's hybrid fits count their cheap evals here;
-        # the port has none (ROADMAP Queue 1 item 7)
+        # a hybrid fit's scout calls (its evals count the exact calls)
         "scout_evals": np.int64(getattr(ann, "scout_evals", 0)),
         "A": np.asarray(ann.A, dtype=np.int64),
         "D": np.asarray(ann.D, dtype=np.float64),

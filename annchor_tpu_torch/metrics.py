@@ -1,14 +1,20 @@
 """Metric resolution and batched pairwise evaluation.
 
-Port of the JAX package's ``metrics.py``.  Every built-in metric but the
-two Wasserstein ones has a batched engine on the fit's torch device:
+Port of the JAX package's ``metrics.py``.  Every built-in metric has a
+batched engine:
 
 * ``levenshtein``: the bit-parallel pair kernel
   (``ops/levenshtein_myers.myers_pairs``), on the card or, for
   ``device="cpu"``, through its plain PyTorch version;
 * ``euclidean``, ``sqeuclidean`` and ``cosine``: ``_DenseBatchEngine``,
   a gather and a row reduction in float32 (the JAX engine is an XLA
-  program, not a Pallas kernel, so plain torch ops are its port).
+  program, not a Pallas kernel, so plain torch ops are its port);
+* ``wasserstein``: ``_EMDEngine``, the exact EMD solver on the host's
+  cores (``native.py``), with ``scout="sinkhorn"`` the exp-domain
+  Sinkhorn scout on the device (``ops/wasserstein.SinkhornExpEngine``)
+  for the scout/certify hybrid;
+* ``wasserstein_sinkhorn``: log-domain Sinkhorn on the device
+  (``ops/wasserstein.SinkhornEngine``), a non-metric approximation.
 
 Any other Python callable is evaluated on the host by
 ``_fanout_scalar``, which fans chunks of pairs out over a worker pool,
@@ -28,6 +34,7 @@ import threading
 import numpy as np
 import torch
 
+from annchor_tpu_torch import native
 from annchor_tpu_torch._backend import resolve_device
 from annchor_tpu_torch.ops import levenshtein as _lev_ops
 from annchor_tpu_torch.ops.levenshtein_myers import (
@@ -35,6 +42,7 @@ from annchor_tpu_torch.ops.levenshtein_myers import (
     myers_maxmin,
     myers_pairs,
 )
+from annchor_tpu_torch.ops.wasserstein import SinkhornEngine, SinkhornExpEngine
 from annchor_tpu_torch.progress import progress
 
 __all__ = [
@@ -45,13 +53,6 @@ __all__ = [
     "test_parallelisation",
 ]
 
-# the optimal-transport metrics wait for the UCI digits images
-_NOT_PORTED = {
-    "wasserstein": "ROADMAP Queue 1 item 7 (_EMDEngine, hybrid certify)",
-    "wasserstein_sinkhorn": "ROADMAP Queue 1 item 7 (Sinkhorn, K8)",
-}
-
-
 class Metric:
     """A metric plus (optionally) a batched pairwise engine.
 
@@ -61,13 +62,19 @@ class Metric:
             in-sample pairs.  Engines may cache per-dataset encodings.
     is_metric: whether the triangle inequality is trusted
         (reference annchor.py:73-76).
+    scout:  optional cheap approximate engine with the batch contract;
+            when present, Annchor explores with it and certifies the
+            reported graph with the exact engine (the scout/certify
+            hybrid, ``Annchor._certify``).
     """
 
-    def __init__(self, scalar, batch=None, name="custom", is_metric=True):
+    def __init__(self, scalar, batch=None, name="custom", is_metric=True,
+                 scout=None):
         self.scalar = scalar
         self.batch = batch
         self.name = name
         self.is_metric = is_metric
+        self.scout = scout
 
     def __call__(self, x, y):
         return self.scalar(x, y)
@@ -299,14 +306,58 @@ class _LevenshteinEngine:
         )
 
 
+# ---------------------------------------------------------------------------
+# optimal transport
+
+
+class _EMDEngine:
+    """Exact 1-Wasserstein distance by the host C++ solver (``native.py``),
+    striped over the host's cores: network-simplex pivoting is
+    sequential, so exact EMD stays on the host, as in the reference
+    (pynndescent's numba kantorovich, utils.py:82-86)."""
+
+    def __init__(self, cost_matrix):
+        self.cost_matrix = np.ascontiguousarray(cost_matrix, np.float64)
+
+    def __call__(self, X, Z, IJ):
+        IJ = np.asarray(IJ, dtype=np.int64)
+        if IJ.shape[0] == 0:
+            return np.zeros(0, dtype=np.float64)
+        X = np.ascontiguousarray(X, dtype=np.float64)
+        Zc = X if Z is X else np.ascontiguousarray(Z, dtype=np.float64)
+        return native.emd_batch(X, Zc, self.cost_matrix, IJ[:, 0], IJ[:, 1])
+
+
+def _make_emd_scalar(cost_matrix):
+    M = np.ascontiguousarray(cost_matrix, np.float64)
+
+    def wasserstein(x, y):
+        return native.emd_single(np.asarray(x, np.float64), np.asarray(y, np.float64), M)
+
+    return wasserstein
+
+
+def _make_sinkhorn(cost_matrix, device, **kw):
+    eng = SinkhornEngine(cost_matrix, device=device, **kw)
+
+    def scalar(x, y):
+        return float(eng(np.asarray(x)[None, :], np.asarray(y)[None, :],
+                         np.array([[0, 0]]))[0])
+
+    return scalar, eng
+
+
 def get_function_from_input(func, func_kwargs=None, device="cuda"):
     """Resolve a metric spec to a Metric (reference utils.py:62-107).
 
     Accepts a Metric; a string in {euclidean, sqeuclidean, cosine,
-    levenshtein}; or any callable f(x, y), with ``func_kwargs`` bound
-    when given.  ``wasserstein`` and ``wasserstein_sinkhorn`` raise
-    NotImplementedError naming their queue item.  ``device`` is where
-    the batched engine of a built-in metric runs.
+    levenshtein, wasserstein, wasserstein_sinkhorn}; or any callable
+    f(x, y), with ``func_kwargs`` bound when given.  The Wasserstein
+    metrics need ``func_kwargs["cost_matrix"]``; ``wasserstein`` with
+    ``"scout": "sinkhorn"`` (and optionally the scout's eps, n_iter,
+    chunk) carries the Sinkhorn scout for the hybrid fit.  ``device`` is
+    where the batched engine of a built-in metric runs (the exact EMD
+    always runs on the host).
     """
     if isinstance(func, Metric):
         return func
@@ -328,10 +379,27 @@ def get_function_from_input(func, func_kwargs=None, device="cuda"):
                 _LevenshteinEngine(device),
                 name="levenshtein",
             )
-        if func in _NOT_PORTED:
-            raise NotImplementedError(
-                "metric %r is not ported yet: %s" % (func, _NOT_PORTED[func])
+        if func == "wasserstein":
+            assert func_kwargs and "cost_matrix" in func_kwargs, (
+                "Error: wasserstein metric requires cost_matrix kwarg"
             )
+            kw = dict(func_kwargs)
+            M = kw.pop("cost_matrix")
+            scout = None
+            if kw.pop("scout", None) == "sinkhorn":
+                # the scout/certify hybrid: entropic OT on the device drives
+                # the search; the exact host solver certifies the graph
+                scout = SinkhornExpEngine(M, device=device, **kw)
+            return Metric(_make_emd_scalar(M), _EMDEngine(M), name="wasserstein",
+                          scout=scout)
+        if func == "wasserstein_sinkhorn":
+            assert func_kwargs and "cost_matrix" in func_kwargs, (
+                "Error: wasserstein_sinkhorn metric requires cost_matrix"
+            )
+            kw = dict(func_kwargs)
+            scalar, eng = _make_sinkhorn(kw.pop("cost_matrix"), device, **kw)
+            # entropic regularisation can violate the triangle inequality
+            return Metric(scalar, eng, name="wasserstein_sinkhorn", is_metric=False)
         raise AssertionError(
             "Error: The string must be one of "
             "{euclidean, sqeuclidean, cosine, levenshtein, wasserstein, "

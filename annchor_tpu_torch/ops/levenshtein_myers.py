@@ -10,7 +10,9 @@ see ``csrc/levenshtein_myers.cu`` for the recurrence.
 
 ``myers_pairs`` is the one entry point for pair batches: CUDA tensors
 go to the hand-written kernel (``ops/levenshtein_cuda.py``), CPU tensors
-to ``myers_pairs_plain``, the same recurrence written in PyTorch.
+to ``myers_pairs_plain``, the same recurrence written in PyTorch.  The
+exact oracles ``myers_knn`` and ``myers_rows`` (``exact.py``) evaluate a
+block of sources against every column as one ``myers_pairs`` call.
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from annchor_tpu_torch.ops.pairs import row_smallest_k
+from annchor_tpu_torch.progress import progress
 
 UINT1 = np.uint32(1)
 
@@ -30,6 +35,10 @@ _MASK = 0xFFFFFFFF  # a 32-bit word held in an int64 lane
 # the share of a dataset's strings (in percent) that K1's main launch is
 # sized for; a pair of two strings from the longest rest overflows
 BULK_PERCENT = 99
+
+# pairs per myers_pairs call of the exact oracles: a block of sources
+# times its columns, capped so the (I, J) id tensors stay near 128 MB
+EXACT_BLOCK_PAIRS = 1 << 23
 
 
 def encode_alphabet(codes: np.ndarray, lengths: np.ndarray):
@@ -260,3 +269,59 @@ def myers_maxmin(enc: MyersEncoding, na: int, first_ix: int):
         else:
             ix = torch.argmax(D[1 : i + 1].amin(dim=0))
     return A.cpu().numpy(), D.cpu().numpy().astype(np.float64).T
+
+
+def _source_blocks(rows, n_keep: int, block: int):
+    """Slices of ``rows`` of at most ``block`` sources and at most
+    EXACT_BLOCK_PAIRS pairs against ``n_keep`` columns each."""
+    step = max(1, min(int(block), EXACT_BLOCK_PAIRS // max(int(n_keep), 1)))
+    return [rows[s : s + step] for s in range(0, rows.shape[0], step)]
+
+
+def _block_columns(enc: MyersEncoding, blk, n_keep: int):
+    """Edit distances int32 (S, n_keep) from the sources ``blk`` to the
+    first ``n_keep`` strings of the encoding, as one pair batch."""
+    dev = enc.device
+    src = torch.as_tensor(np.asarray(blk, dtype=np.int64), device=dev)
+    cols = torch.arange(n_keep, device=dev)
+    d = myers_pairs(enc, src.repeat_interleave(n_keep), cols.repeat(src.shape[0]))
+    return d.view(src.shape[0], n_keep)
+
+
+def myers_knn(enc: MyersEncoding, k: int, rows=None, block: int = 64,
+              n_keep=None, verbose: bool = False):
+    """Exact k smallest edit distances per source row, blocked one-vs-all
+    (the JAX package's ``myers_knn``).
+
+    Each block of ``block`` sources runs as one pair batch against the
+    first ``n_keep`` strings (default: all), then a stable top-k on the
+    device (ties by the lower column, as ``lax.top_k``), so only
+    (block, k) comes back to the host and nothing O(n^2) is resident.
+    ``rows=None`` means every string.  Returns (idx int64 (R, k), dist
+    float64 (R, k)), ascending."""
+    n = enc.n
+    n_keep = n if n_keep is None else int(n_keep)
+    rows = np.arange(n, dtype=np.int64) if rows is None else np.asarray(rows, dtype=np.int64)
+    idx_out = np.empty((rows.shape[0], k), dtype=np.int64)
+    dist_out = np.empty((rows.shape[0], k), dtype=np.float64)
+    s = 0
+    for blk in progress(_source_blocks(rows, n_keep, block), "exact rows", verbose):
+        dist, idx = row_smallest_k(_block_columns(enc, blk, n_keep), k)
+        dist_out[s : s + blk.shape[0]] = dist.cpu().numpy()
+        idx_out[s : s + blk.shape[0]] = idx.cpu().numpy()
+        s += blk.shape[0]
+    return idx_out, dist_out
+
+
+def myers_rows(enc: MyersEncoding, rows, block: int = 64, n_keep=None,
+               verbose: bool = False):
+    """Full exact distance rows float64 (R, n_keep) for the given sources
+    (the JAX package's ``myers_rows``)."""
+    n_keep = enc.n if n_keep is None else int(n_keep)
+    rows = np.asarray(rows, dtype=np.int64)
+    out = np.empty((rows.shape[0], n_keep), dtype=np.float64)
+    s = 0
+    for blk in progress(_source_blocks(rows, n_keep, block), "exact rows", verbose):
+        out[s : s + blk.shape[0]] = _block_columns(enc, blk, n_keep).cpu().numpy()
+        s += blk.shape[0]
+    return out

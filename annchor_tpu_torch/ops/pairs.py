@@ -46,6 +46,7 @@ __all__ = [
     "guarantee_nmin",
     "empirical_cdf_probs",
     "knn_from_pairs",
+    "row_smallest_k",
 ]
 
 F32_INF = float("inf")
@@ -238,3 +239,12 @@ def knn_from_pairs(RA, IJs, P_idx, ncm, nn: int, device="cpu"):
     RA64 = np.concatenate([np.asarray(RA, np.float64), [np.inf]])
     ngd = RA64[pair_ids]
     return ngi.astype(np.int64), ngd, pair_ids
+
+
+def row_smallest_k(d, k: int):
+    """The k smallest entries of each row of the (S, n) tensor d, ascending,
+    ties broken by the lower column index as ``lax.top_k`` breaks them (a
+    stable sort; ``torch.topk`` gives no tie order, ROADMAP H1).  Returns
+    (values (S, k), column indices int64 (S, k)) on d's device."""
+    vals, idx = torch.sort(d, dim=1, stable=True)
+    return vals[:, :k], idx[:, :k]

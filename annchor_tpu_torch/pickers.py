@@ -40,8 +40,10 @@ class MaxMinAnchorPicker:
         ix = np.random.randint(nx)
 
         # the engine's device loop, unless the user overrode the
-        # pairwise evaluator (whose call sequence is then the contract)
-        fused = getattr(ann.metric.batch, "fused_maxmin", None)
+        # pairwise evaluator (whose call sequence is then the contract);
+        # during a hybrid fit the scout is the active engine
+        eng = ann.metric.scout if getattr(ann, "_scouting", False) else ann.metric.batch
+        fused = getattr(eng, "fused_maxmin", None)
         if fused is not None and getattr(
             ann.get_exact_ijs, "_annchor_default", False
         ):

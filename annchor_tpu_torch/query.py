@@ -17,9 +17,10 @@ the Levenshtein metric on a card, the hand-written pair kernel on the
 joint encoding of the database and the queries, which one call of
 ``query_`` or ``legacy_query_`` encodes once (``_held_encoding``).
 
-The JAX package's scout/certify branch needs the hybrid fits of the
-Wasserstein metrics (ROADMAP Queue 1 item 7); the port has none, so
-every query takes the plain branch.
+Against a scout/certify hybrid index, ``query_`` explores through the
+metric's scout (the anchor columns included, to stay consistent with the
+fitted features) and certifies its reported rows with the exact metric,
+over-selecting by ``ann.certify_pad``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -449,8 +450,23 @@ def query_(ann, Q, nn=15, p_work=0.3, get_exact_query_ijs=None,
     if get_exact_query_ijs is not None:
         ann.get_exact_query_ijs = get_exact_query_ijs
     geq = ann._get_exact_query_ijs_for(ann.f)
+
+    # scout/certify hybrid: exploration through the scout, exact
+    # certification of the reported rows
+    scouting = getattr(ann, "_scouting", False) and get_exact_query_ijs is None
+    if scouting:
+        scout_eng = ann.metric.scout
+
+        def eval_geq(f, Xa, Z, IJ):
+            return scout_eng(Xa, Z, np.asarray(IJ))
+
+    else:
+        eval_geq = geq
     with _held_encoding(ann):
-        QD = get_query_anchor_dists(ann, Q, geq)
+        # the anchor columns use the fit's engine: the fitted D and
+        # regression carry the scout's bias, and consistent features beat
+        # exact but inconsistent ones
+        QD = get_query_anchor_dists(ann, Q, eval_geq)
         check = query_candidates(
             ann._S_raw, QD,
             ann.locality if locality is None else locality,
@@ -468,7 +484,7 @@ def query_(ann, Q, nn=15, p_work=0.3, get_exact_query_ijs=None,
 
         IJ_all, RA_all, ncm_all = select_refine_candidate_query_pairs(
             ann, IJs, Q, P_idx, P_cnt, Qpred.copy(), Qncm, Qerrors, p_work, nn,
-            geq, seed_frac=seed_frac, expand_rounds=expand_rounds,
+            eval_geq, seed_frac=seed_frac, expand_rounds=expand_rounds,
         )
     if IJ_all.shape[0] != IJs.shape[0]:
         # the graph walk found pairs outside the locality candidates
@@ -476,6 +492,19 @@ def query_(ann, Q, nn=15, p_work=0.3, get_exact_query_ijs=None,
 
     # reference quirk: the query graph carries nn + 1 columns
     # (reference query_functions.py:210 calls get_nn with nn + 1)
-    ngi, ngd, _ = pair_ops.knn_from_pairs(RA_all, IJ_all, P_idx, ncm_all, nn + 1,
+    nout = nn + 1
+    nsel = nout + (ann.certify_pad if scouting else 0)
+    ngi, ngd, _ = pair_ops.knn_from_pairs(RA_all, IJ_all, P_idx, ncm_all, nsel,
                                           ann.device)
-    return ngi, ngd
+    if not scouting:
+        return ngi, ngd
+    nq = len(Q)
+    rows = np.repeat(np.arange(nq, dtype=np.int64), nsel)
+    dbs = ngi.reshape(-1)
+    valid = dbs >= 0
+    IJq = np.stack([dbs[valid], rows[valid]], axis=1)
+    dists = np.full(nq * nsel, np.inf)
+    dists[valid] = np.asarray(geq(ann.f, ann.X, Q, IJq), dtype=np.float64)
+    dists = dists.reshape(nq, nsel)
+    order = np.argsort(dists, axis=1, kind="stable")[:, :nout]
+    return np.take_along_axis(ngi, order, axis=1), np.take_along_axis(dists, order, axis=1)

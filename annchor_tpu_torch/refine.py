@@ -71,9 +71,13 @@ def refine_neighbor_graph(ann, rounds=2, budget=None):
     stats = []
     ann._refine_stats = stats
 
+    # always the exact metric, also after a hybrid fit (whose
+    # get_exact_ijs is the scout): refinement certifies
+    geq = ann._exact_eval if getattr(ann, "_scouting", False) else ann.get_exact_ijs
+
     def _exact(IJ):
         t0 = time.perf_counter()
-        d = np.asarray(ann.get_exact_ijs(ann.f, ann.X, IJ), dtype=np.float64)
+        d = np.asarray(geq(ann.f, ann.X, IJ), dtype=np.float64)
         stats[-1]["eval_s"] = round(
             stats[-1].get("eval_s", 0.0) + (time.perf_counter() - t0), 3
         )
@@ -88,7 +92,13 @@ def refine_neighbor_graph(ann, rounds=2, budget=None):
     # (min*nx+max) keys with the fit's computed distances
     store_keys = getattr(ann, "_exact_keys", None)
     store_vals = getattr(ann, "_exact_vals", None)
-    have_store = store_keys is not None and store_keys.size > 0
+    # a hybrid fit's store holds the scout's values for the exploration
+    # pairs, so it is no source of exact distances
+    have_store = (
+        store_keys is not None
+        and store_keys.size > 0
+        and not getattr(ann, "_scouting", False)
+    )
 
     def _store_lookup(keys):
         """(hit mask, values of the hits) for canonical pair keys."""

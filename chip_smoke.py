@@ -10,7 +10,8 @@ of which exits non-zero when it fails:
 
 1. device: the card's name and power limit, and the build of every
    kernel of the path from the sources in this checkout, with ptxas's
-   registers and spills for each instantiation;
+   registers and spills for each instantiation, and the build of the
+   host EMD solver (g++);
 2. kernel check: the CUDA edit-distance kernel (K1), in each launch mode
    (auto, thread, group), against its plain PyTorch version, bit for
    bit, on 82,180 pairs (empty strings, word boundaries, alphabets
@@ -20,7 +21,10 @@ of which exits non-zero when it fails:
    under ``torch.cuda.set_sync_debug_mode("error")`` on strings-1600
    and on it with one 2,100-character string, then against the
    pure-Python DP on 64 sampled strings-1600 pairs, then a small fit on
-   the card against the same fit on the CPU;
+   the card against the same fit on the CPU; then the hybrid's certify
+   dispatch (the Sinkhorn scout's values of 40,000 digit pairs queued on
+   the card) under ``set_sync_debug_mode("error")``, its values against
+   the same engine on the CPU;
 3. exact graph: ``BruteForce`` on strings-1600 (1,279,200 pairs);
 4. fit: one warm-up fit, then one timed fit with the stage table, which
    must launch K1 and stay within the evaluation budget; then the same
@@ -54,7 +58,7 @@ of which exits non-zero when it fails:
    errors; (b) the default-constructor fit of 100,000 evolve strings of
    ~400 characters, which must run in sparse mode, launch K1, stay
    within int(p_work * N) evals and reach distance recall >= 0.99 over
-   500 exact rows computed with K1 before the fit;
+   500 exact rows from ``exact_rows`` (K1) before the fit;
 10. serve, the post-fit surface, held to the JAX package's figures
    pinned at the top of the script: (a) ``query`` of 1,000 mutated
    strings against phase 4's JAX-stream fit, scored over their exact
@@ -68,11 +72,27 @@ of which exits non-zero when it fails:
    recall >= 0.99 over their exact rows by K1) and refined with free
    merges from the stored exact values.  Each query is timed, with the
    share of its wall spent encoding strings, then run again without the
-   engine's encoding hold, which must give the same answer.
+   engine's encoding hold, which must give the same answer.  Exact query
+   rows come from ``exact_query_rows`` (K1);
+11. exact oracles and the slow metrics: (a) ``exact_knn(X, "levenshtein",
+   k=25)`` over strings-1600, which must launch K1 and equal phase 3's
+   ``BruteForce`` graph (distances bit-equal, indices equal wherever the
+   25th distance is not tied); (b) the digits-1797 scout/certify hybrid,
+   ``Annchor(X, "wasserstein", func_kwargs={"cost_matrix":
+   grid_cost_matrix(), "scout": "sinkhorn"}, n_anchors=25, n_neighbors=25,
+   n_samples=5000, p_work=0.16, random_seed=42)`` (BENCHMARKS.md's
+   protocol), scored against ``exact_knn(X, "wasserstein", k=25)`` on the
+   host's EMD solver: < 10 errors, every reported distance the exact EMD
+   to 1e-9; its wall split into the Sinkhorn scout's device time (under
+   ``torch.profiler``) and the host EMD seconds; (c) ``wasserstein_sinkhorn``
+   on the first 300 digits: neighbour-set recall >= 0.9 against the exact
+   graph; (d) graph-sp on the 796-vertex component of ``make_graph()``
+   with the JAX sample stream, which must spend the JAX package's evals
+   and score no more errors against the exact graph.
 
 K1's launches, in all and per mode, are counted in the fits of phases
-4, 8 and 9 and in the calls of phase 10 (a), (b), (d) and (e), each with
-the counts set to 0 just before it.
+4, 8 and 9, in the calls of phase 10 (a), (b), (d) and (e) and in phase
+11(a)'s ``exact_knn``, each with the counts set to 0 just before it.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to build/chip_smoke.json.
@@ -163,6 +183,25 @@ SERVE_BLOBS_SUBSET = 85
 SERVE_5K_ENEMY_EVALS = 227_812
 SERVE_5K_ENEMY_EXACT = 0.7120
 SERVE_5K_SUBSET = 155
+# PR 5's hand-written exact oracles (one K1 call per row), seconds by this
+# script on the same card type and limit: phase 9's 500 rows of the 100k
+# corpus and phase 10(e)'s 500 query rows against it, two runs each
+ORACLE_BEFORE_S = {"100k rows": (4.149, 4.149), "100k query rows": (3.555, 4.389)}
+# Phase 11, from ``tools/pin_hybrid_figures.py`` (annchor_tpu on the CPU,
+# same data and arguments).  (b) The digits-1797 hybrid: 39,054 exact
+# calls, 406,986 scout calls, 0 errors against BruteForce.  The card's
+# Sinkhorn values differ from XLA:CPU's by float32 ulps, so the calls may
+# differ a little; the contract is < 10 errors (the reference scores 0).
+DIGITS_EVALS = 39_054
+DIGITS_SCOUT_EVALS = 406_986
+DIGITS_ERRORS = 0
+DIGITS_MAX_ERRORS = 10
+# (c) the reference test's recall floor (tests/test_hybrid.py:110-140)
+SINKHORN_MIN_RECALL = 0.9
+# (d) graph-sp on the 796-vertex component, n_anchors=20, n_neighbors=15,
+# p_work=0.15, random_seed=42: 52,672 evals, 39 errors against BruteForce
+GRAPH_EVALS = 52_672
+GRAPH_ERRORS = 39
 
 # K1's bound: a word step (one 32-bit pattern word advanced by one text
 # character) is at least 10 INT32 instructions (the add with carry in and
@@ -440,6 +479,38 @@ def _check_small_fit(torch, np):
     print("  small fit (n=300): card == CPU, %d evals" % b.evals, flush=True)
 
 
+def _check_scout_no_sync(torch, np):
+    """The hybrid's certify dispatch: the Sinkhorn scout's values of
+    40,000 digit pairs queued on the card under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the table upload done
+    first), then held against the same engine on the CPU on 2,000 of the
+    pairs.  The card rounds each float64 product once, as the CPU does,
+    but sums in another order, so the two agree to a few float32 ulps
+    (rtol 2e-6)."""
+    from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
+    from annchor_tpu_torch.ops.wasserstein import SinkhornExpEngine
+
+    X, _ = digit_images()
+    M = grid_cost_matrix()
+    IJ = np.random.default_rng(4).integers(0, len(X), size=(40_000, 2))
+    eng = SinkhornExpEngine(M, device="cuda")
+    eng.dispatch(X, X, IJ[:10])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dev, m = eng.dispatch(X, X, IJ)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = dev.cpu().numpy().astype(np.float64)
+    want = SinkhornExpEngine(M, device="cpu")(X, X, IJ[:2000])
+    rel = float(np.max(np.abs(got[:2000] - want) / np.abs(want)))
+    print("  Sinkhorn scout dispatch of %d pairs under set_sync_debug_mode('error'): no sync; "
+          "card vs CPU on 2,000 pairs: max relative difference %.3g" % (m, rel), flush=True)
+    if m != IJ.shape[0] or not np.isfinite(got).all() or rel > 2e-6:
+        raise SystemExit("the Sinkhorn scout on the card disagrees with the CPU")
+    return rel
+
+
 def _time(torch, fn, reps):
     """Mean ms per call, by CUDA events, after one warm-up call."""
     fn()
@@ -476,10 +547,20 @@ def _plan(enc, B, mode="auto"):
     return launch_plan(B, enc.wbulk, enc.wmax, enc.alphabet, mode)
 
 
-def _device_profile(torch, fn):
-    """Run ``fn`` once under torch.profiler: (K1's device ms, K1 kernels,
-    all device ms, wall s).  Device times sum the kernels' own spans."""
+def _device_profile(torch, fn, scope=None):
+    """Run ``fn`` once under torch.profiler.  Returns a dict: ``wall_s``;
+    ``device_ms`` and ``kernels`` in all; ``k1_device_ms`` and
+    ``k1_kernels`` (K1's launches); for the ``record_function`` ranges
+    named ``scope``, the ``scope_device_ms`` and ``scope_kernels`` of the
+    kernels launched inside them and their ``scope_span_ms`` on the card's
+    timeline (idle gaps included; the profiler mirrors each range as a
+    device-side annotation, counted here as the span, not as a kernel);
+    ``top``, the five kernels that take the most time [(name, ms,
+    count)].  Device times sum the kernels' own spans."""
     from torch.profiler import ProfilerActivity, profile
+
+    def kernels(e):
+        return len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -487,17 +568,29 @@ def _device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1_us = dev_us = 0.0
-    k1_n = 0
+    dev_us = dev_n = scope_us = scope_n = span_us = k1_us = k1_n = 0
+    by_name = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        dev_us += us
-        if "k1_" in e.name:
-            k1_us += us
-            k1_n += 1
-    return k1_us / 1e3, k1_n, dev_us / 1e3, wall
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name == scope:
+            span_us += e.time_range.elapsed_us()
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            dev_us += us
+            dev_n += 1
+            if "k1_" in e.name:
+                k1_us += us
+                k1_n += 1
+            row = by_name.setdefault(e.name[:60], [0.0, 0])
+            row[0] += us / 1e3
+            row[1] += 1
+        elif e.name == scope:
+            scope_us += e.device_time_total
+            scope_n += kernels(e)
+    top = sorted(((k, v[0], v[1]) for k, v in by_name.items()), key=lambda r: -r[1])[:5]
+    return {"wall_s": wall, "device_ms": dev_us / 1e3, "kernels": dev_n,
+            "k1_device_ms": k1_us / 1e3, "k1_kernels": k1_n,
+            "scope_device_ms": scope_us / 1e3, "scope_kernels": scope_n,
+            "scope_span_ms": span_us / 1e3, "top": top}
 
 
 def _kernel_ms(torch, enc, I, J, mode, reps):
@@ -581,11 +674,11 @@ def _timings(torch, np, X, IJs, big_X):
             print("    slower through the wrapper than before (%.3f ms)" % row["before_ms"],
                   flush=True)
     # get_anchors of the 100k fit: 96 columns of the max-min loop
-    k1_ms, k1_n, dev_ms, wall = _device_profile(torch, lambda: myers_maxmin(big, 96, 0))
-    rows["100k anchors"] = {"k1_device_ms": k1_ms, "k1_kernels": k1_n,
-                            "device_ms": dev_ms, "wall_s": wall}
+    prof = _device_profile(torch, lambda: myers_maxmin(big, 96, 0))
+    rows["100k anchors"] = prof
     print("  100k max-min anchors (96 columns, profiled): K1 %.3f ms in %d kernels of "
-          "%.3f ms device time, %.3f s wall" % (k1_ms, k1_n, dev_ms, wall), flush=True)
+          "%.3f ms device time, %.3f s wall" % (prof["k1_device_ms"], prof["k1_kernels"],
+                                                prof["device_ms"], prof["wall_s"]), flush=True)
     rows["crossover"] = _crossover(torch, np, enc, big, rng)
     return rows
 
@@ -737,17 +830,13 @@ def _scale_path(torch, np, att, K1, report, big_X):
     worst = max(worst, _k1_against_plain(torch, np, "strings-100k", X, 20_000, rng))
     rows = np.sort(np.random.default_rng(0).choice(len(X), SCALE100K_ROWS, replace=False))
     t0 = time.perf_counter()
-    engine = att.get_function_from_input("levenshtein", device="cuda").batch
-    J = torch.arange(len(X), device="cuda")
-    R = np.stack([
-        engine.batch_dev(X, torch.full_like(J, int(r)), J).cpu().numpy().astype(np.int32)
-        for r in rows
-    ])
+    R = att.exact_rows(X, "levenshtein", rows=rows, device="cuda")
     report["scale100k_rows_s"] = time.perf_counter() - t0
-    print("  (b) %d strings of %d-%d characters (%.1f s); %d exact rows by K1 in "
-          "%.3f s" % (len(X), min(lengths), max(lengths), report["scale100k_data_s"],
-                      len(rows), report["scale100k_rows_s"]), flush=True)
-    del engine
+    print("  (b) %d strings of %d-%d characters (%.1f s); %d exact rows by exact_rows "
+          "(K1) in %.3f s (the hand-written oracle before: %s s)" % (
+              len(X), min(lengths), max(lengths), report["scale100k_data_s"], len(rows),
+              report["scale100k_rows_s"], " / ".join(map(str, ORACLE_BEFORE_S["100k rows"]))),
+          flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     K1.reset_counts()
@@ -843,20 +932,6 @@ def _timed_query(torch, ann, Q, nn, p_work, hold=True):
     return out, wall, clock
 
 
-def _exact_query_rows(torch, np, db, Q):
-    """R[q] = edit distances from query Q[q] to every string of ``db``,
-    by K1 on the joint encoding, one row of pairs per call."""
-    from annchor_tpu_torch.ops.levenshtein import encode_strings
-    from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding, myers_pairs
-
-    enc = MyersEncoding.from_codes(*encode_strings(list(db) + list(Q)), "cuda")
-    I = torch.arange(len(db), device="cuda")
-    return np.stack([
-        myers_pairs(enc, I, torch.full_like(I, len(db) + q)).cpu().numpy()
-        for q in range(len(Q))
-    ])
-
-
 def _query_report(torch, np, K1, ann, Q, R, sources, nn, p_work, label):
     """The timed query with K1's launches and the encode clock, then the
     same query without the encoding hold, which must give the same
@@ -912,7 +987,9 @@ def _serve(torch, np, att, K1, report, X, ref, scale5k, big, big_X, out_dir):
 
     # (a) query of the strings-1600 index (phase 4's JAX-stream fit)
     Q = mutate_strings(X[:1000], 0.05, 7)
-    R = _exact_query_rows(torch, np, X, Q)
+    t0 = time.perf_counter()
+    R = att.exact_query_rows(X, Q, "levenshtein", device="cuda")
+    serve["a_exact_query_rows_s"] = time.perf_counter() - t0
     ref.query(Q, nn=15, p_work=0.2)  # warm-up
     ngi, ngd, serve["a"], modes = _query_report(torch, np, K1, ref, Q, R, np.arange(len(Q)),
                                                 15, 0.2, "(a) strings-1600 query")
@@ -1015,8 +1092,8 @@ def _serve(torch, np, att, K1, report, X, ref, scale5k, big, big_X, out_dir):
     add(modes)
     alive = s5._dev is not None and s5._IJs is None
     rows = np.sort(np.random.default_rng(3).choice(len(X5), 500, replace=False))
-    R5 = _exact_query_rows(torch, np, X5, [X5[r] for r in rows])
-    exact5 = np.where(y5[None, :] != y5[rows][:, None], R5, np.iinfo(np.int32).max).min(axis=1)
+    R5 = att.exact_rows(X5, "levenshtein", rows=rows, device="cuda")
+    exact5 = np.where(y5[None, :] != y5[rows][:, None], R5, np.inf).min(axis=1)
     acc5 = float(np.mean(sgd[rows, 0] == exact5))
     excess5 = float(np.mean(sgd[rows, 0] - exact5))
     ss_acc5 = float(np.mean(y5[sss[np.argmin(R5[:, sss], axis=1)]] == y5[rows]))
@@ -1062,8 +1139,12 @@ def _serve(torch, np, att, K1, report, X, ref, scale5k, big, big_X, out_dir):
     src = rng.choice(len(big_X), 500, replace=False)
     Qe = mutate_strings([big_X[i] for i in src], 0.01, 11)
     t0 = time.perf_counter()
-    Re = _exact_query_rows(torch, np, big_X, Qe)
+    Re = att.exact_query_rows(big_X, Qe, "levenshtein", device="cuda")
     rows_s = time.perf_counter() - t0
+    print("  (e) 500 exact query rows by exact_query_rows (K1) in %.3f s (the hand-written "
+          "oracle before: %s s); (a)'s 1,000 in %.3f s" % (
+              rows_s, " / ".join(map(str, ORACLE_BEFORE_S["100k query rows"])),
+              serve["a_exact_query_rows_s"]), flush=True)
     loaded.query(Qe[:20], nn=15, p_work=SCALE100K_P_WORK)  # warm-up
     _, _, row, modes = _query_report(torch, np, K1, loaded, Qe, Re, src, 15,
                                      SCALE100K_P_WORK, "(e) 100k query")
@@ -1087,6 +1168,154 @@ def _serve(torch, np, att, K1, report, X, ref, scale5k, big, big_X, out_dir):
     if hits < 1 or spent > 200_000:
         raise SystemExit("(e) refine merged nothing from the store or overspent")
     return modes_all
+
+
+def _slow_metrics(torch, np, att, K1, report, X, gt):
+    """Phase 11: the exact oracle on K1, the digits hybrid, the
+    Sinkhorn-only fit and graph-sp.  Returns K1's launches per mode in
+    (a)'s exact_knn."""
+    from scipy.sparse.csgraph import connected_components
+
+    from annchor_tpu_torch import native
+    from annchor_tpu_torch.datasets import (
+        digit_images,
+        graph_adjacency,
+        grid_cost_matrix,
+        make_graph,
+    )
+    from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+
+    out = report["slow_metrics"] = {}
+
+    # (a) exact_knn over strings-1600 on K1, against phase 3's BruteForce
+    K1.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx, dist = att.exact_knn(X, "levenshtein", k=N_NEIGHBORS, device="cuda")
+    wall = time.perf_counter() - t0
+    modes = dict(K1.mode_launches)
+    gi, gd = gt[0][:, :N_NEIGHBORS], gt[1][:, :N_NEIGHBORS]
+    untied = gt[1][:, N_NEIGHBORS - 1] != gt[1][:, N_NEIGHBORS]
+    same_d = bool(np.array_equal(dist, gd))
+    same_i = bool(np.array_equal(idx[untied], gi[untied]))
+    out["a"] = {"exact_knn_s": wall, "k1_launches": K1.launches, "k1_mode_launches": modes,
+                "distances_equal": same_d, "indices_equal_untied": same_i,
+                "untied_rows": int(untied.sum()),
+                "indices_equal_all": bool(np.array_equal(idx, gi)),
+                "bruteforce_s": report["bruteforce_s"]}
+    print("  (a) exact_knn(strings-1600, k=25): %.3f s (BruteForce %.3f s), K1 launches %d %s; "
+          "distances bit-equal %s, indices equal on the %d rows with an untied 25th "
+          "distance %s (on every row %s)" % (
+              wall, report["bruteforce_s"], K1.launches, modes, same_d, untied.sum(), same_i,
+              out["a"]["indices_equal_all"]), flush=True)
+    if not (same_d and same_i and K1.launches):
+        raise SystemExit("(a) exact_knn differs from BruteForce or never launched K1")
+
+    # (b) the digits-1797 hybrid against the exact EMD graph
+    Xd, _ = digit_images()
+    M = grid_cost_matrix()
+    t0 = time.perf_counter()
+    ei, ed = att.exact_knn(Xd, "wasserstein", {"cost_matrix": M}, k=N_NEIGHBORS,
+                           device="cuda")
+    gt_s = time.perf_counter() - t0
+    kw = dict(func_kwargs={"cost_matrix": M, "scout": "sinkhorn"}, n_anchors=25,
+              n_neighbors=N_NEIGHBORS, n_samples=5000, p_work=0.16, random_seed=42,
+              device="cuda")
+    rows = []
+    for run in ("timed", "profiled"):
+        ann = att.Annchor(Xd, "wasserstein", verbose=run == "timed", **kw)
+        emd = {"s": 0.0, "calls": 0}
+        exact_eval = ann._exact_eval
+
+        def timed_exact(f, X_, IJ, exact_eval=exact_eval, emd=emd):
+            t = time.perf_counter()
+            try:
+                return exact_eval(f, X_, IJ)
+            finally:
+                emd["s"] += time.perf_counter() - t
+                emd["calls"] += len(IJ)
+
+        ann._exact_eval = timed_exact
+        if run == "timed":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ann.fit()
+            torch.cuda.synchronize()
+            row = {"wall_s": time.perf_counter() - t0}
+        else:
+            row = _device_profile(torch, ann.fit, "sinkhorn_exp_chunk")
+            for name, ms, cnt in row["top"]:
+                print("    %-60s %10.3f ms in %6d events" % (name, ms, cnt), flush=True)
+        errors = att.compare_neighbor_graphs((ei, ed), ann.neighbor_graph, N_NEIGHBORS)
+        ngi, ngd = ann.neighbor_graph
+        check = native.emd_batch(Xd, Xd, M, np.repeat(np.arange(len(Xd)), N_NEIGHBORS),
+                                 ngi.reshape(-1))
+        row.update(evals=int(ann.evals), scout_evals=int(ann.scout_evals),
+                   errors=int(errors), host_emd_s=emd["s"], host_emd_calls=emd["calls"],
+                   max_abs_err_reported=float(np.abs(check - ngd.reshape(-1)).max()),
+                   anchors=[int(a) for a in ann.A[:5]])
+        rows.append(row)
+        print("  (b) digits-1797 hybrid (%s): %.3f s wall, %d exact calls (JAX package on a "
+              "CPU: %d), %d scout calls (%d), %d errors (%d; contract < %d), reported "
+              "distances within %.3g of the exact EMD, host EMD %.3f s in %d calls%s" % (
+                  run, row["wall_s"], ann.evals, DIGITS_EVALS, ann.scout_evals,
+                  DIGITS_SCOUT_EVALS, errors, DIGITS_ERRORS, DIGITS_MAX_ERRORS,
+                  row["max_abs_err_reported"], emd["s"], emd["calls"],
+                  "" if run == "timed" else "; device %.3f ms in %d kernels, the Sinkhorn "
+                  "scout %.3f ms in %d kernels over a %.3f ms span of the card's timeline"
+                  % (row["device_ms"], row["kernels"], row["scope_device_ms"],
+                     row["scope_kernels"], row["scope_span_ms"])), flush=True)
+        if errors >= DIGITS_MAX_ERRORS or row["max_abs_err_reported"] > 1e-9:
+            raise SystemExit("(b) the digits hybrid: %d errors, reported distances off by "
+                             "%.3g" % (errors, row["max_abs_err_reported"]))
+        if ngi.shape != (len(Xd), N_NEIGHBORS) or not ann._scouting:
+            raise SystemExit("(b) the digits hybrid did not run the scout/certify path")
+    out["b"] = {"exact_knn_s": gt_s, "emd_solves": len(Xd) ** 2, "fits": rows}
+    print("  (b) its exact 25-NN graph by exact_knn: %.3f s for %d EMD solves on the host"
+          % (gt_s, len(Xd) ** 2), flush=True)
+
+    # (c) wasserstein_sinkhorn on 300 digits (tests/test_hybrid.py:123-131)
+    X3 = Xd[:300]
+    exact10 = att.exact_knn(X3, "wasserstein", {"cost_matrix": M}, k=10, device="cuda")[0]
+    t0 = time.perf_counter()
+    sk = att.Annchor(X3, "wasserstein_sinkhorn", func_kwargs={"cost_matrix": M},
+                     n_anchors=15, n_neighbors=10, n_samples=2000, p_work=0.3,
+                     random_seed=42, device="cuda")
+    sk.fit()
+    torch.cuda.synchronize()
+    sk_s = time.perf_counter() - t0
+    got = sk.neighbor_graph[0][:, :10]
+    recall = sum(len(np.intersect1d(exact10[i], got[i])) for i in range(len(X3))) / got.size
+    out["c"] = {"fit_s": sk_s, "evals": int(sk.evals), "recall": recall}
+    print("  (c) wasserstein_sinkhorn on 300 digits: %.3f s, %d evals, neighbour-set recall "
+          "%.4f (floor %.2f)" % (sk_s, sk.evals, recall, SINKHORN_MIN_RECALL), flush=True)
+    if recall < SINKHORN_MIN_RECALL or sk.is_metric:
+        raise SystemExit("(c) the Sinkhorn-only fit's recall %.4f" % recall)
+
+    # (d) graph-sp on the giant component of make_graph()
+    edges, weights, y = make_graph()
+    A = graph_adjacency(len(y), edges, weights)
+    _, labels = connected_components(A, directed=False)
+    Xg = np.flatnonzero(labels == np.argmax(np.bincount(labels)))
+    gsp = att.GraphShortestPathMetric(A)
+    ggt = att.exact_knn(Xg, gsp, k=15, device="cuda")
+    t0 = time.perf_counter()
+    g = att.Annchor(Xg, gsp, n_anchors=20, n_neighbors=15, p_work=0.15, random_seed=42,
+                    uniforms=jax_threefry_uniforms, device="cuda")
+    g.fit()
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    g_errors = att.compare_neighbor_graphs(ggt, g.neighbor_graph, 15)
+    out["d"] = {"n": int(Xg.shape[0]), "fit_s": g_s, "evals": int(g.evals),
+                "errors": int(g_errors)}
+    print("  (d) graph-sp on the %d-vertex component: %.3f s, %d evals (JAX package: %d), "
+          "%d errors (JAX package: %d)" % (Xg.shape[0], g_s, g.evals, GRAPH_EVALS, g_errors,
+                                           GRAPH_ERRORS), flush=True)
+    if g.evals != GRAPH_EVALS or g_errors > GRAPH_ERRORS:
+        raise SystemExit("(d) the graph-sp fit differs from the JAX package's figures")
+    if not np.isfinite(g.neighbor_graph[1]).all():
+        raise SystemExit("(d) the graph-sp fit reported non-finite distances")
+    return modes
 
 
 def main() -> int:
@@ -1121,6 +1350,12 @@ def main() -> int:
               % (name, regs, st, ld))
     if not report["k1_ptxas"]:
         raise SystemExit("no ptxas report in K1's build log")
+    from annchor_tpu_torch.native import EMD
+
+    t0 = time.perf_counter()
+    EMD.lib()
+    report["emd_build_s"] = time.perf_counter() - t0
+    print("  built the host EMD solver (g++) in %.3f s" % report["emd_build_s"], flush=True)
 
     _phase("2. kernel check")
     X, _ = make_strings()
@@ -1129,6 +1364,7 @@ def main() -> int:
     _check_no_sync(torch, np, X)
     _check_oracle(torch, np, X)
     _check_small_fit(torch, np)
+    report["scout_card_vs_cpu_rel"] = _check_scout_no_sync(torch, np)
 
     _phase("3. exact graph")
     t0 = time.perf_counter()
@@ -1191,12 +1427,11 @@ def main() -> int:
         raise SystemExit("%d errors against the exact graph, the JAX package %d"
                          % (ref_errors, REFERENCE_ERRORS))
 
-    k1_ms, k1_n, dev_ms, wall = _device_profile(
+    prof = report["fit_profile"] = _device_profile(
         torch, lambda: att.Annchor(X, "levenshtein", **kw).fit())
-    report["fit_profile"] = {"k1_device_ms": k1_ms, "k1_kernels": k1_n,
-                             "device_ms": dev_ms, "wall_s": wall}
     print("  fit under torch.profiler: K1 %.3f ms in %d kernels of %.3f ms device "
-          "time, %.3f s wall" % (k1_ms, k1_n, dev_ms, wall), flush=True)
+          "time, %.3f s wall" % (prof["k1_device_ms"], prof["k1_kernels"],
+                                 prof["device_ms"], prof["wall_s"]), flush=True)
 
     _phase("5. timing (%s)" % report["card"])
     t0 = time.perf_counter()
@@ -1280,10 +1515,13 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     _phase("10. serve (%s)" % report["card"])
     serve_modes = _serve(torch, np, att, K1, report, X, ref, scale5k, big, big_X, out_dir)
+
+    _phase("11. exact oracles and the slow metrics (%s)" % report["card"])
+    exact_modes = _slow_metrics(torch, np, att, K1, report, X, gt)
     main_modes = {m: fit_modes[m] + host_modes[m] + scale_modes[m] + serve_modes.get(m, 0)
-                  for m in fit_modes}
-    print("  K1 launches on the main path (phases 4, 8, 9, 10) by mode: %s; phase 10: %s"
-          % (main_modes, serve_modes))
+                  + exact_modes[m] for m in fit_modes}
+    print("  K1 launches on the main path (phases 4, 8, 9, 10, 11) by mode: %s; phase 10: "
+          "%s; phase 11: %s" % (main_modes, serve_modes, exact_modes))
     if not (main_modes["thread"] and main_modes["group"]):
         raise SystemExit("the main path did not launch both K1 modes: %s" % main_modes)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -1298,6 +1536,7 @@ def main() -> int:
         "launches_group": main_modes["group"],
         "launches_long": main_modes["long"],
         "launches_serve": sum(serve_modes.values()),
+        "launches_exact": sum(exact_modes.values()),
         "max_abs_err": max_err,
         "ms": refine["ms"],
         "plain_ms": refine["plain_ms"],

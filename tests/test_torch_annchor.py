@@ -6,6 +6,8 @@ same anchors and candidate pairs, spend the same number of metric
 evaluations and report the same k-NN graph as the JAX fit.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -157,8 +159,7 @@ def test_unported_paths_raise(monkeypatch):
     """Custom strategy objects take the host pipeline and nx > 4096 the
     scale path; what the scale path does not cover yet (non-metric fits,
     the admit-everything build, the rms score, custom strategy objects
-    above 4,096 points) and the Wasserstein metrics raise, naming their
-    items."""
+    above 4,096 points, hybrid fits there) raise, naming their items."""
     X, _ = make_strings(n=60, length=20, seed=1)
     ann = att.Annchor(
         list(X), "levenshtein", n_anchors=3, n_neighbors=5, n_samples=100,
@@ -190,9 +191,15 @@ def test_unported_paths_raise(monkeypatch):
             ann.get_locality()
         for k in env:
             monkeypatch.delenv(k)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        att.Annchor(np.eye(4), "wasserstein", func_kwargs={"cost_matrix": np.eye(4)},
-                    device="cpu")
+    # a hybrid fit is non-metric: on the scale path it waits for item 15
+    hist = np.random.default_rng(0).integers(0, 5, size=(60, 4))
+    hybrid = att.Annchor(hist, "wasserstein", n_anchors=3, n_neighbors=5, device="cpu",
+                         func_kwargs={"cost_matrix": 1.0 - np.eye(4), "scout": "sinkhorn",
+                                      "n_iter": 10})
+    assert hybrid._scouting and not hybrid.is_metric
+    hybrid.get_anchors()
+    with pytest.raises(NotImplementedError, match="item 15"):
+        hybrid.get_locality()
 
 
 def test_cuda_device_without_card_raises():
@@ -493,3 +500,22 @@ def test_chip_smoke_make_blobs_equals_sklearn(shape):
     X_ref, y_ref = make_blobs(n_samples=n, n_features=d, centers=10, random_state=42)
     np.testing.assert_array_equal(X, X_ref)
     np.testing.assert_array_equal(y, y_ref)
+
+
+def test_trace_dir_writes_a_trace(tmp_path):
+    """F9: both packages take trace_dir; the port runs the fit under
+    torch.profiler, writes its trace there and reports the same graph as
+    the same fit without it."""
+    X, _ = make_strings(n=120, length=30, seed=4)
+    kw = dict(n_anchors=8, n_neighbors=6, n_samples=300, p_work=0.3)
+    assert at.Annchor(list(X), "levenshtein", trace_dir=str(tmp_path / "jax"),
+                      **kw).trace_dir == str(tmp_path / "jax")
+    traced = att.Annchor(list(X), "levenshtein", device="cpu",
+                         trace_dir=str(tmp_path / "port"), **kw)
+    traced.fit()
+    plain = att.Annchor(list(X), "levenshtein", device="cpu", **kw)
+    plain.fit()
+    assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path / "port"))
+    assert traced.evals == plain.evals
+    for a, b in zip(traced.neighbor_graph, plain.neighbor_graph):
+        np.testing.assert_array_equal(a, b)

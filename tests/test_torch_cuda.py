@@ -189,3 +189,39 @@ def test_fit_on_card_equals_fit_on_cpu(cuda):
     assert a.evals == b.evals
     np.testing.assert_array_equal(a.neighbor_graph[0], b.neighbor_graph[0])
     np.testing.assert_array_equal(a.neighbor_graph[1], b.neighbor_graph[1])
+
+
+def test_exact_oracles_on_card_equal_cpu(cuda):
+    """exact_knn, exact_rows and exact_query_rows through K1 on the card
+    equal their plain versions on the CPU, tie order included."""
+    import annchor_tpu_torch as att
+
+    X, _ = make_strings(n=200, length=60, seed=5)
+    X = list(X)
+    for dev_out, cpu_out in (
+        (att.exact_knn(X, "levenshtein", k=9, block=16, device="cuda"),
+         att.exact_knn(X, "levenshtein", k=9, block=16, device="cpu")),
+        ((att.exact_rows(X, "levenshtein", rows=[3, 77], device="cuda"),),
+         (att.exact_rows(X, "levenshtein", rows=[3, 77], device="cpu"),)),
+        ((att.exact_query_rows(X[:150], X[150:], "levenshtein", device="cuda"),),
+         (att.exact_query_rows(X[:150], X[150:], "levenshtein", device="cpu"),)),
+    ):
+        for a, b in zip(dev_out, cpu_out):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_sinkhorn_scout_on_card_matches_cpu(cuda):
+    """The exp-domain Sinkhorn scout rounds each float64 product once to
+    float32 on both devices; the sums run in other orders, so values agree
+    to a few float32 ulps, and the max-min anchors are the same."""
+    from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
+    from annchor_tpu_torch.ops.wasserstein import SinkhornExpEngine
+
+    X, _ = digit_images()
+    X = X[:400]
+    M = grid_cost_matrix()
+    IJ = np.random.default_rng(3).integers(0, len(X), size=(3000, 2))
+    card = SinkhornExpEngine(M, n_iter=100, chunk=1024, device="cuda")
+    cpu = SinkhornExpEngine(M, n_iter=100, chunk=1024, device="cpu")
+    np.testing.assert_allclose(card(X, X, IJ), cpu(X, X, IJ), rtol=2e-6)
+    np.testing.assert_array_equal(card.fused_maxmin(X, 10, 2)[0], cpu.fused_maxmin(X, 10, 2)[0])

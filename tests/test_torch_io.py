@@ -1,10 +1,6 @@
 """Checkpoints of the port (``annchor_tpu_torch/io.py``) on the CPU: the
 port's copies of the JAX package's ``tests/test_io.py``, and files
 written by either package loaded by the other.
-
-``tests/test_io.py``'s scouting case (a hybrid fit's store must not
-serve free merges) waits for the port's hybrid fits, ROADMAP Queue 1
-item 7.
 """
 
 import os
@@ -213,6 +209,23 @@ def test_v2_rebuild_pairs(sparse_fitted, tmp_path):
     assert m == ann._dev.m
     for a, b in zip(ann2._ij_dev[:2], (ann._dev.ij_i, ann._dev.ij_j)):
         assert torch.equal(a, b[:m])
+
+
+def test_refine_skips_store_for_scouting_ann(sparse_fitted, tmp_path):
+    """Port of tests/test_io.py::test_refine_skips_store_for_scouting_ann:
+    a scout/certify hybrid's store holds the scout's values for its
+    exploration pairs, so refinement must not serve candidates from it
+    as exact.  The gate reads ``_scouting``, flipped here on a loaded
+    index as in the JAX test."""
+    ann, X = sparse_fitted
+    p = str(tmp_path / "sparse.npz")
+    ann.save(p)
+    ann2 = att.Annchor.load(p, X, "euclidean", device="cpu")
+    assert ann2._exact_keys.size > 0
+    ann2._scouting = True
+    ann2._exact_eval = ann2.get_exact_ijs
+    ann2.refine_neighbor_graph(rounds=1, budget=100)
+    assert sum(s.get("store_hits", 0) for s in ann2._refine_stats) == 0
 
 
 def test_v2_include_exact_false(sparse_fitted, tmp_path):

@@ -166,12 +166,14 @@ def test_engine_matches_jax_engine():
 
 
 def test_unported_metrics_name_their_queue_item():
-    """The optimal-transport metrics still wait for their item; the vector
-    metrics and Python callables resolve now."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """Every built-in metric resolves now: the optimal-transport ones ask
+    for their cost matrix, as the JAX package's do."""
+    with pytest.raises(AssertionError, match="cost_matrix"):
         get_function_from_input("wasserstein", device="cpu")
-    with pytest.raises(NotImplementedError, match="K8"):
+    with pytest.raises(AssertionError, match="cost_matrix"):
         get_function_from_input("wasserstein_sinkhorn", device="cpu")
+    assert get_function_from_input(
+        "wasserstein", {"cost_matrix": np.eye(3)}, device="cpu").name == "wasserstein"
     assert get_function_from_input("euclidean", device="cpu").name == "euclidean"
     assert get_function_from_input(lambda x, y: 0.0, device="cpu").batch is None
     with pytest.raises(AssertionError):
@@ -183,7 +185,9 @@ def test_port_imports_no_jax():
         "import sys, annchor_tpu_torch, annchor_tpu_torch.datasets, "
         "annchor_tpu_torch.convert, annchor_tpu_torch.ops.levenshtein_cuda, "
         "annchor_tpu_torch.distances, annchor_tpu_torch.ops.pairs, "
-        "annchor_tpu_torch.ops.bounds_update, annchor_tpu_torch.ops.features\n"
+        "annchor_tpu_torch.ops.bounds_update, annchor_tpu_torch.ops.features, "
+        "annchor_tpu_torch.exact, annchor_tpu_torch.graph_sp, annchor_tpu_torch.native, "
+        "annchor_tpu_torch.ops.wasserstein\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'annchor_tpu'))\n"
         "assert not bad, bad\n"
