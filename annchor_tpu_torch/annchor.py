@@ -8,10 +8,11 @@ Port of the JAX package's single-device ``annchor.py``:
 The orchestration is a staged host loop, as in the JAX package.  With
 the default strategy objects the per-pair state lives on one torch
 device (``ops/device_pipeline.py``).  Above 4,096 points (or with the
-``ANNCHOR_TPU_FORCE_SPARSE`` test hook) that is the scale path: the
-budgeted band build keeps the pair list on the device, the state runs
-in sparse mode, and a share of the budget is held back for the host
-graph-expansion refinement (``refine.py``).  Any custom sampler,
+``ANNCHOR_TPU_FORCE_SPARSE`` test hook) that is the scale path: the pair
+build keeps the pair list on the device (the budgeted band build for
+metric fits, the admit-everything build for non-metric fits, hybrids
+included), the state runs in sparse mode, and a share of the budget is
+held back for the graph-expansion refinement (``refine.py``).  Any custom sampler,
 regression or error predictor takes the host pipeline, whose per-pair
 state is host numpy, as the JAX package's, and whose per-pair passes
 (``ops/features``, ``ops/pairs``, ``ops/bounds_update``) run as torch on
@@ -23,12 +24,8 @@ evaluates the cheap scout, and ``_certify`` re-ranks the reported graph
 with the exact metric.  A fitted index serves out-of-sample queries
 (``query.py``), is saved and loaded in the JAX package's file formats
 (``io.py``), and gives the nearest-enemy graph and the selective
-subsets (``enemies.py``).
-
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): non-metric fits (hybrids included) and custom strategy objects
-above 4,096 points, the ``rms`` build score and the device 2-hop screen
-of the refinement.
+subsets (``enemies.py``).  The fit runs on one device; the multi-device
+fit is ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -54,6 +51,7 @@ from annchor_tpu_torch.ops.features import bounds_and_dad
 from annchor_tpu_torch.ops.locality import (
     DENSE_MAX_NX,
     candidate_pairs,
+    candidate_pairs_device,
     candidate_pairs_device_budgeted,
 )
 from annchor_tpu_torch.pickers import MaxMinAnchorPicker
@@ -126,8 +124,10 @@ class Annchor:
         cap, explicit, or derived as max(4 nn, factor * p_work * nx)
         (factor 0.7 by default); the ``ANNCHOR_TPU_PAIR_CAP`` and
         ``ANNCHOR_TPU_PAIR_CAP_FACTOR`` variables override them.
-    max_resident_pairs: the admitted-pair bound of the non-metric scale
-        build (ROADMAP Queue 1 item 15); stored, not used yet.
+    max_resident_pairs: the admitted-pair bound of the scale path's
+        admit-everything build (non-metric fits): above it the build
+        switches to the budgeted one (default 10^8; the
+        ``ANNCHOR_TPU_MAX_RESIDENT_PAIRS`` variable overrides it).
     device: torch device of the fit state and the metric engine
         ("cuda" by default; "cpu" runs the kernels' plain versions).
     uniforms: optional callable (random_seed, loop_num, m, device) ->
@@ -254,6 +254,7 @@ class Annchor:
         self._P_idx = None
         self._IJs = None
         self._ij_dev = None  # device pair list (ij_i, ij_j, m), scale path
+        self._locality_info = None  # the scale path's build and admitted total
         self._S_raw = self._sid_raw = self._loc_eff_raw = None
         self._dev = None  # device-resident state (ops.device_pipeline)
         self._dev_eval = None  # device-id metric eval (fused pipeline)
@@ -464,15 +465,10 @@ class Annchor:
         (reference annchor.py:208-256), and for the host pipeline the
         padded point-incidence index.  Above 4,096 points, or with
         ``ANNCHOR_TPU_FORCE_SPARSE`` set (a test hook the JAX package
-        reads too), the default strategies take the scale path's
-        budgeted build, whose pair list stays on the device."""
+        reads too), the default strategies take the scale path's pair
+        build, whose pair list stays on the device; the host pipeline
+        takes the blocked ``candidate_pairs`` there."""
         device_ok = self._device_pipeline_ok()
-        if self.nx > DENSE_MAX_NX and not device_ok:
-            raise NotImplementedError(
-                "custom strategy objects above %d points need the host "
-                "pipeline's blocked candidate_pairs (ROADMAP Queue 1 item "
-                "17), not ported yet" % DENSE_MAX_NX
-            )
         if device_ok and (
             self.nx > DENSE_MAX_NX or os.environ.get("ANNCHOR_TPU_FORCE_SPARSE")
         ):
@@ -486,31 +482,42 @@ class Annchor:
             )
 
     def _budgeted_locality(self):
-        """The scale path's pair build (JAX annchor.py:475-526): an
-        explicit cap (``ANNCHOR_TPU_PAIR_CAP``, then ``pair_cap``), or for
-        metric fits the cap derived from the in-fit budget."""
+        """The scale path's pair build (JAX annchor.py:475-561): the
+        budgeted build at an explicit cap (``ANNCHOR_TPU_PAIR_CAP``, then
+        ``pair_cap``) or, for metric fits, at the cap derived from the
+        in-fit budget; non-metric fits (the triangle bound ranks nothing
+        there) and ``ANNCHOR_TPU_NO_PAIR_BUDGET`` take the
+        admit-everything build, which switches to the budgeted one at the
+        derived cap when more than ``max_resident_pairs`` pairs
+        (``ANNCHOR_TPU_MAX_RESIDENT_PAIRS``, default 10^8) are admitted.
+        ``_locality_info`` records the build taken and the admitted
+        total."""
         env_cap = os.environ.get("ANNCHOR_TPU_PAIR_CAP")
         cap = int(env_cap) if env_cap is not None else (self.pair_cap or 0)
-        if cap <= 0:
-            if not self.is_metric or os.environ.get("ANNCHOR_TPU_NO_PAIR_BUDGET"):
-                raise NotImplementedError(
-                    "non-metric fits and ANNCHOR_TPU_NO_PAIR_BUDGET take the "
-                    "admit-everything candidate_pairs_device with its "
-                    "auto-switch (ROADMAP Queue 1 item 15), not ported yet"
-                )
-            cap = max(
-                4 * self.n_neighbors,
-                int(round(
-                    self._pair_cap_factor() * self._p_work_fit * self.nx
-                    * self._mesh_scale()
-                )),
-            )
-        (
-            ij_i, ij_j, m, self.sid, self.S, self.loc_eff, self.P_cnt,
-        ) = candidate_pairs_device_budgeted(
-            self.D, self.locality, self.loc_thresh, self.loc_min, cap,
-            verbose=self.verbose, device=self.device,
+        auto_cap = max(
+            4 * self.n_neighbors,
+            int(round(
+                self._pair_cap_factor() * self._p_work_fit * self.nx * self._mesh_scale()
+            )),
         )
+        info = self._locality_info = {"build": "budgeted", "admitted": None}
+        if cap <= 0 and (not self.is_metric or os.environ.get("ANNCHOR_TPU_NO_PAIR_BUDGET")):
+            env_res = os.environ.get("ANNCHOR_TPU_MAX_RESIDENT_PAIRS")
+            if env_res is not None:
+                max_res = int(env_res)
+            else:
+                max_res = 10**8 if self.max_resident_pairs is None else self.max_resident_pairs
+            built = candidate_pairs_device(
+                self.D, self.locality, self.loc_thresh, self.loc_min,
+                verbose=self.verbose, max_resident=max_res, budget_cap=auto_cap,
+                device=self.device, info=info,
+            )
+        else:
+            built = candidate_pairs_device_budgeted(
+                self.D, self.locality, self.loc_thresh, self.loc_min,
+                cap if cap > 0 else auto_cap, verbose=self.verbose, device=self.device,
+            )
+        ij_i, ij_j, m, self.sid, self.S, self.loc_eff, self.P_cnt = built
         self._IJs = None
         self._ij_dev = (ij_i, ij_j, m)
         self._P_idx = None  # the device pipeline builds its own

@@ -13,6 +13,9 @@ under ``build/data/`` beside the package:
   ``tools/write_digits.py``), so nothing here needs sklearn; the graph
   comes from ``exact_knn`` and its cache is keyed on a hash of the
   images;
+* digits-5620: the 1,797 digits and 3,823 seeded augmentations of them
+  (``make_digits_large``), with the JAX package's exact graph, copied to
+  ``data/digits_large_gt.npz`` and checked against a hash of the images;
 * graph-sp: the seeded random clustered graph of ``make_graph`` under
   its shortest-path metric.  With the default arguments that graph has
   four isolated vertices besides its 796-vertex component, whose
@@ -28,7 +31,8 @@ import numpy as np
 
 from annchor_tpu_torch._backend import BUILD_ROOT
 
-_DIGITS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "digits.npz")
+_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+_DIGITS = os.path.join(_DATA_DIR, "digits.npz")
 
 
 def _cache_path(cache_dir, name):
@@ -205,14 +209,24 @@ def make_digits_large(n: int = 5620, seed: int = 0):
 
 
 def load_digits_large(k: int = 100):
-    """The 5620-image digits workload with its exact Wasserstein graph:
-    not ported yet.  Its hybrid fit is non-metric above 4,096 points,
-    which needs the admit-everything scale build (ROADMAP Queue 1 item
-    15); ``make_digits_large`` gives the images."""
-    raise NotImplementedError(
-        "load_digits_large: the digits-5620 hybrid waits for the admit-everything "
-        "scale build (ROADMAP Queue 1 item 15); make_digits_large gives the images"
-    )
+    """The 5620-image digits workload (``make_digits_large``) with its
+    exact Wasserstein 100-NN graph, the JAX package's data set and
+    ground truth: ``data/digits_large_gt.npz`` is a byte copy of the JAX
+    package's file, computed once with the exact EMD (about 25 minutes of
+    host solves).  Its ``xhash`` must match the digest of the images made
+    here, else the images differ from the ones it was computed on (numpy
+    does not promise its generators' streams across versions) and this
+    raises.  Returns {"X", "y", "neighbor_graph" (ngi, ngd)[:, :k],
+    "cost_matrix"}."""
+    X, y = make_digits_large()
+    g = np.load(os.path.join(_DATA_DIR, "digits_large_gt.npz"))
+    if str(g["xhash"]) != _digest(X):
+        raise ValueError(
+            "data/digits_large_gt.npz was computed on other images than "
+            "make_digits_large() gives here (image hash mismatch)"
+        )
+    return {"X": X, "y": y, "neighbor_graph": (g["ngi"][:, :k], g["ngd"][:, :k]),
+            "cost_matrix": grid_cost_matrix()}
 
 
 def make_graph(

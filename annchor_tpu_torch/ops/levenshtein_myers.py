@@ -13,6 +13,10 @@ go to the hand-written kernel (``ops/levenshtein_cuda.py``), CPU tensors
 to ``myers_pairs_plain``, the same recurrence written in PyTorch.  The
 exact oracles ``myers_knn`` and ``myers_rows`` (``exact.py``) evaluate a
 block of sources against every column as one ``myers_pairs`` call.
+
+Over more than ``MAX_ALPHABET`` distinct symbols ``MyersEncoding.from_codes``
+gives a ``RowDPEncoding`` instead, and ``myers_pairs`` (so the max-min
+loop and the oracles too) runs the row DP (K10, ``ops/levenshtein.py``).
 """
 
 from __future__ import annotations
@@ -21,13 +25,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, rowdp_pairs
 from annchor_tpu_torch.ops.pairs import row_smallest_k
 from annchor_tpu_torch.progress import progress
 
 UINT1 = np.uint32(1)
 
 # Peq tables past this many distinct symbols are the row-DP kernel's
-# domain, which is not ported yet
+# domain (K10)
 MAX_ALPHABET = 192
 
 _MASK = 0xFFFFFFFF  # a 32-bit word held in an int64 lane
@@ -129,13 +134,13 @@ class MyersEncoding:
 
     @classmethod
     def from_codes(cls, codes, lengths, device):
+        """The encoding of a padded codepoint matrix: a MyersEncoding, or
+        over more than ``MAX_ALPHABET`` distinct symbols a
+        ``RowDPEncoding`` of the codepoints (the JAX package's encoder
+        returns None there and its engine falls back to the row DP)."""
         enc = encode_alphabet(codes, lengths)
         if enc is None:
-            raise NotImplementedError(
-                "more than %d distinct symbols: the row-DP edit-distance "
-                "kernel (ROADMAP Queue 2, K10) is not ported yet"
-                % MAX_ALPHABET
-            )
+            return RowDPEncoding(codes, lengths, device)
         ids, alphabet = enc
         peq = build_peq(ids, lengths, alphabet)
         return cls(ids, lengths, peq, alphabet, device)
@@ -146,7 +151,10 @@ def myers_pairs(enc: MyersEncoding, I, J):
 
     I and J are integer tensors on the encoding's device.  A CUDA
     device launches the hand-written kernel; the plain PyTorch version
-    runs only for tensors on the CPU."""
+    runs only for tensors on the CPU.  A ``RowDPEncoding`` runs the row
+    DP (``rowdp_pairs``) the same way."""
+    if isinstance(enc, RowDPEncoding):
+        return rowdp_pairs(enc, I, J)
     if I.device != enc.device or J.device != enc.device:
         raise ValueError(
             "pair ids on %s/%s, encoding on %s"

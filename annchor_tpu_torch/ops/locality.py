@@ -9,14 +9,21 @@ product S @ S.T, and the symmetrised test is
 
     counts[i, j] >= min(eff[i], eff[j])          (i < j)
 
-Two builds are ported:
+Three builds:
 
-* the dense single-block build (``candidate_pairs``, nx <= 4096), which
-  returns the host pair list;
+* ``candidate_pairs``, the host pipeline's: the whole locality stage in
+  one block up to 4,096 points, in row blocks of 4,096 above, each
+  block's keep mask on the device and its pairs extracted there; the
+  pair list comes back to the host;
+* the scale path's admit-everything build (``candidate_pairs_device``),
+  which keeps every filter-admitted pair as int32 tensors on the device,
+  and hands over to the budgeted build when the admitted set would not
+  fit (non-metric fits, ``ANNCHOR_TPU_NO_PAIR_BUDGET``);
 * the scale path's budgeted two-pass band build
   (``candidate_pairs_device_budgeted``), which keeps each point's
-  ``per_point_cap`` smallest-lower-bound candidates and returns the pair
-  list as int32 tensors on the device.
+  ``per_point_cap`` candidates of smallest score (the triangle lower
+  bound, or with ``ANNCHOR_TPU_BUILD_SCORE=rms`` the anchor profiles'
+  RMS difference) and returns the pair list on the device.
 
 and the same counts serve the post-fit surface: the query candidates
 (``query_candidates``) and the nearest-enemy candidates
@@ -67,27 +74,37 @@ def _fused_locality(D32, locality: int, loc_min: int, loc_thresh: int):
     return S, sid, eff, keep
 
 
-def candidate_pairs(D, locality: int, loc_thresh: int, loc_min: int, device):
+def candidate_pairs(D, locality: int, loc_thresh: int, loc_min: int, device,
+                    block: int = DENSE_MAX_NX):
     """Symmetrised candidate pair list from anchor distances.
 
-    D: (nx, na) anchor distances (numpy).  Returns (IJs int32 (m, 2)
-    numpy with IJs[:,0] < IJs[:,1] in row-major order, sid, S, eff),
-    the last three as tensors on the device.
+    D: (nx, na) anchor distances (numpy).  Up to ``block`` points the
+    stage runs as one block; above, the thresholds and the keep mask run
+    in row blocks of ``block`` (the JAX package's blocked branch, whose
+    bit-packed mask and host decoder become one ``torch.nonzero`` per
+    block on the device: the same row-major pairs).  Returns (IJs int32
+    (m, 2) numpy with IJs[:,0] < IJs[:,1] in row-major order, sid, S,
+    eff), the last three as tensors on the device.
     """
     D = np.asarray(D)
     nx = D.shape[0]
-    if nx > DENSE_MAX_NX:
-        raise NotImplementedError(
-            "nx = %d > %d needs the blocked host candidate_pairs "
-            "(ROADMAP Queue 1 item 17), not ported yet" % (nx, DENSE_MAX_NX)
+    if nx <= block:
+        D32 = torch.as_tensor(D.astype(np.float32), device=device)
+        S, sid, eff, keep = _fused_locality(
+            D32, min(int(locality), int(D32.shape[1])), int(loc_min),
+            int(loc_thresh),
         )
-    D32 = torch.as_tensor(D.astype(np.float32), device=device)
-    S, sid, eff, keep = _fused_locality(
-        D32, min(int(locality), int(D32.shape[1])), int(loc_min),
-        int(loc_thresh),
-    )
-    IJs = torch.nonzero(keep).to(torch.int32).cpu().numpy()
-    return IJs, sid, S, eff
+        IJs = torch.nonzero(keep).to(torch.int32).cpu().numpy()
+        return IJs, sid, S, eff
+    S, sid = anchor_membership(D, locality, torch.device(device))
+    eff = effective_thresholds(S, loc_thresh, loc_min, block=block, locality=locality)
+    parts = []
+    for s in range(0, nx, block):
+        keep = _block_keep(S, S[s : s + block], eff[s : s + block], eff, s)
+        nz = torch.nonzero(keep)
+        nz[:, 0] += s
+        parts.append(nz.to(torch.int32).cpu().numpy())
+    return np.concatenate(parts), sid, S, eff
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +228,97 @@ def query_candidates(S_X, QD, locality: int, loc_thresh: int, block: int = 4096,
     return qd[:, 1].copy(), qd[:, 0].copy()
 
 
+def _block_keep(S, Sb, eb, eff, row_off: int):
+    """Symmetrised keep mask of a row block: keep[i, j] = counts[i, j] >=
+    min(eff[i], eff[j]) and j > i, with counts the block's shared-anchor
+    counts against every point.  (rows, nx) bool."""
+    counts = shared_anchor_counts(Sb, S)
+    thr = torch.minimum(eb[:, None], eff[None, :])
+    cols = torch.arange(S.shape[0], device=S.device)
+    rows = row_off + torch.arange(Sb.shape[0], device=S.device)
+    return (counts >= thr) & (cols[None, :] > rows[:, None])
+
+
+def _block_keep_total(S, Sb, eb, eff, row_off: int):
+    """First pass of the admit-everything build for a row block: the
+    keep mask's total, column sums and row sums (int64 tensors)."""
+    keep = _block_keep(S, Sb, eb, eff, row_off)
+    return keep.sum(), keep.sum(dim=0), keep.sum(dim=1)
+
+
+def _block_keep_extract(S, Sb, eb, eff, row_off: int):
+    """Second pass for a row block: the kept pairs as int32 (i, j) in
+    row-major order, ``jnp.flatnonzero``'s order.  ``torch.nonzero``
+    returns exactly the kept pairs, so the JAX package's capacity buckets
+    (``_cap_bucket``, one compiled shape per bucket) have no counterpart."""
+    nz = torch.nonzero(_block_keep(S, Sb, eb, eff, row_off))
+    return (nz[:, 0] + row_off).to(torch.int32), nz[:, 1].to(torch.int32)
+
+
+def candidate_pairs_device(D, locality: int, loc_thresh: int, loc_min: int,
+                           block: int = 4096, verbose: bool = False,
+                           max_resident: int | None = None,
+                           budget_cap: int | None = None, device="cpu", info=None):
+    """The admit-everything scale build: every pair the filter admits,
+    built and kept on the device (nothing O(m) touches the host).
+
+    A counting pass over row blocks comes first.  With ``max_resident``
+    and ``budget_cap`` set, an admitted set of more than ``max_resident``
+    pairs (which would not fit the fit's O(m) device state) hands the
+    membership and thresholds over to the budgeted build, keeping each
+    point's ``budget_cap`` candidates; else a second pass extracts the
+    pairs.  Blocks are halved until block * nx < 2^31, as the JAX package
+    keeps its flat block indices in int32.  ``info``, a dict, receives
+    the build taken ("admit" or "budgeted") and the admitted total.
+
+    D: (nx, na) anchor distances (numpy).  Returns (ij_i, ij_j int32
+    tensors, m, sid, S, eff tensors, P_cnt int32 numpy (nx,)); the pair
+    list is row-major, the JAX package's."""
+    D = np.asarray(D)
+    nx = D.shape[0]
+    dev = torch.device(device)
+    S, sid = anchor_membership(D, locality, dev)
+    eff = effective_thresholds(S, loc_thresh, loc_min, block=block, locality=locality)
+    nblk = min(block, nx)
+    while nblk * nx > (1 << 31) - 1 and nblk > 256:
+        nblk //= 2
+    starts = range(0, nx, nblk)
+    totals = []
+    P_cnt = torch.zeros(nx, dtype=torch.int64, device=dev)
+    for s in progress(starts, "pair-count blocks", verbose):
+        t, colcnt, rowcnt = _block_keep_total(S, S[s : s + nblk], eff[s : s + nblk], eff, s)
+        totals.append(t)
+        P_cnt += colcnt
+        P_cnt[s : s + nblk] += rowcnt
+    totals = torch.stack(totals).cpu().tolist()
+    admitted = int(sum(totals))
+    if info is not None:
+        info.update(admitted=admitted, build="admit")
+    if max_resident is not None and budget_cap is not None and admitted > max_resident:
+        # the admitted set would not fit the fit's O(m) device state
+        if verbose:
+            print("locality: %d admitted pairs > %d resident budget; switching to "
+                  "the budgeted build (cap %d per point)" % (admitted, max_resident,
+                                                            budget_cap))
+        if info is not None:
+            info["build"] = "budgeted"
+        return candidate_pairs_device_budgeted(
+            D, locality, loc_thresh, loc_min, budget_cap, block=block, verbose=verbose,
+            device=dev, _pre=(S, sid, eff))
+    parts_i, parts_j = [], []
+    for s, t in progress(list(zip(starts, totals)), "pair-extract blocks", verbose):
+        if t:
+            bi, bj = _block_keep_extract(S, S[s : s + nblk], eff[s : s + nblk], eff, s)
+            parts_i.append(bi)
+            parts_j.append(bj)
+    if parts_i:
+        ij_i, ij_j = torch.cat(parts_i), torch.cat(parts_j)
+    else:
+        ij_i = torch.zeros(0, dtype=torch.int32, device=dev)
+        ij_j = torch.zeros(0, dtype=torch.int32, device=dev)
+    return ij_i, ij_j, admitted, sid, S, eff, P_cnt.cpu().numpy().astype(np.int32)
+
+
 def _band_linf(Db, Dc):
     """(B, C) triangle lower bounds max_k |Db[i,k] - Dc[j,k]| in float32.
     The (B, cols, na) broadcast runs over column slices of at most
@@ -229,6 +337,30 @@ def _band_linf(Db, Dc):
     return out
 
 
+def _band_score(Db, Dc, score: str):
+    """(B, C) ranking score of a band-vs-chunk block: "linf", the triangle
+    lower bound max_k |Db[i,k] - Dc[j,k]|, or "rms", the anchor profiles'
+    RMS difference sqrt(max(|a|^2 + |b|^2 - 2ab, 0) / na), in the same
+    [0, 2 Dmax] range but in matmul form (the JAX package's ``_band_score``).
+
+    The rms products and squared norms are float64 products of the
+    float32 values, each rounded once to float32, as the Sinkhorn scout's
+    are: no TF32 setting reaches a float64 product, and its value does
+    not depend on the order of the sum, so the card and the CPU agree bit
+    for bit.  The JAX package sums in float32, so its panel differs from
+    this one in the last bits, and after the cancellation in l2sq by up to
+    about sqrt(eps * (|a|^2 + |b|^2) / na)."""
+    if score == "linf":
+        return _band_linf(Db, Dc)
+    na = Db.shape[1]
+    D64, C64 = Db.double(), Dc.double()
+    cross = (D64 @ C64.T).float()
+    sq_r = (D64 * D64).sum(dim=1).float()
+    sq_c = (C64 * C64).sum(dim=1).float()
+    l2sq = sq_r[:, None] + sq_c[None, :] - 2.0 * cross
+    return torch.sqrt(torch.clamp(l2sq, min=0.0) / float(np.float32(na)))
+
+
 def _band_admitted(Sb, Sc, eb, ec, rows, c0: int, nx: int, upper: bool):
     """Filter-admitted mask of a band-vs-chunk block: shared-anchor
     count >= min(eff_row, eff_col), off the diagonal (``upper``: strictly
@@ -243,11 +375,12 @@ def _band_admitted(Sb, Sc, eb, ec, rows, c0: int, nx: int, upper: bool):
 
 
 def _band_bins_sym(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin,
-                   nbins: int, cchunk: int):
-    """int16 (B, nxp) binned triangle lower bounds of a row band against
-    every column, symmetric admitted view; the sentinel ``nbins`` marks
-    non-candidates.  ``inv_bin`` is a float32 0-d tensor: the product
-    lb * inv_bin is rounded to float32, then truncated to int32."""
+                   nbins: int, cchunk: int, score: str = "linf"):
+    """int16 (B, nxp) binned ranking scores (``_band_score``) of a row
+    band against every column, symmetric admitted view; the sentinel
+    ``nbins`` marks non-candidates.  ``inv_bin`` is a float32 0-d tensor:
+    the product lb * inv_bin is rounded to float32, then truncated to
+    int32."""
     B = Sb.shape[0]
     nxp = Sp.shape[0]
     rows = row_off + torch.arange(B, device=Sb.device)
@@ -255,7 +388,7 @@ def _band_bins_sym(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin,
     for c0 in range(0, nxp, cchunk):
         c1 = c0 + cchunk
         adm = _band_admitted(Sb, Sp[c0:c1], eb, effp[c0:c1], rows, c0, nx, upper=False)
-        lb = _band_linf(Db, D32p[c0:c1])
+        lb = _band_score(Db, D32p[c0:c1], score)
         b = (lb * inv_bin).to(torch.int32).clamp_(0, nbins - 1)
         out[:, c0:c1] = torch.where(adm, b, nbins).to(torch.int16)
     return out
@@ -280,9 +413,9 @@ def _band_thr_from_bins(BINs, cap: int, bin_w, nbins: int):
 
 
 def _band_keep2_dense(D32p, Sp, Sb, Db, eb, effp, thr_all, row_off: int, nx: int,
-                      cchunk: int):
+                      cchunk: int, score: str = "linf"):
     """Pass-2 keep mask of a row band: upper-triangular admitted pairs
-    whose lower bound is under either endpoint's threshold.  Returns
+    whose score is under either endpoint's threshold.  Returns
     (keep (B, nxp) bool, rowcnt (B,), colcnt (nxp,))."""
     B = Sb.shape[0]
     nxp = Sp.shape[0]
@@ -292,7 +425,7 @@ def _band_keep2_dense(D32p, Sp, Sb, Db, eb, effp, thr_all, row_off: int, nx: int
     for c0 in range(0, nxp, cchunk):
         c1 = c0 + cchunk
         adm = _band_admitted(Sb, Sp[c0:c1], eb, effp[c0:c1], rows, c0, nx, upper=True)
-        lb = _band_linf(Db, D32p[c0:c1])
+        lb = _band_score(Db, D32p[c0:c1], score)
         keep[:, c0:c1] = adm & (
             lb <= torch.maximum(thr_rows[:, None], thr_all[None, c0:c1])
         )
@@ -322,11 +455,17 @@ def candidate_pairs_device_budgeted(
     nbins: int = 256,
     verbose: bool = False,
     device="cpu",
+    _pre=None,
 ):
     """Two-pass band build of the budgeted candidate set: every point
-    keeps its ``per_point_cap`` smallest-lower-bound admitted candidates
+    keeps its ``per_point_cap`` admitted candidates of smallest score
     (bin-conservative), and a pair is tracked if it is under either
-    endpoint's threshold.
+    endpoint's threshold.  The score is ``ANNCHOR_TPU_BUILD_SCORE``:
+    "linf" (the default, the triangle lower bound) or "rms" (on 8,192
+    bins: the RMS statistic concentrates with the anchor count, and 256
+    bins admitted far past the cap in the JAX package's measurements).
+    ``_pre`` = (S, sid, eff) from the admit-everything build's counting
+    pass skips the membership and thresholds.
 
     Pass 1 bins each row band's triangle lower bounds (symmetric view,
     so a row sees every admitted partner) and derives each point's
@@ -338,16 +477,19 @@ def candidate_pairs_device_budgeted(
     tensors, m, sid, S, eff tensors, P_cnt int32 numpy (nx,)); the pair
     list is row-major, as the JAX package's."""
     score = os.environ.get("ANNCHOR_TPU_BUILD_SCORE", "linf")
+    if score not in ("linf", "rms"):
+        # the JAX package takes linf for any other value, unannounced
+        raise ValueError("ANNCHOR_TPU_BUILD_SCORE must be 'linf' or 'rms', got %r" % score)
     if score == "rms":
-        raise NotImplementedError(
-            "ANNCHOR_TPU_BUILD_SCORE=rms (the matmul-form ranking score) "
-            "is ROADMAP Queue 1 item 16, not ported yet"
-        )
+        nbins = max(nbins, 8192)
     D = np.asarray(D)
     nx = D.shape[0]
     dev = torch.device(device)
-    S, sid = anchor_membership(D, locality, dev)
-    eff = effective_thresholds(S, loc_thresh, loc_min, block=block, locality=locality)
+    if _pre is not None:
+        S, sid, eff = _pre
+    else:
+        S, sid = anchor_membership(D, locality, dev)
+        eff = effective_thresholds(S, loc_thresh, loc_min, block=block, locality=locality)
     D32 = torch.as_tensor(D.astype(np.float32), device=dev)
     lb_max = float(2.0 * D.max()) + 1e-6
     inv_bin = torch.tensor(np.float32(nbins / lb_max), device=dev)
@@ -374,7 +516,8 @@ def candidate_pairs_device_budgeted(
     thr = torch.empty(nxp, dtype=torch.float32, device=dev)
     for s in progress(range(0, nxp, nblk), "pair-budget pass 1", verbose):
         Sb, Db, eb = band(s)
-        BINs = _band_bins_sym(D32p, Sp, Sb, Db, eb, effp, s, nx, inv_bin, nbins, cchunk)
+        BINs = _band_bins_sym(D32p, Sp, Sb, Db, eb, effp, s, nx, inv_bin, nbins, cchunk,
+                              score)
         thr[s : s + nblk] = _band_thr_from_bins(BINs, int(per_point_cap), bin_w, nbins)
         del BINs
 
@@ -384,7 +527,7 @@ def candidate_pairs_device_budgeted(
     for s in progress(range(0, nxp, nblk), "pair-budget pass 2", verbose):
         Sb, Db, eb = band(s)
         keep, rowcnt, colcnt = _band_keep2_dense(
-            D32p, Sp, Sb, Db, eb, effp, thr, s, nx, cchunk
+            D32p, Sp, Sb, Db, eb, effp, thr, s, nx, cchunk, score
         )
         P_cnt += colcnt
         P_cnt[s : s + nblk] += rowcnt

@@ -9,9 +9,9 @@ against the exact graph from the port's own ``BruteForce``.  Phases, each
 of which exits non-zero when it fails:
 
 1. device: the card's name and power limit, and the build of every
-   kernel of the path from the sources in this checkout, with ptxas's
-   registers and spills for each instantiation, and the build of the
-   host EMD solver (g++);
+   kernel from the sources in this checkout (K1, K10 and the host EMD
+   solver, one compiler process each, started together), with ptxas's
+   registers and spills for each instantiation;
 2. kernel check: the CUDA edit-distance kernel (K1), in each launch mode
    (auto, thread, group), against its plain PyTorch version, bit for
    bit, on 82,180 pairs (empty strings, word boundaries, alphabets
@@ -21,10 +21,14 @@ of which exits non-zero when it fails:
    under ``torch.cuda.set_sync_debug_mode("error")`` on strings-1600
    and on it with one 2,100-character string, then against the
    pure-Python DP on 64 sampled strings-1600 pairs, then a small fit on
-   the card against the same fit on the CPU; then the hybrid's certify
-   dispatch (the Sinkhorn scout's values of 40,000 digit pairs queued on
-   the card) under ``set_sync_debug_mode("error")``, its values against
-   the same engine on the CPU;
+   the card against the same fit on the CPU; K10, the row-DP kernel,
+   against its plain version bit for bit on 42,000 pairs over 193, 256
+   and 1,000 symbols (empty strings, lengths 1-2,100, both argument
+   orders) under ``set_sync_debug_mode("error")``, and 64 of them against
+   the pure-Python DP; then the hybrid's certify dispatch (the Sinkhorn
+   scout's values of 40,000 digit pairs queued on the card) under
+   ``set_sync_debug_mode("error")``, its values against the same engine
+   on the CPU;
 3. exact graph: ``BruteForce`` on strings-1600 (1,279,200 pairs);
 4. fit: one warm-up fit, then one timed fit with the stage table, which
    must launch K1 and stay within the evaluation budget; then the same
@@ -50,7 +54,9 @@ of which exits non-zero when it fails:
 7. a Python-callable metric: an L1 closure evaluated on host threads
    with the fit's state on the card, held to the JAX package's figures;
 8. the host pipeline (a custom sampler): the strings-1600 fit, which
-   must launch K1 and spend exactly the JAX package's evals;
+   must launch K1 and spend exactly the JAX package's evals; (b) the
+   same on the 5,000 strings of phase 9(a), above 4,096 points (the
+   blocked host pair build), held to the JAX package's evals;
 9. the scale path (nx > 4096: budgeted band build, sparse fit state,
    column tighten, graph-expansion refinement), K1 first held against
    its plain version on 20,000 pairs of each corpus: (a) a 5,000-string
@@ -58,7 +64,13 @@ of which exits non-zero when it fails:
    errors; (b) the default-constructor fit of 100,000 evolve strings of
    ~400 characters, which must run in sparse mode, launch K1, stay
    within int(p_work * N) evals and reach distance recall >= 0.99 over
-   500 exact rows from ``exact_rows`` (K1) before the fit;
+   500 exact rows from ``exact_rows`` (K1) before the fit; its
+   refinement screens on the card (each round's ``screen_dev_s`` and
+   host split printed), and one more round on the fitted index holds the
+   device screen's slates to the host screen's, bit for bit; (c) the
+   5,000-string fit under ``ANNCHOR_TPU_BUILD_SCORE=rms`` within its
+   budget and the JAX test's family bound of (a)'s errors, and one
+   (4096, 2048, 96) band chunk's score timed under linf and rms;
 10. serve, the post-fit surface, held to the JAX package's figures
    pinned at the top of the script: (a) ``query`` of 1,000 mutated
    strings against phase 4's JAX-stream fit, scored over their exact
@@ -88,11 +100,25 @@ of which exits non-zero when it fails:
    on the first 300 digits: neighbour-set recall >= 0.9 against the exact
    graph; (d) graph-sp on the 796-vertex component of ``make_graph()``
    with the JAX sample stream, which must spend the JAX package's evals
-   and score no more errors against the exact graph.
+   and score no more errors against the exact graph;
+12. the admit-everything build and the row DP: (a) the digits-5620
+   scout/certify hybrid (``load_digits_large()``, BENCHMARKS.md's
+   ``digits_large`` protocol, ``n_anchors=30, n_neighbors=25,
+   p_work=0.1``, the JAX sample stream), non-metric above 4,096 points so
+   built by ``candidate_pairs_device``, held to the JAX package's pinned
+   calls and errors against the stored exact graph, every reported
+   distance the exact EMD to 1e-9; timed with the stage table, then under
+   ``torch.profiler``; (b) the same fit with ``max_resident_pairs`` at
+   half its admitted total, which must switch to the budgeted build; (c)
+   strings-1600 over 256 code points (phase 4's arguments, the JAX sample
+   stream), every evaluation on K10: the JAX package's evals, no more
+   errors than its against a BruteForce on K10; then K10 at the refine
+   batch's shape beside its plain version and its bound.
 
 K1's launches, in all and per mode, are counted in the fits of phases
 4, 8 and 9, in the calls of phase 10 (a), (b), (d) and (e) and in phase
-11(a)'s ``exact_knn``, each with the counts set to 0 just before it.
+11(a)'s ``exact_knn``, K10's in phase 12(c)'s fit, each with the counts
+set to 0 just before it.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to build/chip_smoke.json.
@@ -109,6 +135,9 @@ import time
 
 N_NEIGHBORS = 25
 P_WORK = 0.12
+# 256 code points (U+0100-U+01FF): strings-1600 over more than 192 symbols,
+# the row-DP kernel's domain (phase 12(c))
+ALPHA256 = "".join(map(chr, range(0x100, 0x200)))
 # The JAX package's fit of this synthetic set (annchor_tpu.Annchor with
 # the same arguments, on the CPU): its evals and its errors against the
 # exact graph.  The set's star-shaped clusters put every intra-cluster
@@ -202,6 +231,36 @@ SINKHORN_MIN_RECALL = 0.9
 # p_work=0.15, random_seed=42: 52,672 evals, 39 errors against BruteForce
 GRAPH_EVALS = 52_672
 GRAPH_ERRORS = 39
+# Phases 8(b) and 9(c), from ``tools/pin_lev_figures.py --stage strings5k``
+# (annchor_tpu on the CPU, phase 9(a)'s data and arguments, errors against
+# the exact 15-NN graph): (8b) with a do-nothing sampler subclass, the
+# host pipeline above 4,096 points, 624,875 evals over 1,415,065
+# candidate pairs, 9 errors; its host tighten stops after 10 s of wall
+# clock (ROADMAP H5), so a faster run may find another graph: evals must
+# be equal, errors are held to a coarse bound.  (9c) under
+# ANNCHOR_TPU_BUILD_SCORE=rms: 624,875 evals over 539,622 tracked pairs,
+# 139 errors; the card's rms panel differs from XLA's in the last bits
+# (``ops/locality._band_score``), so its errors are held to the JAX test's
+# family bound of the linf fit (tests/test_scale_path.py:836).
+HOST5K_EVALS = 624_875
+HOST5K_ERRORS = 9
+RMS5K_EVALS = 624_875
+RMS5K_ERRORS = 139
+# Phase 12(c), from ``tools/pin_lev_figures.py --stage alpha256``:
+# strings-1600 over 256 code points with phase 4's arguments, every
+# evaluation on the row DP: 158,716 evals, 1,969 errors against the exact
+# 25-NN graph (the star clusters' narrow band of distances, as on ACGT).
+ALPHA256_EVALS = 158_716
+ALPHA256_ERRORS = 1_969
+# Phase 12(a), from ``tools/pin_hybrid_figures.py --stage digits-large``:
+# the digits-5620 hybrid against the stored exact graph, run with the
+# reference's own loc_thresh 1 and niters 2 (the knobs its digits_large
+# protocol was defined under, reference doc/user_guide.rst:262-270): the
+# constructor's defaults above 4,096 points (loc_thresh 3, niters 4)
+# admit 2,434,931 pairs and leave the JAX package at 62 errors (126,859
+# exact, 2,208,753 scout calls), over the contract's 10.
+DIGITS5620_KNOBS = {"loc_thresh": 1, "niters": 2}
+DIGITS5620 = {"evals": 120_902, "scout_evals": 2_171_905, "m": 10_479_208, "errors": 1}
 
 # K1's bound: a word step (one 32-bit pattern word advanced by one text
 # character) is at least 10 INT32 instructions (the add with carry in and
@@ -209,6 +268,10 @@ GRAPH_ERRORS = 39
 # SMs x 64 INT32 lanes x 1.98 GHz of them a second, and moves 3.35e12
 # bytes/s.
 K1_OPS_PER_STEP = 10
+# K10's bound: a row-DP cell is about 5 INT32 operations (two adds, the
+# character compare folded into the diagonal's cost, two mins;
+# csrc/levenshtein_rowdp.cu), at the same rate
+K10_OPS_PER_CELL = 5
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 # K1 through the wrapper before its redesign (one thread per pair, pairs
@@ -298,20 +361,20 @@ def _card(torch):
     return smi
 
 
-def _ptxas(K1):
+def _ptxas(kernel):
     """Registers and spills of each kernel instantiation, from ptxas -v
     in the build log: {"k1_group<32,1,1>": (registers, spill stores,
     spill loads)}."""
     import re
 
     table, name, spill = {}, None, (0, 0)
-    for line in K1.build_log.splitlines():
+    for line in kernel.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            kind = re.search(r"k1_(thread|group|long)", m.group(1))
+            kind = re.search(r"(k1_thread|k1_group|k1_long|k10_rowdp)", m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
-            name = "k1_%s%s" % (kind.group(1) if kind else "?",
-                                "<%s>" % ",".join(args) if args else "")
+            name = "%s%s" % (kind.group(1) if kind else "?",
+                             "<%s>" % ",".join(args) if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = (int(m.group(1)), int(m.group(2)))
@@ -450,6 +513,61 @@ def _check_oracle(torch, np, X):
     print("  K1 vs scalar oracle: 64 strings-1600 pairs equal", flush=True)
 
 
+def _check_k10(torch, np):
+    """K10, the row-DP kernel, against its plain version on CUDA tensors,
+    bit for bit: 7,000 pairs over each of 193, 256 and 1,000 symbols
+    (empty strings, lengths 1-2,100), in both argument orders, each call
+    under ``torch.cuda.set_sync_debug_mode("error")``; then 64 of them
+    against the pure-Python DP.  Returns (pairs compared, max |K10 -
+    plain|)."""
+    from annchor_tpu_torch.ops.levenshtein import (
+        RowDPEncoding,
+        encode_strings,
+        lev_pairs_plain,
+        levenshtein_scalar,
+    )
+    from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding
+    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import rowdp_pairs_cuda
+
+    rng = np.random.default_rng(2)
+    total = worst = 0
+    hits = []
+    for size, nscalar in ((193, 22), (256, 21), (1000, 21)):
+        alphabet = [chr(0x100 + i) for i in range(size)]
+        lens = np.concatenate([[0, 0, 1, 2, 2100], rng.integers(1, 601, 295)])
+        strs = ["".join(rng.choice(alphabet, size=int(k))) for k in lens]
+        enc = MyersEncoding.from_codes(*encode_strings(strs), "cuda")
+        if not isinstance(enc, RowDPEncoding):
+            raise SystemExit("%d symbols did not give the row DP's encoding" % size)
+        I = torch.as_tensor(rng.integers(0, len(strs), 7000), device="cuda")
+        J = torch.as_tensor(rng.integers(0, len(strs), 7000), device="cuda")
+        I[:5], J[:5] = torch.arange(5, device="cuda"), torch.tensor([1, 0, 4, 4, 0],
+                                                                    device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = rowdp_pairs_cuda(enc.ids, enc.lengths, I, J, enc.lmax)
+            swapped = rowdp_pairs_cuda(enc.ids, enc.lengths, J, I, enc.lmax)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = lev_pairs_plain(enc, I, J)
+        err = max(int((got.long() - want.long()).abs().max()),
+                  int((swapped.long() - want.long()).abs().max()))
+        print("  K10 vs plain  %4d symbols, lengths 0-%d, pairs=%d x 2 orders, no sync: "
+              "max|diff|=%d" % (size, int(lens.max()), I.shape[0], err), flush=True)
+        if err:
+            raise SystemExit("K10 disagrees with its plain version (%d symbols)" % size)
+        worst = max(worst, err)
+        total += 2 * int(I.shape[0])
+        for k in rng.choice(I.shape[0], nscalar, replace=False):
+            i, j = int(I[k]), int(J[k])
+            hits.append(int(got[k]) == levenshtein_scalar(strs[i], strs[j]))
+    if not all(hits) or len(hits) != 64:
+        raise SystemExit("K10 disagrees with the pure-Python DP")
+    print("  K10 vs scalar oracle: %d pairs equal" % len(hits), flush=True)
+    return total, worst
+
+
 def _check_small_fit(torch, np):
     """A small fit on the card equals the same fit on the CPU."""
     from annchor_tpu_torch import Annchor
@@ -552,15 +670,15 @@ def _device_profile(torch, fn, scope=None):
     ``device_ms`` and ``kernels`` in all; ``k1_device_ms`` and
     ``k1_kernels`` (K1's launches); for the ``record_function`` ranges
     named ``scope``, the ``scope_device_ms`` and ``scope_kernels`` of the
-    kernels launched inside them and their ``scope_span_ms`` on the card's
-    timeline (idle gaps included; the profiler mirrors each range as a
-    device-side annotation, counted here as the span, not as a kernel);
-    ``top``, the five kernels that take the most time [(name, ms,
-    count)].  Device times sum the kernels' own spans."""
+    kernels that run inside their mirrors on the card's timeline and
+    those mirrors' ``scope_span_ms`` (idle gaps included; a mirror is
+    counted as the span, not as a kernel); ``top``, the five kernels that
+    take the most time [(name, ms, count)].  Device times sum the
+    kernels' own spans.  The profiler's raw events are read directly:
+    turning them into its FunctionEvent trees (``prof.events()``) takes
+    minutes at the digits-5620 hybrid's ~670,000 kernels."""
+    import numpy as np
     from torch.profiler import ProfilerActivity, profile
-
-    def kernels(e):
-        return len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -568,29 +686,38 @@ def _device_profile(torch, fn, scope=None):
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    dev_us = dev_n = scope_us = scope_n = span_us = k1_us = k1_n = 0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name == scope:
-            span_us += e.time_range.elapsed_us()
-        elif e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            dev_us += us
-            dev_n += 1
-            if "k1_" in e.name:
-                k1_us += us
-                k1_n += 1
-            row = by_name.setdefault(e.name[:60], [0.0, 0])
-            row[0] += us / 1e3
-            row[1] += 1
-        elif e.name == scope:
-            scope_us += e.device_time_total
-            scope_n += kernels(e)
+    cuda = torch.autograd.DeviceType.CUDA
+    starts, durs, spans, by_name = [], [], [], {}
+    k1_us = k1_n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        name = e.name()
+        if name == scope:
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            continue
+        us = e.duration_ns() / 1e3
+        starts.append(e.start_ns())
+        durs.append(us)
+        if "k1_" in name:
+            k1_us += us
+            k1_n += 1
+        row = by_name.setdefault(name[:60], [0.0, 0])
+        row[0] += us / 1e3
+        row[1] += 1
+    starts = np.asarray(starts, dtype=np.int64)
+    durs = np.asarray(durs, dtype=np.float64)
+    spans = np.asarray(sorted(spans), dtype=np.int64).reshape(-1, 2)
+    inside = np.zeros(starts.shape[0], dtype=bool)
+    if spans.shape[0]:
+        at = np.searchsorted(spans[:, 0], starts, side="right") - 1
+        inside = (at >= 0) & (starts < spans[np.maximum(at, 0), 1])
     top = sorted(((k, v[0], v[1]) for k, v in by_name.items()), key=lambda r: -r[1])[:5]
-    return {"wall_s": wall, "device_ms": dev_us / 1e3, "kernels": dev_n,
+    return {"wall_s": wall, "device_ms": float(durs.sum()) / 1e3, "kernels": int(durs.size),
             "k1_device_ms": k1_us / 1e3, "k1_kernels": k1_n,
-            "scope_device_ms": scope_us / 1e3, "scope_kernels": scope_n,
-            "scope_span_ms": span_us / 1e3, "top": top}
+            "scope_device_ms": float(durs[inside].sum()) / 1e3,
+            "scope_kernels": int(inside.sum()),
+            "scope_span_ms": float((spans[:, 1] - spans[:, 0]).sum()) / 1e6, "top": top}
 
 
 def _kernel_ms(torch, enc, I, J, mode, reps):
@@ -792,17 +919,15 @@ def _recall(np, ngi, rows, R, k):
     return hits / total, d_hits / total
 
 
-def _scale_path(torch, np, att, K1, report, big_X):
+def _scale_path(torch, np, att, K1, report, big_X, X, y5, gt5):
     """Phase 9: the scale path on the card, with K1 held against its
-    plain version on each corpus first.  ``big_X`` is the 100k corpus.
-    Returns (K1's launches per mode in the two fits, max |K1 - plain|,
-    (the 5,000 strings, their cluster ids, their fit), the 100k fit)."""
-    from annchor_tpu_torch.datasets import make_strings
+    plain version on each corpus first.  ``big_X`` is the 100k corpus,
+    ``X`` the 5,000 strings, ``y5`` their cluster ids and ``gt5`` their
+    exact graph.  Returns (K1's launches per mode in the fits of (a) and
+    (b), max |K1 - plain|, (the 5,000 strings, their cluster ids, their
+    fit), the 100k fit)."""
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
 
-    X, y5 = make_strings(n=5000, n_clusters=16, length=200, mutation_rate=0.01,
-                         seed=42, evolve=True)
-    X = list(X)
     rng = np.random.default_rng(9)
     worst = _k1_against_plain(torch, np, "strings-5000", X, 20_000, rng)
     K1.reset_counts()
@@ -811,8 +936,7 @@ def _scale_path(torch, np, att, K1, report, big_X):
         uniforms=jax_threefry_uniforms)
     launches = K1.launches
     modes = dict(K1.mode_launches)
-    errors = att.compare_neighbor_graphs(
-        ann.neighbor_graph, _bruteforce_graph(att, X, "levenshtein"), 15)
+    errors = att.compare_neighbor_graphs(ann.neighbor_graph, gt5, 15)
     report.update(scale5k_evals=int(ann.evals), scale5k_errors=int(errors),
                   scale5k_m=int(ann._ij_dev[2]), scale5k_k1_launches=launches)
     print("  (a) 5,000 strings: %.3f s, m %d, %d evals (JAX package: %d), %d errors "
@@ -823,6 +947,7 @@ def _scale_path(torch, np, att, K1, report, big_X):
         raise SystemExit("the 5,000-string fit did not run the sparse path on K1")
     if ann.evals != SCALE5K_EVALS or errors > SCALE5K_ERRORS:
         raise SystemExit("the 5,000-string fit differs from the JAX package's figures")
+    _rms_build(torch, np, att, report, X, gt5, ann)
 
     X5 = X
     X = big_X
@@ -872,7 +997,88 @@ def _scale_path(torch, np, att, K1, report, big_X):
     ngi, ngd = big.neighbor_graph
     if ngi.shape != (len(X), 15) or not np.isfinite(ngd).all():
         raise SystemExit("graph of shape %s or with non-finite distances" % (ngi.shape,))
+    rounds = [st for st in big._refine_stats if st["stage"].startswith("round")]
+    for st in big._refine_stats:
+        print("    refine %s" % {k: v for k, v in st.items()}, flush=True)
+    if not rounds or not all("screen_dev_s" in st for st in rounds):
+        raise SystemExit("the 100,000-string fit's refinement did not screen on the card")
+    report["scale100k_slates"] = _slates_check(torch, np, big)
     return {m: modes[m] + big_modes[m] for m in modes}, worst, (X5, y5, ann), big
+
+
+def _rms_build(torch, np, att, report, X, gt5, lin):
+    """Phase 9(c): the strings-5000 fit of (a) under
+    ANNCHOR_TPU_BUILD_SCORE=rms, held to the budget and to the JAX test's
+    family bound of the linf fit ``lin``'s errors; then one (4096, 2048,
+    96) band chunk's score under linf and rms, by CUDA events."""
+    from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+    from annchor_tpu_torch.ops.locality import _band_score
+
+    os.environ["ANNCHOR_TPU_BUILD_SCORE"] = "rms"
+    try:
+        rms, wall = _timed_fit(torch, att, X, "levenshtein", n_neighbors=15, p_work=0.05,
+                               random_seed=42, uniforms=jax_threefry_uniforms)
+    finally:
+        del os.environ["ANNCHOR_TPU_BUILD_SCORE"]
+    err_l = att.compare_neighbor_graphs(gt5, lin.neighbor_graph, 15)
+    err_r = att.compare_neighbor_graphs(gt5, rms.neighbor_graph, 15)
+    bound = max(2 * err_l, err_l + 20)
+    budget = int(rms.p_work * rms.N)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Db = torch.rand((4096, 96), generator=gen, device="cuda") * 400
+    Dc = torch.rand((2048, 96), generator=gen, device="cuda") * 400
+    chunk = {score: _time(torch, lambda score=score: _band_score(Db, Dc, score), 20)
+             for score in ("linf", "rms")}
+    report["rms5k"] = {"fit_s": wall, "evals": int(rms.evals), "m": int(rms._ij_dev[2]),
+                       "errors": int(err_r), "linf_errors": int(err_l),
+                       "band_chunk_ms": chunk}
+    print("  (c) strings-5000 under ANNCHOR_TPU_BUILD_SCORE=rms: %.3f s, m %d (linf %d), "
+          "%d evals of %d allowed (JAX package: %d), %d errors (JAX package: %d; the linf "
+          "fit's %d, bound %d); one (4096, 2048, 96) band chunk's score: linf %.3f ms, "
+          "rms %.3f ms" % (wall, rms._ij_dev[2], lin._ij_dev[2], rms.evals, budget,
+                           RMS5K_EVALS, err_r, RMS5K_ERRORS, err_l, bound, chunk["linf"],
+                           chunk["rms"]), flush=True)
+    if rms.evals > budget or err_r > bound or rms._dev is None or not rms._dev.sparse:
+        raise SystemExit("the rms build's fit failed its checks")
+
+
+def _slates_check(torch, np, big):
+    """Phase 9(b): one more refinement round of the fitted 100k index
+    (its state put back after), in which the device screen's slates are
+    held against the host screen's on the same inputs, bit for bit."""
+    from annchor_tpu_torch import refine
+
+    seen = {}
+    dev_screen = refine._screen_blocks_dev
+
+    def both(gi, gd, kth, pool_keys, nx, kk, q, device):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lq, ubq = dev_screen(gi, gd, kth, pool_keys, nx, kk, q, device)
+        seen["dev_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        lq_h, ubq_h = refine._screen_host(gi, gd, kth, pool_keys, nx, kk, q)
+        seen["host_s"] = time.perf_counter() - t
+        seen.update(shape=list(lq.shape), pool=int(pool_keys.shape[0]),
+                    equal=bool(np.array_equal(lq, lq_h)
+                               and np.array_equal(ubq.view(np.int32), ubq_h.view(np.int32))),
+                    admitted=int(np.isfinite(ubq).sum()))
+        return lq, ubq
+
+    fitted = (big.neighbor_graph, big._ng_exact, big.evals, big._refine_stats)
+    refine._screen_blocks_dev = both
+    try:
+        big.refine_neighbor_graph(rounds=1, budget=200_000)
+    finally:
+        refine._screen_blocks_dev = dev_screen
+        big.neighbor_graph, big._ng_exact, big.evals, big._refine_stats = fitted
+    print("  (b) one refinement round's slates on the fitted index: (%d, %d) over a pool "
+          "of %d pairs, %d admitted; device screen %.3f s, host screen %.3f s; bit-equal %s"
+          % (*seen["shape"], seen["pool"], seen["admitted"], seen["dev_s"], seen["host_s"],
+             seen["equal"]), flush=True)
+    if not seen.get("equal"):
+        raise SystemExit("the device screen's slates differ from the host screen's")
+    return seen
 
 
 @contextlib.contextmanager
@@ -1318,6 +1524,156 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
     return modes
 
 
+def _digits5620(torch, np, att, report):
+    """Phase 12(a) and (b): the digits-5620 scout/certify hybrid on the
+    admit-everything build, against the stored exact graph; then the same
+    fit with ``max_resident_pairs`` under its admitted total, which must
+    switch to the budgeted build."""
+    from annchor_tpu_torch import native
+    from annchor_tpu_torch.datasets import load_digits_large
+    from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+
+    d = load_digits_large()
+    X, M = d["X"], d["cost_matrix"]
+    gt = (d["neighbor_graph"][0][:, :N_NEIGHBORS], d["neighbor_graph"][1][:, :N_NEIGHBORS])
+    kw = dict(func_kwargs={"cost_matrix": M, "scout": "sinkhorn"}, n_anchors=30,
+              n_neighbors=N_NEIGHBORS, p_work=0.1, random_seed=42,
+              uniforms=jax_threefry_uniforms, device="cuda", **DIGITS5620_KNOBS)
+    pin = DIGITS5620
+    out = report["digits5620"] = {"jax_cpu": pin, "fits": []}
+
+    def check(ann, run, row):
+        errors = att.compare_neighbor_graphs(gt, ann.neighbor_graph, N_NEIGHBORS)
+        ngi, ngd = ann.neighbor_graph
+        exact = native.emd_batch(X, X, M, np.repeat(np.arange(len(X)), N_NEIGHBORS),
+                                 ngi.reshape(-1))
+        row.update(run=run, evals=int(ann.evals), scout_evals=int(ann.scout_evals),
+                   errors=int(errors), m=int(ann._ij_dev[2]), locality=ann._locality_info,
+                   max_abs_err_reported=float(np.abs(exact - ngd.reshape(-1)).max()))
+        out["fits"].append(row)
+        print("  (%s) digits-5620 hybrid (%s): %.3f s wall, build %s, m %d of %d admitted, "
+              "%d exact calls (JAX package on a CPU: %d), %d scout calls (%d), %d errors "
+              "(%d; contract < %d), reported distances within %.3g of the exact EMD, host "
+              "EMD %.3f s in %d calls%s" % (
+                  "b" if run == "switched" else "a", run, row["wall_s"],
+                  row["locality"]["build"], row["m"], row["locality"]["admitted"],
+                  ann.evals, pin["evals"], ann.scout_evals, pin["scout_evals"], errors,
+                  pin["errors"], DIGITS_MAX_ERRORS, row["max_abs_err_reported"],
+                  row["host_emd_s"], row["host_emd_calls"],
+                  "" if "device_ms" not in row else "; device %.3f ms in %d kernels, the "
+                  "Sinkhorn scout %.3f ms in %d kernels over a %.3f ms span of the card's "
+                  "timeline" % (row["device_ms"], row["kernels"], row["scope_device_ms"],
+                                row["scope_kernels"], row["scope_span_ms"])), flush=True)
+        if row["max_abs_err_reported"] > 1e-9 or not ann._scouting:
+            raise SystemExit("(12) a reported distance is not the exact EMD")
+        if ngi.shape != (len(X), N_NEIGHBORS):
+            raise SystemExit("(12) graph of shape %s" % (ngi.shape,))
+        return errors
+
+    for run in ("timed", "profiled", "switched"):
+        extra = {"max_resident_pairs": pin["m"] // 2} if run == "switched" else {}
+        ann = att.Annchor(X, "wasserstein", verbose=run == "timed", **kw, **extra)
+        emd = {"s": 0.0, "calls": 0}
+        exact_eval = ann._exact_eval
+
+        def timed_exact(f, X_, IJ, exact_eval=exact_eval, emd=emd):
+            t = time.perf_counter()
+            try:
+                return exact_eval(f, X_, IJ)
+            finally:
+                emd["s"] += time.perf_counter() - t
+                emd["calls"] += len(IJ)
+
+        ann._exact_eval = timed_exact
+        if run == "profiled":
+            row = _device_profile(torch, ann.fit, "sinkhorn_exp_chunk")
+            for name, ms, cnt in row["top"]:
+                print("    %-60s %10.3f ms in %6d events" % (name, ms, cnt), flush=True)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ann.fit()
+            torch.cuda.synchronize()
+            row = {"wall_s": time.perf_counter() - t0}
+        row.update(host_emd_s=emd["s"], host_emd_calls=emd["calls"])
+        errors = check(ann, run, row)
+        if run == "switched":
+            if ann._locality_info["build"] != "budgeted" or ann._dev is None:
+                raise SystemExit("(12b) the fit did not switch to the budgeted build")
+            continue
+        if ann._locality_info["build"] != "admit" or ann._ij_dev[2] != pin["m"]:
+            raise SystemExit("(12a) the fit did not keep the admitted %d pairs" % pin["m"])
+        # the scout calls follow from the budget; an exact call follows a
+        # certify admission, which the scout's last bits can move (its
+        # products round once from float64 on the card, XLA:CPU sums in
+        # float32): within 1 % of the JAX package's
+        if ann.scout_evals != pin["scout_evals"] or abs(ann.evals - pin["evals"]) > (
+                0.01 * pin["evals"]):
+            raise SystemExit("(12a) exact or scout calls off the JAX package's")
+        if errors > pin["errors"] or errors >= DIGITS_MAX_ERRORS:
+            raise SystemExit("(12a) %d errors against the exact graph" % errors)
+
+
+def _alpha256(torch, np, att, report, K10):
+    """Phase 12(c): strings-1600 over 256 code points, every evaluation on
+    K10, with the JAX sample stream, against a BruteForce on K10; then
+    K10 at the refine batch's shape, beside its plain version and bound.
+    Returns (K10's launches in the fit, the timing row)."""
+    from annchor_tpu_torch.datasets import make_strings
+    from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+    from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, lev_pairs_plain
+    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import cells, rowdp_pairs_cuda
+
+    X, _ = make_strings(alphabet=ALPHA256)
+    X = list(X)
+    K10.reset_counts()
+    ann, wall = _timed_fit(torch, att, X, "levenshtein", n_neighbors=N_NEIGHBORS,
+                           p_work=P_WORK, random_seed=42, uniforms=jax_threefry_uniforms)
+    launches = K10.launches
+    enc = ann.metric.batch._encode(X)
+    t0 = time.perf_counter()
+    gt = _bruteforce_graph(att, X, "levenshtein")
+    bf_s = time.perf_counter() - t0
+    errors = att.compare_neighbor_graphs(gt, ann.neighbor_graph, N_NEIGHBORS)
+    print("  (c) strings-1600 over 256 symbols: %.3f s, %d evals (JAX package: %d), %d "
+          "errors against a BruteForce on K10 (%.3f s; JAX package: %d), K10 launches %d"
+          % (wall, ann.evals, ALPHA256_EVALS, errors, bf_s, ALPHA256_ERRORS, launches),
+          flush=True)
+    if not isinstance(enc, RowDPEncoding) or launches == 0:
+        raise SystemExit("(12c) the 256-symbol fit did not run on K10")
+    if ann.evals != ALPHA256_EVALS or errors > ALPHA256_ERRORS:
+        raise SystemExit("(12c) the 256-symbol fit differs from the JAX package's figures")
+
+    rng = np.random.default_rng(12)
+    I = torch.as_tensor(rng.integers(0, len(X), REFINE_BATCH), device="cuda")
+    J = torch.as_tensor(rng.integers(0, len(X), REFINE_BATCH), device="cuda")
+    ms = _time(torch, lambda: rowdp_pairs_cuda(enc.ids, enc.lengths, I, J, enc.lmax), 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = lev_pairs_plain(enc, I, J)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = rowdp_pairs_cuda(enc.ids, enc.lengths, I, J, enc.lmax)
+    err = int((got.long() - want.long()).abs().max())
+    ncells = cells(enc.lengths, I, J)
+    ops_ms = ncells * K10_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    nbytes = sum(t.numel() * t.element_size() for t in (enc.ids, enc.lengths, I, J))
+    bytes_ms = (nbytes + 4 * REFINE_BATCH) / HBM_BYTES_PER_S * 1e3
+    row = {"pairs": REFINE_BATCH, "cells": ncells, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "max_abs_err": err}
+    report["alpha256"] = {"fit_s": wall, "evals": int(ann.evals), "errors": int(errors),
+                          "k10_launches": launches, "bruteforce_s": bf_s, "k10": row}
+    print("  K10 at the refine batch's shape (%d pairs, %d cells): %.4f ms, plain %.3f ms, "
+          "bound %.4f ms (%s, %.1f %%), max|diff| %d" % (
+              REFINE_BATCH, ncells, ms, plain_ms, row["bound_ms"], row["bound_by"],
+              100 * row["bound_ms"] / ms, err), flush=True)
+    if err:
+        raise SystemExit("K10 disagrees with its plain version at the refine batch's shape")
+    return launches, row
+
+
 def main() -> int:
     import torch
 
@@ -1331,6 +1687,7 @@ def main() -> int:
     import annchor_tpu_torch as att
     from annchor_tpu_torch.datasets import make_strings
     from annchor_tpu_torch.ops.levenshtein_cuda import K1
+    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import K10
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1340,21 +1697,28 @@ def main() -> int:
     report["card"] = _card(torch)
     kind = torch.cuda.get_device_name(0)
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda, kind))
-    t0 = time.perf_counter()
-    K1.lib()
-    report["k1_build_s"] = time.perf_counter() - t0
-    print("  built %s in %.3f s" % (K1.name, report["k1_build_s"]))
-    report["k1_ptxas"] = _ptxas(K1)
-    for name, (regs, st, ld) in report["k1_ptxas"].items():
-        print("    %-22s %3d registers, spill stores %d B, spill loads %d B"
-              % (name, regs, st, ld))
-    if not report["k1_ptxas"]:
-        raise SystemExit("no ptxas report in K1's build log")
+    from concurrent.futures import ThreadPoolExecutor
+
     from annchor_tpu_torch.native import EMD
 
-    t0 = time.perf_counter()
-    EMD.lib()
-    report["emd_build_s"] = time.perf_counter() - t0
+    def build(lib):
+        t = time.perf_counter()
+        lib.lib()
+        return time.perf_counter() - t
+
+    # one compiler process for each source, all started together
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(build, lib) for lib in (K1, K10, EMD)]
+        report["k1_build_s"], report["k10_build_s"], report["emd_build_s"] = (
+            b.result() for b in builds)
+    for kernel, key in ((K1, "k1"), (K10, "k10")):
+        print("  built %s in %.3f s" % (kernel.name, report[key + "_build_s"]))
+        report[key + "_ptxas"] = _ptxas(kernel)
+        for name, (regs, st, ld) in report[key + "_ptxas"].items():
+            print("    %-22s %3d registers, spill stores %d B, spill loads %d B"
+                  % (name, regs, st, ld))
+        if not report[key + "_ptxas"]:
+            raise SystemExit("no ptxas report in %s's build log" % kernel.name)
     print("  built the host EMD solver (g++) in %.3f s" % report["emd_build_s"], flush=True)
 
     _phase("2. kernel check")
@@ -1363,6 +1727,7 @@ def main() -> int:
     report["k1_check_pairs"], max_err = _check_k1(torch, np, X)
     _check_no_sync(torch, np, X)
     _check_oracle(torch, np, X)
+    report["k10_check_pairs"], k10_err = _check_k10(torch, np)
     _check_small_fit(torch, np)
     report["scout_card_vs_cpu_rel"] = _check_scout_no_sync(torch, np)
 
@@ -1507,8 +1872,36 @@ def main() -> int:
     if host.evals != HOST_EVALS or host_errors > HOST_ERRORS:
         raise SystemExit("the host-pipeline fit differs from the JAX package's figures")
 
+    # (b) the same custom sampler above 4,096 points: the blocked host pair
+    # build, then the host pipeline's per-pair passes on the card
+    X5, y5 = make_strings(n=5000, n_clusters=16, length=200, mutation_rate=0.01, seed=42,
+                          evolve=True)
+    X5 = list(X5)
+    gt5 = _bruteforce_graph(att, X5, "levenshtein")
+    K1.reset_counts()
+    host5, report["host5k_fit_s"] = _timed_fit(
+        torch, att, X5, "levenshtein", n_neighbors=15, p_work=0.05, random_seed=42,
+        sampler=HostSampler())
+    host5_launches = K1.launches
+    host5_modes = dict(K1.mode_launches)
+    host5_errors = att.compare_neighbor_graphs(gt5, host5.neighbor_graph, 15)
+    report.update(host5k_evals=int(host5.evals), host5k_errors=int(host5_errors),
+                  host5k_m=int(host5.IJs.shape[0]), host5k_k1_launches=host5_launches)
+    print("  (b) strings-5000 host pipeline: %.3f s, m %d, %d evals (JAX package: %d), %d "
+          "errors (JAX package: %d), K1 launches %d %s" % (
+              report["host5k_fit_s"], host5.IJs.shape[0], host5.evals, HOST5K_EVALS,
+              host5_errors, HOST5K_ERRORS, host5_launches, host5_modes), flush=True)
+    if host5._dev is not None or host5._ij_dev is not None or host5_launches == 0:
+        raise SystemExit("the 5,000-string custom-sampler fit did not run the host pipeline "
+                         "on K1")
+    if host5.evals != HOST5K_EVALS or host5_errors > 2 * HOST5K_ERRORS + 20:
+        raise SystemExit("the 5,000-string host-pipeline fit differs from the JAX package's "
+                         "figures")
+    host_modes = {m: host_modes[m] + host5_modes[m] for m in host_modes}
+
     _phase("9. scale path (%s)" % report["card"])
-    scale_modes, scale_err, scale5k, big = _scale_path(torch, np, att, K1, report, big_X)
+    scale_modes, scale_err, scale5k, big = _scale_path(torch, np, att, K1, report, big_X,
+                                                       X5, y5, gt5)
     max_err = max(max_err, scale_err)
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -1518,6 +1911,10 @@ def main() -> int:
 
     _phase("11. exact oracles and the slow metrics (%s)" % report["card"])
     exact_modes = _slow_metrics(torch, np, att, K1, report, X, gt)
+
+    _phase("12. digits-5620 and the row DP (%s)" % report["card"])
+    _digits5620(torch, np, att, report)
+    k10_launches, k10_row = _alpha256(torch, np, att, report, K10)
     main_modes = {m: fit_modes[m] + host_modes[m] + scale_modes[m] + serve_modes.get(m, 0)
                   + exact_modes[m] for m in fit_modes}
     print("  K1 launches on the main path (phases 4, 8, 9, 10, 11) by mode: %s; phase 10: "
@@ -1542,6 +1939,18 @@ def main() -> int:
         "plain_ms": refine["plain_ms"],
         "bound_ms": refine["bound_ms"],
         "bound_by": refine["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "levenshtein_rowdp (K10)",
+        "route": "cuda",
+        "source": "annchor_tpu_torch/csrc/levenshtein_rowdp.cu",
+        "replaces": "annchor_tpu/ops/levenshtein.py:96",
+        "launches": k10_launches,
+        "max_abs_err": max(k10_err, k10_row["max_abs_err"]),
+        "ms": k10_row["ms"],
+        "plain_ms": k10_row["plain_ms"],
+        "bound_ms": k10_row["bound_ms"],
+        "bound_by": k10_row["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ import annchor_tpu_torch as att
 from annchor_tpu.datasets import make_strings as jax_make_strings
 from annchor_tpu_torch.datasets import load_strings, make_strings
 from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+from annchor_tpu_torch.ops.locality import candidate_pairs
 
 torch.set_num_threads(2)
 
@@ -157,9 +158,11 @@ def test_load_strings_caches_bruteforce_graph(tmp_path, monkeypatch):
 
 def test_unported_paths_raise(monkeypatch):
     """Custom strategy objects take the host pipeline and nx > 4096 the
-    scale path; what the scale path does not cover yet (non-metric fits,
-    the admit-everything build, the rms score, custom strategy objects
-    above 4,096 points, hybrid fits there) raise, naming their items."""
+    scale path.  The paths earlier slices left raising now run: custom
+    strategy objects above 4,096 points (the blocked host pair build),
+    non-metric and hybrid fits on the scale path and
+    ANNCHOR_TPU_NO_PAIR_BUDGET (the admit-everything build), the rms
+    score (the budgeted build); none raises NotImplementedError."""
     X, _ = make_strings(n=60, length=20, seed=1)
     ann = att.Annchor(
         list(X), "levenshtein", n_anchors=3, n_neighbors=5, n_samples=100,
@@ -170,36 +173,43 @@ def test_unported_paths_raise(monkeypatch):
     ann.fit()
     assert ann._dev is None and ann.neighbor_graph[0].shape == (60, 5)
 
-    big = att.Annchor(["a"] * 4097, "levenshtein", device="cpu")
+    B, _ = make_strings(n=4100, n_clusters=16, length=12, mutation_rate=0.3, seed=1,
+                        evolve=True)
+    big = att.Annchor(list(B), "levenshtein", device="cpu")
     assert big.n_anchors == 48 and big.refine_frac == 0.05
     big.sampler = type("Custom", (att.SimpleStratifiedSampler,), {})()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        big.get_locality()
+    big.get_anchors()
+    big.get_locality()
+    assert big._ij_dev is None and big.P_idx.shape[0] == 4100
+    np.testing.assert_array_equal(
+        big.IJs, candidate_pairs(big.D, big.locality, big.loc_thresh, big.loc_min, "cpu",
+                                 block=10**4)[0])
 
     monkeypatch.setenv("ANNCHOR_TPU_FORCE_SPARSE", "1")
-    for kw, env, item in [
-        ({"is_metric": False}, {}, "item 15"),
-        ({}, {"ANNCHOR_TPU_NO_PAIR_BUDGET": "1"}, "item 15"),
-        ({}, {"ANNCHOR_TPU_BUILD_SCORE": "rms"}, "item 16"),
+    for kw, env, build in [
+        ({"is_metric": False}, {}, "admit"),
+        ({}, {"ANNCHOR_TPU_NO_PAIR_BUDGET": "1"}, "admit"),
+        ({}, {"ANNCHOR_TPU_BUILD_SCORE": "rms"}, "budgeted"),
     ]:
         for k, v in env.items():
             monkeypatch.setenv(k, v)
         ann = att.Annchor(list(X), "levenshtein", n_anchors=3, n_neighbors=5,
                           device="cpu", **kw)
         ann.get_anchors()
-        with pytest.raises(NotImplementedError, match=item):
-            ann.get_locality()
+        ann.get_locality()
+        assert ann._locality_info["build"] == build and ann._ij_dev[2] > 0
         for k in env:
             monkeypatch.delenv(k)
-    # a hybrid fit is non-metric: on the scale path it waits for item 15
+    # a hybrid fit is non-metric: on the scale path it takes the
+    # admit-everything build
     hist = np.random.default_rng(0).integers(0, 5, size=(60, 4))
     hybrid = att.Annchor(hist, "wasserstein", n_anchors=3, n_neighbors=5, device="cpu",
                          func_kwargs={"cost_matrix": 1.0 - np.eye(4), "scout": "sinkhorn",
                                       "n_iter": 10})
     assert hybrid._scouting and not hybrid.is_metric
     hybrid.get_anchors()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        hybrid.get_locality()
+    hybrid.get_locality()
+    assert hybrid._locality_info["build"] == "admit"
 
 
 def test_cuda_device_without_card_raises():

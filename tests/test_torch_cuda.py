@@ -225,3 +225,33 @@ def test_sinkhorn_scout_on_card_matches_cpu(cuda):
     cpu = SinkhornExpEngine(M, n_iter=100, chunk=1024, device="cpu")
     np.testing.assert_allclose(card(X, X, IJ), cpu(X, X, IJ), rtol=2e-6)
     np.testing.assert_array_equal(card.fused_maxmin(X, 10, 2)[0], cpu.fused_maxmin(X, 10, 2)[0])
+
+
+@pytest.mark.parametrize("size,lo,hi", [(193, 0, 70), (256, 426, 550), (1000, 0, 2100)])
+def test_k10_bit_equal_to_plain(cuda, size, lo, hi):
+    """The row-DP kernel (K10) over more than 192 symbols against its
+    plain version, both argument orders, with no host sync in the
+    wrapper, and a few pairs against the pure-Python DP."""
+    from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, lev_pairs_plain
+    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import K10, rowdp_pairs_cuda
+
+    rng = np.random.default_rng(size + hi)
+    strs = _strings(rng, 60, lo, hi, [chr(0x100 + i) for i in range(size)])
+    strs[:3] = ["", chr(0x100), chr(0x101) * 2]
+    enc = MyersEncoding.from_codes(*encode_strings(strs), cuda)
+    assert isinstance(enc, RowDPEncoding)
+    I = torch.as_tensor(rng.integers(0, 60, size=2500), device=cuda)
+    J = torch.as_tensor(rng.integers(0, 60, size=2500), device=cuda)
+    before = K10.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = myers_pairs(enc, I, J)
+        swapped = rowdp_pairs_cuda(enc.ids, enc.lengths, J.int(), I.int(), enc.lmax)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert K10.launches == before + 2
+    want = lev_pairs_plain(enc, I, J)
+    assert torch.equal(got, want) and torch.equal(swapped, want)
+    Ih, Jh = I[:12].tolist(), J[:12].tolist()
+    assert got[:12].tolist() == [levenshtein_scalar(strs[i], strs[j]) for i, j in zip(Ih, Jh)]

@@ -140,15 +140,18 @@ def test_giant_component_fit_matches_jax(default_graph):
 
 def test_make_digits_large_bit_equal_to_jax():
     """The port's stand-in for the 5,620-image set, built from its own
-    copy of the digit images, is the JAX package's image for image; the
-    loader with its ground truth waits for item 15."""
+    copy of the digit images, is the JAX package's image for image, and
+    its loader gives the JAX loader's ground truth."""
     X, y = tds.make_digits_large()
     jX, jy = jds.make_digits_large()
     np.testing.assert_array_equal(X, jX)
     np.testing.assert_array_equal(y, jy)
     np.testing.assert_array_equal(tds.make_digits_large(n=100)[0], jX[:100])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tds.load_digits_large()
+    got, want = tds.load_digits_large(k=30), jds.load_digits_large(k=30)
+    np.testing.assert_array_equal(got["X"], want["X"])
+    for a, b in zip(got["neighbor_graph"], want["neighbor_graph"]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got["cost_matrix"], want["cost_matrix"])
 
 
 def test_load_digits_caches_ground_truth_by_image_hash(tmp_path, monkeypatch):

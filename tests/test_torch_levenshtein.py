@@ -100,9 +100,14 @@ def test_encoding_matches_jax():
 
 
 def test_alphabet_limit_raises():
+    """Past MAX_ALPHABET symbols no Peq table is built: the encoding is
+    the row DP's (K10), which keeps the codepoints."""
+    from annchor_tpu_torch.ops.levenshtein import RowDPEncoding
+
     codes = np.arange(400, dtype=np.int32).reshape(2, 200)
-    with pytest.raises(NotImplementedError, match="K10"):
-        MyersEncoding.from_codes(codes, np.array([200, 200], np.int32), "cpu")
+    enc = MyersEncoding.from_codes(codes, np.array([200, 200], np.int32), "cpu")
+    assert isinstance(enc, RowDPEncoding) and enc.lmax == 200
+    np.testing.assert_array_equal(enc.ids.numpy(), codes)
 
 
 def test_myers_pairs_dispatch():

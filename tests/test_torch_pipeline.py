@@ -81,11 +81,14 @@ def test_candidate_pairs_bit_equal(loc_thresh, loc_min):
 
 
 def test_candidate_pairs_refuses_scale_path():
-    """The dense build stops at 4,096 points: above it the default
-    strategies take the budgeted build, and the blocked host build for
-    custom strategy objects is not ported yet."""
-    with pytest.raises(NotImplementedError, match="item 17"):
-        candidate_pairs(np.zeros((4097, 3)), 2, 1, 1, "cpu")
+    """The dense build stops at 4,096 points: above it the host build
+    runs in row blocks of 4,096 (the default strategies take the scale
+    path's builds instead), with the pairs of the one-block build."""
+    D = np.random.default_rng(2).random((4097, 3))
+    IJs, sid, S, eff = candidate_pairs(D, 2, 1, 1, "cpu")
+    whole = candidate_pairs(D, 2, 1, 1, "cpu", block=4097)
+    np.testing.assert_array_equal(IJs, whole[0])
+    np.testing.assert_array_equal(eff.numpy(), whole[3].numpy())
 
 
 def test_features_bit_equal(state):

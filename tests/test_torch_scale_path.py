@@ -150,8 +150,16 @@ def test_budgeted_build_zero_threshold(nx):
 
 
 def test_rms_build_score_raises(monkeypatch):
+    """The rms score builds (at a cap past every row's candidates it keeps
+    the linf build's pairs); a score other than linf and rms raises."""
+    D = np.random.default_rng(6).random((300, 8))
+    lin = tloc.candidate_pairs_device_budgeted(D, 5, 2, 10, 10**4)
     monkeypatch.setenv("ANNCHOR_TPU_BUILD_SCORE", "rms")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    rms = tloc.candidate_pairs_device_budgeted(D, 5, 2, 10, 10**4)
+    for k in (0, 1, 6):
+        np.testing.assert_array_equal(_np(rms[k]), _np(lin[k]))
+    monkeypatch.setenv("ANNCHOR_TPU_BUILD_SCORE", "dot")
+    with pytest.raises(ValueError, match="rms"):
         tloc.candidate_pairs_device_budgeted(np.eye(40, 8), 5, 2, 10, 20)
 
 
@@ -428,12 +436,18 @@ def test_refine_graph_invariants(refined):
 
 def test_refine_default_budget_and_device_screen(refined, monkeypatch):
     """The default budget is the unspent p_work allowance; the device
-    screen is not ported and says so."""
+    screen, forced on the CPU, refines exactly as the host screen does."""
     X, _, port, _ = refined
     allowance = max(0, int(port.p_work * port.N) - port.evals)
     ev0 = port.evals
+    fitted = (port.neighbor_graph, port._ng_exact, port.evals)
     port.refine_neighbor_graph(rounds=1)
     assert port.evals - ev0 <= allowance
+    host = (port.neighbor_graph, port._ng_exact, port.evals)
+    port.neighbor_graph, port._ng_exact, port.evals = fitted
     monkeypatch.setenv("ANNCHOR_TPU_FORCE_DEVICE_EXPAND", "1")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port.refine_neighbor_graph(rounds=1)
+    port.refine_neighbor_graph(rounds=1)
+    assert port.evals == host[2]
+    for got, want in zip((*port.neighbor_graph, port._ng_exact), (*host[0], host[1])):
+        np.testing.assert_array_equal(got, want)
+    assert all("screen_dev_s" in s for s in port._refine_stats[1:])

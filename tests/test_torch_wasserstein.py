@@ -25,6 +25,7 @@ from annchor_tpu_torch import native
 from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
 from annchor_tpu_torch.ops import wasserstein as tw
 from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+from annchor_tpu_torch.ops.locality import candidate_pairs
 
 torch.set_num_threads(2)
 
@@ -277,13 +278,15 @@ def test_pure_sinkhorn_graph_recall(digits):
 
 
 def test_hybrid_scale_path_waits_for_item_15(digits, monkeypatch):
-    """A hybrid fit is non-metric, so on the scale path it needs the
-    admit-everything build, which raises naming its item."""
+    """A hybrid fit is non-metric, so on the scale path it takes the
+    admit-everything build, with the pairs of the host build."""
     X, _, M = digits
     monkeypatch.setenv("ANNCHOR_TPU_FORCE_SPARSE", "1")
     ann = att.Annchor(X[:120], "wasserstein",
                       func_kwargs={"cost_matrix": M, "scout": "sinkhorn", "n_iter": 20},
                       n_anchors=6, n_neighbors=5, device="cpu")
     ann.get_anchors()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ann.get_locality()
+    ann.get_locality()
+    assert ann._locality_info["build"] == "admit"
+    IJs = candidate_pairs(ann.D, ann.locality, ann.loc_thresh, ann.loc_min, "cpu")[0]
+    np.testing.assert_array_equal(ann.IJs, IJs)
