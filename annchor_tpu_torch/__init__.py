@@ -1,7 +1,7 @@
 """annchor_tpu_torch: the PyTorch/CUDA port of annchor_tpu.
 
 Approximate k-NN graphs for slow metrics, with the per-pair fit state on
-one torch device and every edit distance computed by a hand-written CUDA
+one torch device (or split over a mesh of them) and every edit distance computed by a hand-written CUDA
 kernel (``csrc/levenshtein_myers.cu``) on an NVIDIA card, or by its
 plain PyTorch version when ``device="cpu"``.
 
@@ -15,11 +15,12 @@ scale path for metric fits; ``BruteForce``, the exact oracles
 ``exact_knn``/``exact_rows``/``exact_query_rows``,
 ``compare_neighbor_graphs`` and the scalar ``distances``; after a fit,
 ``query``/``legacy_query``, ``save``/``load`` (the JAX package's file
-formats) and the nearest-enemy extras.  This package imports neither
-``jax`` nor ``annchor_tpu``.
+formats) and the nearest-enemy extras; and the multi-device fit, whose
+pair state ``parallel``'s device mesh shards (``ops/sharded_fit.py``).
+This package imports neither ``jax`` nor ``annchor_tpu``.
 """
 
-from annchor_tpu_torch import distances
+from annchor_tpu_torch import distances, parallel
 from annchor_tpu_torch.annchor import Annchor, BruteForce, compare_neighbor_graphs
 from annchor_tpu_torch.error_predictors import SimpleStratifiedErrorRegression
 from annchor_tpu_torch.exact import exact_knn, exact_query_rows, exact_rows
@@ -56,6 +57,7 @@ __all__ = [
     "SimpleStratifiedLinearRegression",
     "SimpleStratifiedErrorRegression",
     "distances",
+    "parallel",
     "exact_knn",
     "exact_rows",
     "exact_query_rows",

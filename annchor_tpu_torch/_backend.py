@@ -8,10 +8,14 @@ failed build raises: there is no fallback to another code path.
 
 Each kernel keeps a plain-integer launch counter that its wrapper bumps
 once per launch, so a run can show that the main path went through it.
+Launches made for one shard of a device mesh (``parallel``) are also
+counted per shard.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -32,6 +36,20 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+
+# the mesh shard whose work the current code runs (``parallel``), or None
+_SHARD = contextvars.ContextVar("annchor_shard", default=None)
+
+
+@contextlib.contextmanager
+def shard_scope(index: int):
+    """Within the block, kernel launches count toward shard ``index``."""
+    token = _SHARD.set(int(index))
+    try:
+        yield
+    finally:
+        _SHARD.reset(token)
 
 
 def resolve_device(device) -> torch.device:
@@ -74,7 +92,9 @@ class Kernel:
 
     ``launches`` is the launch counter and ``mode_launches`` holds one
     plain-integer counter per launch mode of the source: the wrapper
-    calls ``count(mode)`` where it launches the kernel, nowhere else."""
+    calls ``count(mode)`` where it launches the kernel, nowhere else.
+    ``shard_launches`` maps a mesh shard's index to the launches made
+    inside its ``shard_scope``."""
 
     def __init__(self, name: str, source: str, signatures: dict, modes=()):
         self.name = name
@@ -82,6 +102,7 @@ class Kernel:
         self.signatures = signatures  # C function -> ctypes argtypes
         self.launches = 0
         self.mode_launches = dict.fromkeys(modes, 0)
+        self.shard_launches = {}
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
@@ -89,10 +110,14 @@ class Kernel:
     def count(self, mode: str) -> None:
         self.launches += 1
         self.mode_launches[mode] += 1
+        shard = _SHARD.get()
+        if shard is not None:
+            self.shard_launches[shard] = self.shard_launches.get(shard, 0) + 1
 
     def reset_counts(self) -> None:
         self.launches = 0
         self.mode_launches = dict.fromkeys(self.mode_launches, 0)
+        self.shard_launches = {}
 
     def library_path(self) -> str:
         with open(self.source, "rb") as fh:

@@ -36,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from annchor_tpu_torch import parallel
 from annchor_tpu_torch._backend import resolve_device, synchronize
 from annchor_tpu_torch.error_predictors import SimpleStratifiedErrorRegression
 from annchor_tpu_torch.metrics import (
@@ -494,12 +495,7 @@ class Annchor:
         total."""
         env_cap = os.environ.get("ANNCHOR_TPU_PAIR_CAP")
         cap = int(env_cap) if env_cap is not None else (self.pair_cap or 0)
-        auto_cap = max(
-            4 * self.n_neighbors,
-            int(round(
-                self._pair_cap_factor() * self._p_work_fit * self.nx * self._mesh_scale()
-            )),
-        )
+        auto_cap = self._derived_pair_cap()
         info = self._locality_info = {"build": "budgeted", "admitted": None}
         if cap <= 0 and (not self.is_metric or os.environ.get("ANNCHOR_TPU_NO_PAIR_BUDGET")):
             env_res = os.environ.get("ANNCHOR_TPU_MAX_RESIDENT_PAIRS")
@@ -528,10 +524,27 @@ class Annchor:
             return float(env)
         return 0.7 if self.pair_cap_factor is None else self.pair_cap_factor
 
+    def _derived_pair_cap(self) -> int:
+        """The scale path's per-point cap when none is given:
+        max(4 nn, factor * in-fit p_work * nx * mesh scale)."""
+        return max(
+            4 * self.n_neighbors,
+            int(round(
+                self._pair_cap_factor() * self._p_work_fit * self.nx * self._mesh_scale()
+            )),
+        )
+
     def _mesh_scale(self) -> int:
-        """Devices the fit state shards over: one (the multi-device fit
-        is ROADMAP Queue 1 item 14)."""
-        return 1
+        """Shards the fit state will be split over (1 without a mesh).
+
+        The derived pair cap scales with the mesh, so more devices buy
+        candidate coverage and not only residency: each shard still holds
+        about cap_1 * nx / s pairs, but the tracked set is s times wider.
+        An explicit ``ANNCHOR_TPU_PAIR_CAP`` never scales: the sharded fit
+        equals the single-device fit bit for bit whenever the two track
+        the same pair set."""
+        mesh = parallel.auto_mesh(self.device)
+        return 1 if mesh is None else int(mesh.size)
 
     @property
     def _p_work_fit(self):

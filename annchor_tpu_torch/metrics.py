@@ -16,6 +16,12 @@ batched engine:
 * ``wasserstein_sinkhorn``: log-domain Sinkhorn on the device
   (``ops/wasserstein.SinkhornEngine``), a non-metric approximation.
 
+On a device mesh (``parallel.auto_mesh``) the Levenshtein and vector
+engines split each pair block over the shards: every shard evaluates
+its slice on its own device against a copy of the dataset cached there,
+and the results come back in block order, equal to the unsharded
+engine's (the JAX package's ``shard_map``'d engines).
+
 Any other Python callable is evaluated on the host by
 ``_fanout_scalar``, which fans chunks of pairs out over a worker pool,
 keeping the ``get_exact_ijs(f, X, IJ)`` plug-in contract (reference
@@ -34,7 +40,7 @@ import threading
 import numpy as np
 import torch
 
-from annchor_tpu_torch import native
+from annchor_tpu_torch import native, parallel
 from annchor_tpu_torch._backend import resolve_device
 from annchor_tpu_torch.ops import levenshtein as _lev_ops
 from annchor_tpu_torch.ops.levenshtein_myers import (
@@ -119,6 +125,34 @@ def _dense_pairs(kind: str, a, b):
     raise ValueError(kind)
 
 
+class _Replicas:
+    """Copies of a dataset's device tables on the other devices of a
+    mesh, one per device, each held until its source changes."""
+
+    def __init__(self):
+        self._copies = {}
+
+    def on(self, src, device, copy):
+        """``src`` (whose ``.device`` is one device) on ``device``:
+        ``copy(src, device)``, made once per device and source."""
+        if src.device == device:
+            return src
+        hit = self._copies.get(device)
+        if hit is None or hit[0] is not src:
+            hit = self._copies[device] = (src, copy(src, device))
+        return hit[1]
+
+
+def _mesh_split(device, fn, I, J):
+    """fn(I_c, J_c) on each shard's slice of the pair ids I, J when a
+    mesh is active for ``device`` (results in pair order on I's
+    device), else fn(I, J)."""
+    mesh = parallel.auto_mesh(device)
+    if mesh is None:
+        return fn(I, J)
+    return parallel.split_pairs(fn, mesh, I, J)
+
+
 class _DenseBatchEngine:
     """Batched vector-metric engine (euclidean / sqeuclidean / cosine)
     on one device: gather the pairs' rows and reduce, in float32
@@ -133,6 +167,7 @@ class _DenseBatchEngine:
         self.device = resolve_device(device)
         self.chunk = chunk
         self._dev_cache = {}  # up to two datasets (fit X + query Q)
+        self._replicas = _Replicas()
 
     def _data_dev(self, X):
         """X as float32 on the device, from a two-entry LRU cache keyed
@@ -167,14 +202,25 @@ class _DenseBatchEngine:
         ]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
+    def _eval(self, X, Z, I, J):
+        """Distances of rows I of X to rows J of Z, split over the mesh
+        when one is active; the uploads are reused across calls."""
+        Xd = self._data_dev(X)
+        Zd = Xd if Z is X else self._data_dev(Z)
+
+        def local(i, j):
+            xd = self._replicas.on(Xd, i.device, torch.Tensor.to)
+            zd = xd if Zd is Xd else Zd.to(i.device)
+            return self._chunks(xd, zd, i, j)
+
+        return _mesh_split(self.device, local, I, J)
+
     def __call__(self, X, Z, IJ):
         IJ = np.asarray(IJ, dtype=np.int64)
         if IJ.shape[0] == 0:
             return np.zeros(0, dtype=np.float64)
-        Xd = self._data_dev(X)  # repeated calls reuse the upload
-        Zd = Xd if Z is X else self._data_dev(Z)
         ij = torch.as_tensor(IJ, device=self.device)
-        d = self._chunks(Xd, Zd, ij[:, 0], ij[:, 1])
+        d = self._eval(X, Z, ij[:, 0], ij[:, 1])
         return d.cpu().numpy().astype(np.float64)
 
     def batch_dev_ready(self, X):
@@ -183,8 +229,7 @@ class _DenseBatchEngine:
     def batch_dev(self, X, I, J):
         """Device-id eval: I, J integer tensors on the engine's device
         -> float32 distances on the device, no host hop."""
-        Xd = self._data_dev(X)
-        return self._chunks(Xd, Xd, I.long(), J.long())
+        return self._eval(X, X, I.long(), J.long())
 
     def fused_maxmin(self, X, na, first_ix, verbose=False):
         """Greedy max-min anchors with every column on the device
@@ -241,6 +286,7 @@ class _LevenshteinEngine:
         self._cache = {}
         self._holds = 0
         self._pair_enc = None  # (X, Z, encoding) while a hold is open
+        self._replicas = _Replicas()
 
     @contextlib.contextmanager
     def hold_pair_encoding(self):
@@ -266,10 +312,19 @@ class _LevenshteinEngine:
         self._cache = {key: (X, enc)}  # hold one dataset at a time
         return enc
 
+    def _eval(self, enc, I, J):
+        """``myers_pairs`` of the pair ids I, J, split over the mesh when
+        one is active (each shard on its device's copy of the tables)."""
+        return _mesh_split(
+            self.device,
+            lambda i, j: myers_pairs(self._replicas.on(enc, i.device, type(enc).to), i, j),
+            I, J,
+        )
+
     def _pairs(self, enc, I, J):
         I = torch.as_tensor(np.asarray(I, dtype=np.int64), device=self.device)
         J = torch.as_tensor(np.asarray(J, dtype=np.int64), device=self.device)
-        return myers_pairs(enc, I, J).cpu().numpy()
+        return self._eval(enc, I, J).cpu().numpy()
 
     def batch_dev_ready(self, X):
         return True
@@ -277,7 +332,7 @@ class _LevenshteinEngine:
     def batch_dev(self, X, I, J):
         """Device-id eval: I, J integer tensors on the engine's device
         -> float32 distances on the device, no host hop."""
-        return myers_pairs(self._encode(X), I, J).to(torch.float32)
+        return self._eval(self._encode(X), I, J).to(torch.float32)
 
     def fused_maxmin(self, X, na, first_ix, verbose=False):
         """Greedy max-min anchors, one kernel launch per column."""

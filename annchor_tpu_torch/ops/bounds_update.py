@@ -48,18 +48,22 @@ class _OneSlotDeviceCache:
 _ij_cache = _OneSlotDeviceCache()
 
 
-def _build_E(IJ_dev, RA32, computed, nx: int):
+def _build_E(IJ_dev, RA32, computed, nx: int, out=None):
     """Scatter the computed distances into the dense (nx, nx)
     pseudo-anchor matrix E and its mask V (pairs are unique, so each
-    entry is written once)."""
+    entry is written once).  ``out``, an (E, V) pair holding other
+    pairs' entries, is written into instead of new zero matrices."""
     ci = IJ_dev[:, 0]
     cj = IJ_dev[:, 1]
     d = torch.where(computed, RA32, 0.0)
     dev = RA32.device
-    E = torch.zeros((nx, nx), dtype=torch.float32, device=dev)
+    if out is not None:
+        E, V = out
+    else:
+        E = torch.zeros((nx, nx), dtype=torch.float32, device=dev)
+        V = torch.zeros((nx, nx), dtype=torch.bool, device=dev)
     E.index_put_((ci, cj), d)
     E.index_put_((cj, ci), d)
-    V = torch.zeros((nx, nx), dtype=torch.bool, device=dev)
     V.index_put_((ci, cj), computed)
     V.index_put_((cj, ci), computed)
     return E, V

@@ -37,6 +37,7 @@ import os
 import numpy as np
 import torch
 
+from annchor_tpu_torch import parallel
 from annchor_tpu_torch.ops.bounds_update import _build_E
 from annchor_tpu_torch.ops.features import bounds_dad_dev
 
@@ -291,6 +292,54 @@ def penalised_knn_cols(vals, ncm_rows, valid, nn: int):
     return torch.sort(d, dim=1, stable=True).indices[:, :nn]
 
 
+def select_point_pass(RA_pad, ncm_ext, P_idx, m: int, kk: int, guarantee: bool,
+                      nmin: int):
+    """The selection's per-point pass over the incidence rows ``P_idx``
+    (a block of rows; pad ids >= m): each row's threshold, the (kk+1)-th
+    smallest estimate, and with ``guarantee`` the marks of the pairs that
+    ``guarantee_mark_rows`` picks.  RA_pad and ncm_ext carry a sentinel
+    past the last pair id.  Returns (thresholds (rows,), marks bool
+    (len(RA_pad),) or None)."""
+    dev = RA_pad.device
+    nrows, max_deg = P_idx.shape
+    blk = _row_block(nrows, max_deg)
+    thresh = torch.zeros(nrows, dtype=torch.float32, device=dev)
+    marks = torch.zeros(RA_pad.shape[0], dtype=torch.bool, device=dev) if guarantee else None
+    for start in _row_blocks(nrows, blk):
+        rows = P_idx[start : start + blk].long()
+        vals = RA_pad[rows]
+        thresh[start : start + blk] = torch.sort(vals, dim=1).values[:, kk]
+        if guarantee:
+            mark_rows = guarantee_mark_rows(vals, ncm_ext[rows], rows < m, nmin)
+            marks[rows[mark_rows]] = True
+    return thresh, marks
+
+
+def select_pair_probs(thresh, RAg, ncm, ij_i, ij_j, dad, inner_edges, cdf_grid,
+                      cdf_lo, cdf_inv, cdf_hi):
+    """The selection's per-pair pass: the probability, read from the
+    per-bin CDF grid, that each uncomputed pair's margin beats the larger
+    endpoint threshold; -1 for computed pairs."""
+    margin = torch.maximum(thresh[ij_i.long()], thresh[ij_j.long()]) - RAg
+    K, G = cdf_grid.shape
+    labels = torch.clamp(torch.searchsorted(inner_edges, dad, right=True), 0, K - 1)
+    lo = cdf_lo[labels]
+    hi = cdf_hi[labels]
+    x = (margin - lo) * cdf_inv[labels]
+    # truncation toward zero then clip, as XLA's saturating convert
+    # (NaN reads 0; those entries are overwritten below anyway)
+    cell = torch.nan_to_num(x, nan=0.0).clamp(0, G - 1).to(torch.int64)
+    prob = cdf_grid.reshape(-1)[labels * G + cell]
+    prob = torch.where(margin > hi, torch.ones_like(prob), prob)
+    prob = torch.where(margin < lo, torch.zeros_like(prob), prob)
+    return torch.where(ncm, prob, torch.full_like(prob, -1.0))
+
+
+def top_ids(prob, k: int):
+    """Ids of the k largest entries, ties to the lower id (``lax.top_k``)."""
+    return torch.sort(prob, descending=True, stable=True).indices[:k]
+
+
 def select(RA, ncm, ij_i, ij_j, dad, P_idx, inner_edges, cdf_grid, cdf_lo,
            cdf_inv, cdf_hi, nn: int, n_ref: int, guarantee: bool, nmin: int):
     """Refinement selection (reference annchor.py:395-473).
@@ -305,40 +354,15 @@ def select(RA, ncm, ij_i, ij_j, dad, P_idx, inner_edges, cdf_grid, cdf_lo,
 
     Returns (chosen ids (n_ref,), thresholds (nx,), ij_i, ij_j at the
     chosen ids)."""
-    dev = RA.device
     m = RA.shape[0]
-    nx, max_deg = P_idx.shape
-    inf = torch.tensor([F32_INF], dtype=torch.float32, device=dev)
-    RA_pad = torch.cat([RA, inf])
-    ncm_ext = torch.cat([ncm, torch.zeros(1, dtype=torch.bool, device=dev)])
-    kk = min(nn, max_deg - 1)
-    blk = _row_block(nx, max_deg)
-
-    thresh = torch.zeros(nx, dtype=torch.float32, device=dev)
-    marks = torch.zeros(m + 1, dtype=torch.bool, device=dev)
-    for start in _row_blocks(nx, blk):
-        rows = P_idx[start : start + blk].long()
-        vals = RA_pad[rows]
-        thresh[start : start + blk] = torch.sort(vals, dim=1).values[:, kk]
-        if guarantee:
-            mark_rows = guarantee_mark_rows(vals, ncm_ext[rows], rows < m, nmin)
-            marks[rows[mark_rows]] = True
+    kk = min(nn, P_idx.shape[1] - 1)
+    thresh, marks = select_point_pass(
+        _ext(RA, F32_INF), _ext(ncm, False), P_idx, m, kk, guarantee, nmin
+    )
     RAg = torch.where(marks[:m], torch.full_like(RA, -1.0), RA) if guarantee else RA
-
-    margin = torch.maximum(thresh[ij_i.long()], thresh[ij_j.long()]) - RAg
-    K, G = cdf_grid.shape
-    labels = torch.clamp(torch.searchsorted(inner_edges, dad, right=True), 0, K - 1)
-    lo = cdf_lo[labels]
-    hi = cdf_hi[labels]
-    x = (margin - lo) * cdf_inv[labels]
-    # truncation toward zero then clip, as XLA's saturating convert
-    # (NaN reads 0; those entries are overwritten below anyway)
-    cell = torch.nan_to_num(x, nan=0.0).clamp(0, G - 1).to(torch.int64)
-    prob = cdf_grid.reshape(-1)[labels * G + cell]
-    prob = torch.where(margin > hi, torch.ones_like(prob), prob)
-    prob = torch.where(margin < lo, torch.zeros_like(prob), prob)
-    prob = torch.where(ncm, prob, torch.full_like(prob, -1.0))
-    chosen = torch.sort(prob, descending=True, stable=True).indices[:n_ref]
+    prob = select_pair_probs(thresh, RAg, ncm, ij_i, ij_j, dad, inner_edges, cdf_grid,
+                             cdf_lo, cdf_inv, cdf_hi)
+    chosen = top_ids(prob, n_ref)
     return chosen, thresh, ij_i[chosen], ij_j[chosen]
 
 
@@ -349,73 +373,106 @@ def scatter_exact(RA, ncm, ids, vals):
     return RA, ncm
 
 
-def tighten_full(ij_i, ij_j, RA, ncm, lb, ub, nx: int, block: int = 16):
-    """Bound tightening by the tropical self-product of the computed
-    distances: with E the (nx, nx) matrix of computed pairs,
+def tropical_product(E, V, Einf, y0: int, y1: int, block: int = 16):
+    """The tropical self-product of the computed-distance matrix over
+    the columns y0..y1:
 
-        LB'[i,j] = max_y |E[i,y] - E[j,y]|   (both entries present)
-        UB'[i,j] = min_y  E[i,y] + E[j,y]
+        LB[i,j] = max_y |E[i,y] - E[j,y]|   (both entries present)
+        UB[i,j] = min_y  E[i,y] + E[j,y]
 
-    in blocks of ``block`` columns y, so each (nx, nx, block) temporary
-    stays bounded.  Pending pairs take the tightened interval."""
-    dev = RA.device
-    ii = ij_i.long()
-    jj = ij_j.long()
-    E, V = _build_E(torch.stack([ii, jj], dim=1), RA, ~ncm, nx)
-    # E is 0 wherever V is False
-    Einf = torch.where(V, E, torch.full_like(E, F32_INF))
-
-    lbM = torch.zeros((nx, nx), dtype=torch.float32, device=dev)
-    ubM = torch.full((nx, nx), F32_INF, dtype=torch.float32, device=dev)
-    for y0 in range(0, nx, block):
-        a = E[:, y0 : y0 + block]
-        v = V[:, y0 : y0 + block]
-        e = Einf[:, y0 : y0 + block]
+    in blocks of ``block`` columns, so each (nx, nx, block) temporary
+    stays bounded.  E is 0 and Einf +inf wherever V is False.  Max and
+    min are order-free, so any split of the columns gives the same
+    bits.  Returns (LB, UB), (nx, nx) float32."""
+    nx = E.shape[0]
+    lbM = torch.zeros((nx, nx), dtype=torch.float32, device=E.device)
+    ubM = torch.full((nx, nx), F32_INF, dtype=torch.float32, device=E.device)
+    for c0 in range(y0, y1, block):
+        c1 = min(c0 + block, y1)
+        a = E[:, c0:c1]
+        v = V[:, c0:c1]
+        e = Einf[:, c0:c1]
         diff = (a[:, None, :] - a[None, :, :]).abs_()
         diff.masked_fill_(~(v[:, None, :] & v[None, :, :]), 0.0)
         torch.maximum(lbM, diff.amax(dim=2), out=lbM)
         del diff
         torch.minimum(ubM, (e[:, None, :] + e[None, :, :]).amin(dim=2), out=ubM)
+    return lbM, ubM
+
+
+def rebound_pairs(ij_i, ij_j, ncm, lb, ub, lbM, ubM):
+    """Pending pairs take the tightened interval [lbM, ubM] at their
+    endpoints."""
+    ii = ij_i.long()
+    jj = ij_j.long()
     lb2 = torch.where(ncm, torch.maximum(lb, lbM[ii, jj]), lb)
     ub2 = torch.where(ncm, torch.minimum(ub, ubM[ii, jj]), ub)
     return lb2, ub2
 
 
+def tighten_full(ij_i, ij_j, RA, ncm, lb, ub, nx: int, block: int = 16):
+    """Bound tightening by the tropical self-product of the computed
+    distances (``tropical_product`` over every column): with E the
+    (nx, nx) matrix of computed pairs, pending pairs take the tightened
+    interval."""
+    E, V = _build_E(torch.stack([ij_i.long(), ij_j.long()], dim=1), RA, ~ncm, nx)
+    # E is 0 wherever V is False
+    Einf = torch.where(V, E, torch.full_like(E, F32_INF))
+    lbM, ubM = tropical_product(E, V, Einf, 0, nx, block)
+    return rebound_pairs(ij_i, ij_j, ncm, lb, ub, lbM, ubM)
+
+
+def tighten_columns(deg, ncol: int, ncol_pad: int):
+    """The column tighten's pseudo-anchors: the ``ncol`` points of
+    highest computed degree (ties to the lower index, as ``lax.top_k``:
+    a stable descending sort), padded to ``ncol_pad`` with repeats of the
+    first.  Returns int64 (ncol_pad,)."""
+    cols = top_ids(deg, ncol)
+    if ncol_pad > ncol:
+        cols = torch.cat([cols, cols[:1].expand(ncol_pad - ncol)])
+    return cols
+
+
+def tighten_contenders(ij_i, ij_j, ncm, lb, thresh):
+    """Ids (int64, ascending) of the contender pairs: uncomputed, with a
+    lower bound under the larger endpoint threshold."""
+    cap = torch.maximum(thresh[ij_i], thresh[ij_j])
+    return torch.nonzero(ncm & (lb < cap))[:, 0]
+
+
 def tighten_cols_prep(ij_i, ij_j, ncm, lb, thresh, ncol: int, ncol_pad: int,
                       cmax: int):
-    """The column passes' inputs: the pseudo-anchor columns, the ``ncol``
-    points of highest computed degree (ties to the lower index, as
-    ``lax.top_k``: a stable descending sort), padded to ``ncol_pad`` with
-    repeats of the first; and the contender pairs, uncomputed with a
-    lower bound under the larger endpoint threshold, the first ``cmax``
-    in id order.  Returns (cols int64 (ncol_pad,), contender ids int64
+    """The column passes' inputs: the pseudo-anchor columns
+    (``tighten_columns``) and the first ``cmax`` contender pairs in id
+    order.  Returns (cols int64 (ncol_pad,), contender ids int64
     (<= cmax,))."""
     nx = thresh.shape[0]
     done = ~ncm
     deg = torch.bincount(ij_i[done], minlength=nx) + torch.bincount(
         ij_j[done], minlength=nx
     )
-    cols = torch.sort(deg, descending=True, stable=True).indices[:ncol]
-    if ncol_pad > ncol:
-        cols = torch.cat([cols, cols[:1].expand(ncol_pad - ncol)])
-    cap = torch.maximum(thresh[ij_i], thresh[ij_j])
-    ids = torch.nonzero(ncm & (lb < cap))[:cmax, 0]
-    return cols, ids
+    cols = tighten_columns(deg, ncol, ncol_pad)
+    return cols, tighten_contenders(ij_i, ij_j, ncm, lb, thresh)[:cmax]
 
 
-def _column_panel(ij_i, ij_j, RA, ncm, cols, n_real: int, nx: int, P_idx=None):
+def column_panel(ij_i, ij_j, RA, ncm, cols, n_real: int, nx: int, P_idx=None,
+                 out=None):
     """E (nx, len(cols)) float32: E[p, c] is the computed distance of the
     pair (p, cols[c]), +inf where that pair is untracked or uncomputed.
 
     Without ``P_idx`` the panel is a scatter of the computed pairs that
     touch one of the first ``n_real`` columns (the padding columns stay
-    +inf).  With an uncapped incidence matrix it is built from the
-    column points' incidence rows instead, which enumerate exactly those
-    pairs (padding columns repeat their column's entries).  Either way
-    the target slots are unique, so the panel is the same."""
+    +inf), into ``out`` when given (a panel of other pairs' entries: the
+    target slots of distinct pairs differ).  With an uncapped incidence
+    matrix it is built from the column points' incidence rows instead,
+    which enumerate exactly those pairs (padding columns repeat their
+    column's entries).  Either way the target slots are unique, so the
+    panel is the same."""
     m = RA.shape[0]
     ncol = cols.shape[0]
-    E = torch.full((nx, ncol), F32_INF, dtype=torch.float32, device=RA.device)
+    if out is None:
+        out = torch.full((nx, ncol), F32_INF, dtype=torch.float32, device=RA.device)
+    E = out
     if P_idx is None:
         col_of = torch.full((nx,), -1, dtype=torch.int64, device=RA.device)
         col_of[cols[:n_real]] = torch.arange(n_real, device=RA.device)
@@ -436,6 +493,32 @@ def _column_panel(ij_i, ij_j, RA, ncm, cols, n_real: int, nx: int, P_idx=None):
     return E
 
 
+def column_pass(E, ij_i, ij_j, lb, ub, ids, chunk: int):
+    """Tighten the pairs ``ids`` against the panel E, ``chunk`` at a
+    time, in place:
+
+        lb' = max(lb, max_c |E[i,c] - E[j,c]|)   (both entries present)
+        ub' = min(ub, min_c  E[i,c] + E[j,c])"""
+    for s in range(0, ids.shape[0], chunk):
+        sel = ids[s : s + chunk]
+        Ei = E[ij_i[sel].long()]
+        Ej = E[ij_j[sel].long()]
+        both = (Ei < F32_INF) & (Ej < F32_INF)
+        lb_new = torch.where(both, (Ei - Ej).abs(), 0.0).amax(dim=1)
+        ub_new = (Ei + Ej).amin(dim=1)
+        lb[sel] = torch.maximum(lb[sel], lb_new)
+        ub[sel] = torch.minimum(ub[sel], ub_new)
+
+
+def column_chunks(ncol: int, nx: int, col_chunk: int | None = None):
+    """(col_chunk, ncol_pad): the panel is built ``col_chunk`` columns at
+    a time (~2^28 elements), the columns padded to a multiple of it."""
+    if col_chunk is None:
+        col_chunk = max(256, (1 << 28) // max(nx, 1))
+    col_chunk = min(ncol, col_chunk)
+    return col_chunk, ((ncol + col_chunk - 1) // col_chunk) * col_chunk
+
+
 def tighten_cols(ij_i, ij_j, RA, ncm, lb, ub, thresh, ncol: int, cmax: int,
                  chunk: int = 65536, P_idx=None, col_chunk: int | None = None):
     """Column-subsampled bound tightening for nx > 4096.
@@ -443,37 +526,22 @@ def tighten_cols(ij_i, ij_j, RA, ncm, lb, ub, thresh, ncol: int, cmax: int,
     The full tropical self-product needs an (nx, nx) matrix; here the
     pseudo-anchors are the ``ncol`` highest-computed-degree points (any
     column subset gives valid bounds), and only the contender pairs (at
-    most ``cmax``) are updated, ``chunk`` at a time:
-
-        lb' = max(lb, max_c |E[i,c] - E[j,c]|)   (both entries present)
-        ub' = min(ub, min_c  E[i,c] + E[j,c])
-
-    The (nx, ncol) panel is built ``col_chunk`` columns at a time
-    (~2^28 elements) and lb/ub thread through the passes; max and min
-    are order-free, so any split gives the same bits.  ``P_idx`` must be
-    an uncapped incidence matrix or None (``_column_panel``)."""
+    most ``cmax``) are updated, ``chunk`` at a time (``column_pass``).
+    The (nx, ncol) panel is built ``col_chunk`` columns at a time and
+    lb/ub thread through the passes; max and min are order-free, so any
+    split gives the same bits.  ``P_idx`` must be an uncapped incidence
+    matrix or None (``column_panel``)."""
     nx = thresh.shape[0]
-    if col_chunk is None:
-        col_chunk = max(256, (1 << 28) // max(nx, 1))
-    col_chunk = min(ncol, col_chunk)
-    ncol_pad = ((ncol + col_chunk - 1) // col_chunk) * col_chunk
+    col_chunk, ncol_pad = column_chunks(ncol, nx, col_chunk)
     cols, ids = tighten_cols_prep(ij_i, ij_j, ncm, lb, thresh, ncol, ncol_pad, cmax)
     lb = lb.clone()
     ub = ub.clone()
     for c0 in range(0, ncol_pad, col_chunk):
-        E = _column_panel(
+        E = column_panel(
             ij_i, ij_j, RA, ncm, cols[c0 : c0 + col_chunk],
             min(col_chunk, ncol - c0), nx, P_idx,
         )
-        for s in range(0, ids.shape[0], chunk):
-            sel = ids[s : s + chunk]
-            Ei = E[ij_i[sel].long()]
-            Ej = E[ij_j[sel].long()]
-            both = (Ei < F32_INF) & (Ej < F32_INF)
-            lb_new = torch.where(both, (Ei - Ej).abs(), 0.0).amax(dim=1)
-            ub_new = (Ei + Ej).amin(dim=1)
-            lb[sel] = torch.maximum(lb[sel], lb_new)
-            ub[sel] = torch.minimum(ub[sel], ub_new)
+        column_pass(E, ij_i, ij_j, lb, ub, ids, chunk)
         del E
     return lb, ub
 
@@ -494,30 +562,29 @@ def _pair_sums(ij_i, ij_j):
     return _ext(ij_i.long() + ij_j.long(), 0)
 
 
-def knn(RA, ncm, P_idx, ij_i, ij_j, nn: int):
-    """Graph assembly (reference get_nn, utils.py:383-429): per point,
-    the nn smallest of its incidence row, where uncomputed pairs carry a
-    +rowmax penalty so computed pairs win (ties to the lower column).
+# The per-point passes below read a block of incidence rows, P_idx =
+# rows row0.. of the (nx, max_deg) matrix, against the whole pair state
+# extended by one sentinel (RA_pad, ncm_ext, pair_sum; pad ids >= m, the
+# number of real pairs).  The single-device functions pass every row;
+# the sharded fit (``ops/sharded_fit.py``) passes each shard's rows.
 
-    Returns (pair ids (nx, nn), partners, RA values, computed flags)."""
-    dev = RA.device
-    m = RA.shape[0]
-    nx, max_deg = P_idx.shape
-    RA_pad = _ext(RA, F32_INF)
-    ncm_ext = _ext(ncm, True)
-    pair_sum = _pair_sums(ij_i, ij_j)
-    ids = torch.zeros((nx, nn), dtype=torch.int64, device=dev)
-    part = torch.zeros((nx, nn), dtype=torch.int64, device=dev)
-    ra = torch.zeros((nx, nn), dtype=torch.float32, device=dev)
-    cm = torch.zeros((nx, nn), dtype=torch.bool, device=dev)
-    blk = _row_block(nx, max_deg)
-    for start in _row_blocks(nx, blk):
+
+def knn_rows(RA_pad, ncm_ext, pair_sum, P_idx, nn: int, m: int, row0: int = 0):
+    """``knn`` over a block of incidence rows."""
+    dev = RA_pad.device
+    nrows, max_deg = P_idx.shape
+    ids = torch.zeros((nrows, nn), dtype=torch.int64, device=dev)
+    part = torch.zeros((nrows, nn), dtype=torch.int64, device=dev)
+    ra = torch.zeros((nrows, nn), dtype=torch.float32, device=dev)
+    cm = torch.zeros((nrows, nn), dtype=torch.bool, device=dev)
+    blk = _row_block(nrows, max_deg)
+    for start in _row_blocks(nrows, blk):
         rows = P_idx[start : start + blk].long()
         vals = RA_pad[rows]
         ncm_rows = ncm_ext[rows]
         cols = penalised_knn_cols(vals, ncm_rows, rows < m, nn)
         pair_ids = torch.gather(rows, 1, cols)
-        row_ids = torch.arange(start, start + blk, device=dev)[:, None]
+        row_ids = torch.arange(row0 + start, row0 + start + blk, device=dev)[:, None]
         partners = pair_sum[pair_ids] - row_ids
         ids[start : start + blk] = pair_ids
         part[start : start + blk] = torch.where(pair_ids < m, partners, -1)
@@ -526,36 +593,43 @@ def knn(RA, ncm, P_idx, ij_i, ij_j, nn: int):
     return ids, part, ra, cm
 
 
+def knn(RA, ncm, P_idx, ij_i, ij_j, nn: int):
+    """Graph assembly (reference get_nn, utils.py:383-429): per point,
+    the nn smallest of its incidence row, where uncomputed pairs carry a
+    +rowmax penalty so computed pairs win (ties to the lower column).
+
+    Returns (pair ids (nx, nn), partners, RA values, computed flags)."""
+    return knn_rows(_ext(RA, F32_INF), _ext(ncm, True), _pair_sums(ij_i, ij_j), P_idx,
+                    nn, RA.shape[0])
+
+
 # ---------------------------------------------------------------------------
 # nearest-enemy and selective-subset passes (reference annchor.py:685-940):
 # the per-point passes of ``select``/``knn`` restricted to differently
 # labelled partners, so the extras run on the live fit state
 
 
-def _row_view(P_idx, pair_sum, start: int, blk: int, m: int):
-    """(rows, valid, row ids, partners) of an incidence row block."""
-    nx = P_idx.shape[0]
+def _row_view(P_idx, pair_sum, start: int, blk: int, m: int, row0: int, nx: int):
+    """(rows, valid, row ids, partners clamped into [0, nx), partners)
+    of the incidence rows start..start+blk of a block whose first row is
+    point row0.  Row ids past nx (a sharded matrix's padding rows, whose
+    entries are all pads) are clamped to nx - 1 for label lookups."""
     rows = P_idx[start : start + blk].long()
-    row_ids = torch.arange(start, start + blk, device=P_idx.device)
+    row_ids = torch.arange(row0 + start, row0 + start + blk, device=P_idx.device)
     others = pair_sum[rows] - row_ids[:, None]
-    return rows, rows < m, row_ids, others.clamp(0, nx - 1), others
+    return rows, rows < m, row_ids.clamp(max=nx - 1), others.clamp(0, nx - 1), others
 
 
-def enemy_refine_select(RA, ncm, P_idx, ij_i, ij_j, y, k: int):
-    """Per point, its k closest predicted differently-labelled partners
-    among its tracked pairs, ties to the lower column, where still
-    uncomputed (reference annchor.py:753-769).  y: int64 label codes.
-    Returns int64 (nx, min(k, max_deg)) pair ids, m where none."""
-    m = RA.shape[0]
-    nx, max_deg = P_idx.shape
-    RA_pad = _ext(RA, F32_INF)
-    ncm_ext = _ext(ncm, False)
-    pair_sum = _pair_sums(ij_i, ij_j)
-    kk = min(int(k), max_deg)
-    out = torch.full((nx, kk), m, dtype=torch.int64, device=RA.device)
-    blk = _row_block(nx, max_deg)
-    for start in _row_blocks(nx, blk):
-        rows, valid, row_ids, oc, _ = _row_view(P_idx, pair_sum, start, blk, m)
+def enemy_refine_rows(RA_pad, ncm_ext, pair_sum, P_idx, y, kk: int, m: int,
+                      row0: int = 0):
+    """``enemy_refine_select`` over a block of incidence rows (kk <=
+    max_deg)."""
+    nrows, max_deg = P_idx.shape
+    nx = y.shape[0]
+    out = torch.full((nrows, kk), m, dtype=torch.int64, device=RA_pad.device)
+    blk = _row_block(nrows, max_deg)
+    for start in _row_blocks(nrows, blk):
+        rows, valid, row_ids, oc, _ = _row_view(P_idx, pair_sum, start, blk, m, row0, nx)
         emask = valid & (y[oc] != y[row_ids][:, None])
         dmat = torch.where(emask, RA_pad[rows], F32_INF)
         cols = torch.sort(dmat, dim=1, stable=True).indices[:, :kk]
@@ -565,24 +639,27 @@ def enemy_refine_select(RA, ncm, P_idx, ij_i, ij_j, y, k: int):
     return out
 
 
-def enemy_knn(RA, ncm, P_idx, ij_i, ij_j, y, nn: int):
-    """Nearest-enemy graph assembly (reference annchor.py:771-787): per
-    point the nn smallest of its incidence row, where uncomputed and
-    same-label partners each carry a +rowmax penalty (ties to the lower
-    column).  Returns (pair ids, partners (0 where none), RA values),
-    each (nx, nn)."""
-    dev = RA.device
-    m = RA.shape[0]
-    nx, max_deg = P_idx.shape
-    RA_pad = _ext(RA, F32_INF)
-    ncm_ext = _ext(ncm, True)
-    pair_sum = _pair_sums(ij_i, ij_j)
-    ids = torch.zeros((nx, nn), dtype=torch.int64, device=dev)
-    part = torch.zeros((nx, nn), dtype=torch.int64, device=dev)
-    ra = torch.zeros((nx, nn), dtype=torch.float32, device=dev)
-    blk = _row_block(nx, max_deg)
-    for start in _row_blocks(nx, blk):
-        rows, valid, row_ids, oc, others = _row_view(P_idx, pair_sum, start, blk, m)
+def enemy_refine_select(RA, ncm, P_idx, ij_i, ij_j, y, k: int):
+    """Per point, its k closest predicted differently-labelled partners
+    among its tracked pairs, ties to the lower column, where still
+    uncomputed (reference annchor.py:753-769).  y: int64 label codes.
+    Returns int64 (nx, min(k, max_deg)) pair ids, m where none."""
+    return enemy_refine_rows(_ext(RA, F32_INF), _ext(ncm, False), _pair_sums(ij_i, ij_j),
+                             P_idx, y, min(int(k), P_idx.shape[1]), RA.shape[0])
+
+
+def enemy_knn_rows(RA_pad, ncm_ext, pair_sum, P_idx, y, nn: int, m: int, row0: int = 0):
+    """``enemy_knn`` over a block of incidence rows."""
+    dev = RA_pad.device
+    nrows, max_deg = P_idx.shape
+    nx = y.shape[0]
+    ids = torch.zeros((nrows, nn), dtype=torch.int64, device=dev)
+    part = torch.zeros((nrows, nn), dtype=torch.int64, device=dev)
+    ra = torch.zeros((nrows, nn), dtype=torch.float32, device=dev)
+    blk = _row_block(nrows, max_deg)
+    for start in _row_blocks(nrows, blk):
+        rows, valid, row_ids, oc, others = _row_view(P_idx, pair_sum, start, blk, m, row0,
+                                                     nx)
         vals = RA_pad[rows]
         same = y[oc] == y[row_ids][:, None]
         mx = torch.where(valid, vals, -F32_INF).amax(dim=1, keepdim=True)
@@ -606,25 +683,40 @@ def enemy_knn(RA, ncm, P_idx, ij_i, ij_j, y, nn: int):
     return ids, part, ra
 
 
+def enemy_knn(RA, ncm, P_idx, ij_i, ij_j, y, nn: int):
+    """Nearest-enemy graph assembly (reference annchor.py:771-787): per
+    point the nn smallest of its incidence row, where uncomputed and
+    same-label partners each carry a +rowmax penalty (ties to the lower
+    column).  Returns (pair ids, partners (0 where none), RA values),
+    each (nx, nn)."""
+    return enemy_knn_rows(_ext(RA, F32_INF), _ext(ncm, True), _pair_sums(ij_i, ij_j),
+                          P_idx, y, nn, RA.shape[0])
+
+
+def cover_incidence_rows(dists_pad, pair_sum, P_idx, slot, radii, S: int, m: int,
+                         row0: int = 0):
+    """``cover_incidence`` over a block of incidence rows: (rows, S)."""
+    nrows, max_deg = P_idx.shape
+    nx = slot.shape[0]
+    inc = torch.zeros((nrows, S), dtype=torch.int32, device=dists_pad.device)
+    blk = _row_block(nrows, max_deg)
+    for start in _row_blocks(nrows, blk):
+        rows, valid, row_ids, oc, _ = _row_view(P_idx, pair_sum, start, blk, m, row0, nx)
+        sl = slot[oc]
+        live = valid & (sl >= 0) & (dists_pad[rows] < radii[row_ids][:, None] - 1e-6)
+        r = torch.arange(start, start + blk, device=inc.device)[:, None].expand_as(rows)
+        inc[r[live], sl[live]] = 1
+    return inc
+
+
 def cover_incidence(RA, ncm, ub, P_idx, ij_i, ij_j, slot, radii, S: int):
     """Selective-subset cover incidence: inc[p, s] = 1 iff subset member
     s (``slot`` maps a point to its member index, -1 for non-members) is
     a tracked partner of p strictly inside p's enemy radius, by the
     pair's exact value or, where uncomputed, its upper bound.
     Returns int32 (nx, S)."""
-    m = RA.shape[0]
-    nx, max_deg = P_idx.shape
-    dists_pad = _ext(torch.where(ncm, ub, RA), F32_INF)
-    pair_sum = _pair_sums(ij_i, ij_j)
-    inc = torch.zeros((nx, S), dtype=torch.int32, device=RA.device)
-    blk = _row_block(nx, max_deg)
-    for start in _row_blocks(nx, blk):
-        rows, valid, row_ids, oc, _ = _row_view(P_idx, pair_sum, start, blk, m)
-        sl = slot[oc]
-        live = valid & (sl >= 0) & (dists_pad[rows] < radii[row_ids][:, None] - 1e-6)
-        r = row_ids[:, None].expand_as(rows)
-        inc[r[live], sl[live]] = 1
-    return inc
+    return cover_incidence_rows(_ext(torch.where(ncm, ub, RA), F32_INF),
+                                _pair_sums(ij_i, ij_j), P_idx, slot, radii, S, RA.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -682,11 +774,17 @@ class DeviceFitState:
     (``ann._ij_dev`` set) run in sparse mode: the pair list comes from
     the device build and never reaches the host, the not-computed mask
     lives only on the device, and the exact values sit in an
-    ``ExactStore`` sized by the eval budget."""
+    ``ExactStore`` sized by the eval budget.
+
+    On a device mesh (``parallel.auto_mesh``) the per-pair arrays and the
+    incidence matrix are lists of per-shard tensors and every stage runs
+    through ``self.shard`` (``ops/sharded_fit.ShardedFit``); the host
+    bookkeeping is the same."""
 
     CDF_GRID = 4096
     TIGHTEN_NCOL = 2048  # pseudo-anchor columns above MAX_FULL_MATRIX_NX
     TIGHTEN_CMAX = 1 << 23  # contender pairs per column tighten
+    shard = None  # the ShardedFit of a state on a device mesh
 
     def __init__(self, ann):
         self.ann = ann
@@ -701,13 +799,33 @@ class DeviceFitState:
             self.ij_i = torch.as_tensor(IJs[:, 0].astype(np.int32), device=dev)
             self.ij_j = torch.as_tensor(IJs[:, 1].astype(np.int32), device=dev)
 
+        # a device mesh shards the whole pair state; sentinel pairs (0, 0)
+        # pad it to a multiple of the mesh size
+        mesh = parallel.auto_mesh(dev)
+        self.shard = None
+        if mesh is not None:
+            from annchor_tpu_torch.ops.sharded_fit import ShardedFit
+
+            s = mesh.size
+            self.shard = ShardedFit(mesh, self.m, -(-self.m // s) * s, nx, -(-nx // s) * s)
+            self.device = dev = mesh.devices[0]
+            self.ij_i = self.shard.put_pairs(self.ij_i, fill=0)
+            self.ij_j = self.shard.put_pairs(self.ij_j, fill=0)
+        self.m_pad = self.m if self.shard is None else self.shard.m_pad
+
         D32 = torch.as_tensor(np.asarray(ann.D, dtype=np.float32), device=dev)
         # keep the (chunk, na) gathers near 0.5 GB
         fchunk = max(1 << 18, (1 << 27) // max(D32.shape[1], 1))
-        self.lb, self.ub, self.dad = features(D32, self.ij_i, self.ij_j, fchunk)
+        if self.shard is not None:
+            self.lb, self.ub, self.dad = self.shard.features(D32, self.ij_i, self.ij_j,
+                                                             fchunk)
+        else:
+            self.lb, self.ub, self.dad = features(D32, self.ij_i, self.ij_j, fchunk)
 
         if not self.sparse and self.m == nx * (nx - 1) // 2:
             self.P_idx_d = pidx_full(nx, dev)
+            if self.shard is not None:
+                self.P_idx_d = self.shard.put_rows(self.P_idx_d)
             self._pidx_capped = True
         else:
             self._rebuild_pidx()
@@ -718,15 +836,32 @@ class DeviceFitState:
         if self.sparse:
             self.anchor_flag = self.ncm_host = None
             is_anchor = torch.as_tensor(anchor_np, device=dev)
-            af = is_anchor[self.ij_i] | is_anchor[self.ij_j]
-            self.ncm = ~af
+            if self.shard is not None:
+                # sentinel pairs are neither anchor pairs nor samplable
+                flags, self.ncm = [], []
+                for c, isa in enumerate(parallel.broadcast(is_anchor, self.shard.devices)):
+                    af = isa[self.ij_i[c]] | isa[self.ij_j[c]]
+                    real = self.shard._real_mask(c)
+                    if real is not None:
+                        af = af & real
+                    flags.append(af)
+                    self.ncm.append(~af if real is None else ~af & real)
+                ids = np.concatenate([
+                    torch.nonzero(af)[:, 0].cpu().numpy() + c * self.shard.shard_m
+                    for c, af in enumerate(flags)
+                ])
+            else:
+                af = is_anchor[self.ij_i] | is_anchor[self.ij_j]
+                self.ncm = ~af
+                ids = torch.nonzero(af)[:, 0].cpu().numpy()
             self.exact = ExactStore()
-            ids = torch.nonzero(af)[:, 0].cpu().numpy()
             self.pool = self.m - ids.shape[0]
         else:
             self.anchor_flag = anchor_np[IJs[:, 0]] | anchor_np[IJs[:, 1]]
             self.ncm_host = ~self.anchor_flag
             self.ncm = torch.as_tensor(self.ncm_host, device=dev)
+            if self.shard is not None:
+                self.ncm = self.shard.put_pairs(self.ncm, fill=False)
             self.pool = int(self.ncm_host.sum())
             self.exact64 = np.full(self.m, np.nan)
             ids = np.flatnonzero(self.anchor_flag)
@@ -734,6 +869,9 @@ class DeviceFitState:
         self._fill_anchor_exacts(self._anchor_ids)
 
         self.RA = torch.zeros(self.m, dtype=torch.float32, device=dev)
+        if self.shard is not None:
+            # sentinel RA stays +inf: incidence pads read "worse than all"
+            self.RA = self.shard.put_pairs(self.RA, fill=F32_INF)
         self.thresh = None
         self._started = False
         self._pending_exact = []
@@ -744,10 +882,18 @@ class DeviceFitState:
         self._override = None
         if not ann.is_metric and self._anchor_ids is not None:
             ids = self._anchor_ids
-            self._override = (
-                torch.as_tensor(ids, device=dev),
-                torch.as_tensor(self._exact_at(ids).astype(np.float32), device=dev),
-            )
+            vals = self._exact_at(ids).astype(np.float32)
+            if self.shard is not None:
+                self._override = self.shard.localize(ids, vals)
+            else:
+                self._override = (
+                    torch.as_tensor(ids, device=dev), torch.as_tensor(vals, device=dev)
+                )
+
+    @property
+    def _pidx_width(self) -> int:
+        P = self.P_idx_d[0] if self.shard is not None else self.P_idx_d
+        return int(P.shape[1])
 
     def _rebuild_pidx(self):
         """Incidence matrix on the device.  Rows are capped at
@@ -761,19 +907,34 @@ class DeviceFitState:
         budget = int(os.environ.get("ANNCHOR_TPU_PIDX_BUDGET", PIDX_BUDGET_ELEMS))
         cap = max(2 * ann.n_neighbors, budget // max(nx, 1))
         self._pidx_capped = max_deg > cap
-        if self._pidx_capped:
+        if self.shard is not None:
+            self.P_idx_d = self.shard.build_pidx(
+                self.ij_i, self.ij_j, self.lb, nx, min(cap, max_deg), self._pidx_capped
+            )
+        elif self._pidx_capped:
             self.P_idx_d = pidx_from_pairs(self.ij_i, self.ij_j, nx, cap, lb=self.lb)
         else:
             self.P_idx_d = pidx_from_pairs(self.ij_i, self.ij_j, nx, max_deg)
+
+    def _gather_rows(self, arrs, ids):
+        """Values of per-pair arrays at the pair ids ``ids`` (a tensor)."""
+        if self.shard is not None:
+            return self.shard.gather_pairs(arrs, ids)
+        return tuple(a[ids] for a in arrs)
+
+    def _host(self, t):
+        """A per-pair array's real entries on the host."""
+        if self.shard is not None:
+            t = self.shard.real(t)
+        return t.cpu().numpy()
 
     def _pairs_at(self, ids):
         """(len, 2) int64 host pair coordinates for pair ids."""
         if not self.sparse:
             return self.ann.IJs[ids].astype(np.int64)
         idd = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
-        return torch.stack([self.ij_i[idd], self.ij_j[idd]], dim=1).cpu().numpy().astype(
-            np.int64
-        )
+        ii, jj = self._gather_rows((self.ij_i, self.ij_j), idd)
+        return torch.stack([ii, jj], dim=1).cpu().numpy().astype(np.int64)
 
     def _exact_at(self, ids):
         """Stored exact values of pair ids (NaN where none)."""
@@ -847,14 +1008,21 @@ class DeviceFitState:
             random_seed, sampler.loop_num, self.m, self.device
         )
         sampler.loop_num += 1
+        if self.shard is not None:
+            # the padding's draws are never read: its pairs are not in the pool
+            r = torch.cat([r, r.new_zeros(self.m_pad - self.m)])
+            draw = self.shard.sample_draw
+            dad, ncm = self.dad, self.ncm
+        else:
+            draw, dad, ncm = sample_draw, self.dad, self.ncm
 
         def run(quotas_t, equal_mass=False):
-            ids, got, inner = sample_draw(
-                self.dad, self.ncm, r, min(ilo, pool - 1), min(ihi, pool - 1),
+            ids, got, inner = draw(
+                dad, ncm, r, min(ilo, pool - 1), min(ihi, pool - 1),
                 pool, quotas_t, equal_mass=equal_mass,
             )
             c = ids.clamp(0, self.m - 1)
-            rows = (self.lb[c], self.ub[c], self.dad[c], self.ij_i[c], self.ij_j[c])
+            rows = self._gather_rows((self.lb, self.ub, self.dad, self.ij_i, self.ij_j), c)
             y = None if batch_dev is None else batch_dev(rows[3], rows[4])
             return ids.cpu().numpy(), got.cpu().numpy(), inner, rows, y
 
@@ -907,16 +1075,24 @@ class DeviceFitState:
         icepts = torch.as_tensor(
             np.asarray(regression.intercepts, np.float32), device=dev
         )
-        sids = torch.as_tensor(sample_ids.astype(np.int64), device=dev)
-        sy = torch.as_tensor(sample_y.astype(np.float32), device=dev)
-        self.RA, self.ncm = regress_update(
-            self.lb, self.ub, self.dad, self.RA, self.ncm,
-            inner, coefs, icepts, sids, sy,
-            self.ann.is_metric, not self._started,
-        )
+        init = not self._started
+        if self.shard is not None:
+            self.RA, self.ncm = self.shard.regress_update(
+                self.lb, self.ub, self.dad, self.RA, self.ncm, inner, coefs, icepts,
+                sample_ids, sample_y, self.ann.is_metric, init,
+            )
+            if self._override is not None:
+                self.RA = self.shard.override_rows(self.RA, self._override)
+        else:
+            sids = torch.as_tensor(sample_ids.astype(np.int64), device=dev)
+            sy = torch.as_tensor(sample_y.astype(np.float32), device=dev)
+            self.RA, self.ncm = regress_update(
+                self.lb, self.ub, self.dad, self.RA, self.ncm,
+                inner, coefs, icepts, sids, sy, self.ann.is_metric, init,
+            )
+            if self._override is not None:
+                self.RA[self._override[0]] = self._override[1]
         self._started = True
-        if self._override is not None:
-            self.RA[self._override[0]] = self._override[1]
         self._store_exact(sample_ids, sample_y)
         return predict_sample_host(regression, sample_features)
 
@@ -948,7 +1124,8 @@ class DeviceFitState:
         grid, lo, hi, inv = (
             torch.as_tensor(a, device=dev) for a in self._cdf_tables(error_predictor)
         )
-        chosen, self.thresh, sel_i, sel_j = select(
+        run = select if self.shard is None else self.shard.select
+        chosen, self.thresh, sel_i, sel_j = run(
             self.RA, self.ncm, self.ij_i, self.ij_j, self.dad, self.P_idx_d,
             inner, grid, lo, inv, hi,
             int(nn), n_ref, bool(guarantee), int(nmin),
@@ -977,7 +1154,8 @@ class DeviceFitState:
             return 0
         chosen, sel_i, sel_j = self._select(error_predictor, n_ref, nn, guarantee, nmin)
         y = batch_dev(sel_i, sel_j).to(torch.float32)
-        self.RA, self.ncm = scatter_exact(self.RA, self.ncm, chosen, y)
+        scatter = scatter_exact if self.shard is None else self.shard.scatter_exact
+        self.RA, self.ncm = scatter(self.RA, self.ncm, chosen, y)
         # `chosen` holds n_ref distinct uncomputed ids (computed pairs
         # score -1 and n_ref <= pool), so the budget is settled now
         self._pending_exact.append((chosen, y))
@@ -1010,9 +1188,12 @@ class DeviceFitState:
             self.apply_exact(ids, vals)
 
     def apply_exact(self, ids, vals):
-        idd = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
-        vd = torch.as_tensor(np.asarray(vals, np.float32), device=self.device)
-        self.RA, self.ncm = scatter_exact(self.RA, self.ncm, idd, vd)
+        if self.shard is not None:
+            self.RA, self.ncm = self.shard.scatter_exact_host(self.RA, self.ncm, ids, vals)
+        else:
+            idd = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+            vd = torch.as_tensor(np.asarray(vals, np.float32), device=self.device)
+            self.RA, self.ncm = scatter_exact(self.RA, self.ncm, idd, vd)
         self._store_exact(ids, vals)
 
     def tighten(self):
@@ -1021,32 +1202,37 @@ class DeviceFitState:
         tighten of the contender pairs, which needs the thresholds of a
         selection."""
         nx = self.ann.nx
+        args = (self.ij_i, self.ij_j, self.RA, self.ncm, self.lb, self.ub)
         if nx <= MAX_FULL_MATRIX_NX:
-            self.lb, self.ub = tighten_full(
-                self.ij_i, self.ij_j, self.RA, self.ncm, self.lb, self.ub, nx
-            )
+            run = tighten_full if self.shard is None else self.shard.tighten_full
+            self.lb, self.ub = run(*args, nx)
             return
         if self.thresh is None:
             return
-        self.lb, self.ub = tighten_cols(
-            self.ij_i, self.ij_j, self.RA, self.ncm, self.lb, self.ub, self.thresh,
-            min(self.TIGHTEN_NCOL, nx), int(min(self.TIGHTEN_CMAX, self.m)),
-            P_idx=None if self._pidx_capped else self.P_idx_d,
-        )
+        ncol, cmax = min(self.TIGHTEN_NCOL, nx), int(min(self.TIGHTEN_CMAX, self.m))
+        if self.shard is not None:
+            self.lb, self.ub = self.shard.tighten_cols(*args, self.thresh, ncol, cmax)
+        else:
+            self.lb, self.ub = tighten_cols(
+                *args, self.thresh, ncol, cmax,
+                P_idx=None if self._pidx_capped else self.P_idx_d,
+            )
 
     def finalise(self):
         self.tighten()
-        self.RA = clip_ra(self.RA, self.ncm, self.lb, self.ub)
+        run = clip_ra if self.shard is None else self.shard.clip_ra
+        self.RA = run(self.RA, self.ncm, self.lb, self.ub)
 
     def knn_graph(self, nn):
         """Final k-NN graph: exact distances from the host float64
         mirror, predicted ones from the f32 estimates.  A computed edge
         whose value is still pending on the host reads its RA entry,
         which holds the same f32 value the flush would store."""
-        nn = min(int(nn), int(self.P_idx_d.shape[1]))
+        nn = min(int(nn), self._pidx_width)
+        run = knn if self.shard is None else self.shard.knn
         pair_ids, partners, ra_sel, sel_cm = (
             t.cpu().numpy()
-            for t in knn(self.RA, self.ncm, self.P_idx_d, self.ij_i, self.ij_j, nn)
+            for t in run(self.RA, self.ncm, self.P_idx_d, self.ij_i, self.ij_j, nn)
         )
         pair_ids = pair_ids.astype(np.int64)
         ngi = partners.astype(np.int64)
@@ -1069,9 +1255,10 @@ class DeviceFitState:
             return np.zeros(IJ.shape[0], dtype=bool)
         nx = self.ann.nx
         if self._tracked_keys is None:
-            self._tracked_keys = torch.sort(
-                self.ij_i.long() * nx + self.ij_j.long()
-            ).values
+            ii, jj = self.ij_i, self.ij_j
+            if self.shard is not None:
+                ii, jj = self.shard.real(ii), self.shard.real(jj)
+            self._tracked_keys = torch.sort(ii.long() * nx + jj.long()).values
         keys = self._tracked_keys
         q = torch.as_tensor(IJ[:, 0] * nx + IJ[:, 1], device=self.device)
         pos = torch.searchsorted(keys, q).clamp_(max=self.m - 1)
@@ -1082,7 +1269,8 @@ class DeviceFitState:
         candidates) to the state: features and clipped predictions on
         the device, anchor pairs exact from the D columns, and the pair
         list, ``ann.IJs``, ``ann.P_cnt`` and the incidence matrix kept
-        aligned at the new m (reference annchor.py:734-742)."""
+        aligned at the new m (reference annchor.py:734-742).  A sharded
+        state is split anew over the mesh at the new m."""
         self._flush_exacts()
         ann = self.ann
         nx = ann.nx
@@ -1110,14 +1298,23 @@ class DeviceFitState:
         is_anchor = anchor_np[IJ_new[:, 0]] | anchor_np[IJ_new[:, 1]]
         ncm_new = ~is_anchor
 
-        self.ij_i = torch.cat([self.ij_i, ii])
-        self.ij_j = torch.cat([self.ij_j, jj])
-        self.lb = torch.cat([self.lb, lb2])
-        self.ub = torch.cat([self.ub, ub2])
-        self.dad = torch.cat([self.dad, dad2])
-        self.RA = torch.cat([self.RA, pred])
-        self.ncm = torch.cat([self.ncm, torch.as_tensor(ncm_new, device=dev)])
+        real = (lambda t: t) if self.shard is None else self.shard.real
+        cat = {
+            "ij_i": (ii, 0), "ij_j": (jj, 0), "lb": (lb2, 0), "ub": (ub2, F32_INF),
+            "dad": (dad2, 0), "RA": (pred, F32_INF),
+            "ncm": (torch.as_tensor(ncm_new, device=dev), False),
+        }
+        cat = {name: (torch.cat([real(getattr(self, name)), t]), fill)
+               for name, (t, fill) in cat.items()}
         self.m = m_old + k
+        if self.shard is not None:
+            from annchor_tpu_torch.ops.sharded_fit import ShardedFit
+
+            mesh, s = self.shard.mesh, self.shard.s
+            self.shard = ShardedFit(mesh, self.m, -(-self.m // s) * s, nx, self.shard.nx_pad)
+            self.m_pad = self.shard.m_pad
+        for name, (t, fill) in cat.items():
+            setattr(self, name, t if self.shard is None else self.shard.put_pairs(t, fill))
         self._tracked_keys = None
 
         # the orchestrator's pair-list views follow the state
@@ -1126,7 +1323,7 @@ class DeviceFitState:
                 [ann._IJs, IJ_new.astype(ann._IJs.dtype)], axis=0
             )
         if ann._ij_dev is not None:
-            ann._ij_dev = (self.ij_i, self.ij_j, self.m)
+            ann._ij_dev = (cat["ij_i"][0], cat["ij_j"][0], self.m)
         ann._P_idx = None
 
         self.pool += int(ncm_new.sum())
@@ -1152,20 +1349,20 @@ class DeviceFitState:
         still uncomputed, deduplicated and sorted (host int64)."""
         self._flush_exacts()
         y = torch.as_tensor(np.asarray(y_codes, dtype=np.int64), device=self.device)
-        ids = enemy_refine_select(
-            self.RA, self.ncm, self.P_idx_d, self.ij_i, self.ij_j, y, k
-        ).reshape(-1)
+        run = enemy_refine_select if self.shard is None else self.shard.enemy_refine
+        ids = run(self.RA, self.ncm, self.P_idx_d, self.ij_i, self.ij_j, y, k).reshape(-1)
         return torch.unique(ids[ids < self.m]).cpu().numpy()
 
     def enemy_knn_graph(self, y_codes, nn):
         """The nearest-enemy graph: exact distances from the float64
         host store, predicted ones from the f32 estimates."""
         self._flush_exacts()
-        nn = min(int(nn), int(self.P_idx_d.shape[1]))
+        nn = min(int(nn), self._pidx_width)
         y = torch.as_tensor(np.asarray(y_codes, dtype=np.int64), device=self.device)
+        run = enemy_knn if self.shard is None else self.shard.enemy_knn
         pair_ids, partners, ra_sel = (
             t.cpu().numpy()
-            for t in enemy_knn(self.RA, self.ncm, self.P_idx_d, self.ij_i, self.ij_j, y, nn)
+            for t in run(self.RA, self.ncm, self.P_idx_d, self.ij_i, self.ij_j, y, nn)
         )
         exact = self._exact_at(np.clip(pair_ids, 0, self.m - 1))
         is_exact = (pair_ids < self.m) & ~np.isnan(exact)
@@ -1179,7 +1376,8 @@ class DeviceFitState:
         slot = np.asarray(slot, dtype=np.int64)
         S = int(slot.max()) + 1
         dev = self.device
-        inc = cover_incidence(
+        run = cover_incidence if self.shard is None else self.shard.cover_incidence
+        inc = run(
             self.RA, self.ncm, self.ub, self.P_idx_d, self.ij_i, self.ij_j,
             torch.as_tensor(slot, device=dev),
             torch.as_tensor(np.asarray(radii, dtype=np.float32), device=dev), S,
@@ -1192,7 +1390,7 @@ class DeviceFitState:
         """The host not-computed mask (downloaded in sparse mode)."""
         self._flush_exacts()
         if self.sparse:
-            return self.ncm.cpu().numpy()
+            return self._host(self.ncm)
         return self.ncm_host
 
     def materialise(self):
@@ -1207,14 +1405,14 @@ class DeviceFitState:
             af = self.anchor_flag.astype(np.float64)
         features = np.stack(
             [
-                self.lb.cpu().numpy().astype(np.float64),
-                self.ub.cpu().numpy().astype(np.float64),
-                self.dad.cpu().numpy().astype(np.float64),
+                self._host(self.lb).astype(np.float64),
+                self._host(self.ub).astype(np.float64),
+                self._host(self.dad).astype(np.float64),
                 af,
             ],
             axis=1,
         )
-        RA = self.RA.cpu().numpy().astype(np.float64)
+        RA = self._host(self.RA).astype(np.float64)
         if self.sparse:
             RA[self.exact.ids] = self.exact.vals
             return features, RA, self.ncm_to_host()

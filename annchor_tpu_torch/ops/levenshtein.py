@@ -97,6 +97,12 @@ class RowDPEncoding:
     def n(self) -> int:
         return int(self.ids.shape[0])
 
+    def to(self, device) -> "RowDPEncoding":
+        """A copy of the tables on ``device`` (a mesh shard's)."""
+        out = object.__new__(RowDPEncoding)
+        out.ids, out.lengths, out.lmax = self.ids.to(device), self.lengths.to(device), self.lmax
+        return out
+
 
 def rowdp_pairs(enc: RowDPEncoding, I, J):
     """Edit distances of the pairs (I[k], J[k]) as an int32 tensor, by the

@@ -132,6 +132,14 @@ class MyersEncoding:
     def n(self) -> int:
         return int(self.peq.shape[0])
 
+    def to(self, device) -> "MyersEncoding":
+        """A copy of the tables on ``device`` (a mesh shard's)."""
+        out = object.__new__(MyersEncoding)
+        for name in self.__slots__:
+            v = getattr(self, name)
+            setattr(out, name, v.to(device) if isinstance(v, torch.Tensor) else v)
+        return out
+
     @classmethod
     def from_codes(cls, codes, lengths, device):
         """The encoding of a padded codepoint matrix: a MyersEncoding, or

@@ -23,7 +23,9 @@ Three builds:
   (``candidate_pairs_device_budgeted``), which keeps each point's
   ``per_point_cap`` candidates of smallest score (the triangle lower
   bound, or with ``ANNCHOR_TPU_BUILD_SCORE=rms`` the anchor profiles'
-  RMS difference) and returns the pair list on the device.
+  RMS difference) and returns the pair list on the device; on a device
+  mesh its bands are dealt out over the shards
+  (``_budgeted_bands_sharded``).
 
 and the same counts serve the post-fit surface: the query candidates
 (``query_candidates``) and the nearest-enemy candidates
@@ -42,6 +44,7 @@ import os
 import numpy as np
 import torch
 
+from annchor_tpu_torch import parallel
 from annchor_tpu_torch.ops.features import _f32, anchor_membership, shared_anchor_counts
 from annchor_tpu_torch.progress import progress
 
@@ -445,6 +448,65 @@ def _extract_rows(keep, row_off: int, rows_per: int):
     return parts_i, parts_j
 
 
+def _budgeted_bands_sharded(mesh, D32p, Sp, effp, nx: int, nblk: int, cchunk: int,
+                            inv_bin, bin_w, nbins: int, per_point_cap: int,
+                            rows_per: int, verbose: bool):
+    """Both passes of the budgeted band build dealt out over a device
+    mesh: shard c of group g takes band g*s + c, on its own device
+    against its device's copy of the padded membership, anchor distances
+    and thresholds.  Pass 1's per-band thresholds cover disjoint rows and
+    are gathered in band order; pass 2's P_cnt partials are integer adds
+    summed once, and the kept pairs concatenate in band order (group
+    ascending, shard ascending).  Every band runs the single-device
+    loop's functions, so the result is that loop's, bit for bit.  (The
+    JAX package's ``_ShardedBudgetedBuild`` also caches the compiled
+    ``shard_map`` programs; there is nothing to cache here.)
+
+    Returns (ij_i, ij_j int32, P_cnt int64 (nxp,)) on the mesh's first
+    device."""
+    devs = mesh.devices
+    s = mesh.size
+    first = devs[0]
+    nbands = Sp.shape[0] // nblk
+    groups = range(-(-nbands // s))
+    Ss, Ds, es, invs, bws = (parallel.broadcast(t, devs) for t in (Sp, D32p, effp, inv_bin,
+                                                                  bin_w))
+
+    def bands(g):
+        """(shard, first row) of group g's bands."""
+        return [(c, (g * s + c) * nblk) for c in range(s) if g * s + c < nbands]
+
+    thr_parts = []
+    for g in progress(groups, "pair-budget pass 1 (sharded)", verbose):
+        for c, r0 in bands(g):
+            r1 = r0 + nblk
+            BINs = _band_bins_sym(Ds[c], Ss[c], Ss[c][r0:r1], Ds[c][r0:r1], es[c][r0:r1],
+                                  es[c], r0, nx, invs[c], nbins, cchunk, "linf")
+            thr_parts.append(_band_thr_from_bins(BINs, per_point_cap, bws[c], nbins))
+            del BINs
+    thr = parallel.all_gather(thr_parts, devs)
+
+    parts_i, parts_j = [], []
+    pcnt = [torch.zeros(Sp.shape[0], dtype=torch.int64, device=d) for d in devs]
+    for g in progress(groups, "pair-budget pass 2 (sharded)", verbose):
+        for c, r0 in bands(g):
+            r1 = r0 + nblk
+            keep, rowcnt, colcnt = _band_keep2_dense(
+                Ds[c], Ss[c], Ss[c][r0:r1], Ds[c][r0:r1], es[c][r0:r1], es[c], thr[c], r0,
+                nx, cchunk, "linf")
+            pcnt[c] += colcnt
+            pcnt[c][r0:r1] += rowcnt
+            pi, pj = _extract_rows(keep, r0, rows_per)
+            parts_i += [parallel.to_device(t, first) for t in pi]
+            parts_j += [parallel.to_device(t, first) for t in pj]
+            del keep
+    P_cnt = parallel.psum(pcnt, [first])[0]
+    if not parts_i:
+        empty = torch.zeros(0, dtype=torch.int32, device=first)
+        return empty, empty.clone(), P_cnt
+    return torch.cat(parts_i), torch.cat(parts_j), P_cnt
+
+
 def candidate_pairs_device_budgeted(
     D,
     locality: int,
@@ -467,6 +529,12 @@ def candidate_pairs_device_budgeted(
     ``_pre`` = (S, sid, eff) from the admit-everything build's counting
     pass skips the membership and thresholds.
 
+    On a device mesh (``parallel.auto_mesh``; ``ANNCHOR_TPU_NO_SHARDED_BUILD``
+    opts out) the bands are dealt out over the shards
+    (``_budgeted_bands_sharded``), with the same result.  The sharded
+    build ranks by "linf" only, as the JAX package's does; where that
+    package then drops "rms" for "linf" unannounced, this one raises.
+
     Pass 1 bins each row band's triangle lower bounds (symmetric view,
     so a row sees every admitted partner) and derives each point's
     threshold; pass 2 re-streams the bands, keeps the pairs i < j under
@@ -480,11 +548,20 @@ def candidate_pairs_device_budgeted(
     if score not in ("linf", "rms"):
         # the JAX package takes linf for any other value, unannounced
         raise ValueError("ANNCHOR_TPU_BUILD_SCORE must be 'linf' or 'rms', got %r" % score)
-    if score == "rms":
-        nbins = max(nbins, 8192)
     D = np.asarray(D)
     nx = D.shape[0]
     dev = torch.device(device)
+    mesh = None
+    if not os.environ.get("ANNCHOR_TPU_NO_SHARDED_BUILD"):
+        mesh = parallel.auto_mesh(dev)
+    if mesh is not None and score != "linf":
+        raise ValueError(
+            "ANNCHOR_TPU_BUILD_SCORE=%r: the budgeted build on a mesh of %d shards ranks "
+            "by 'linf' only; unset the score, or build on one device "
+            "(ANNCHOR_TPU_NO_SHARDED_BUILD=1)" % (score, mesh.size)
+        )
+    if score == "rms":
+        nbins = max(nbins, 8192)
     if _pre is not None:
         S, sid, eff = _pre
     else:
@@ -510,6 +587,14 @@ def candidate_pairs_device_budgeted(
     D32p = torch.nn.functional.pad(D32, (0, 0, 0, pad))
     effp = torch.nn.functional.pad(eff, (0, pad), value=float("inf"))
 
+    rows_per = max(1, min(nblk, _EXTRACT_ELEMS // max(nxp, 1)))
+    if mesh is not None:
+        ij_i, ij_j, P_cnt = _budgeted_bands_sharded(
+            mesh, D32p, Sp, effp, nx, nblk, cchunk, inv_bin, bin_w, nbins,
+            int(per_point_cap), rows_per, verbose)
+        P_cnt = P_cnt[:nx].cpu().numpy().astype(np.int32)
+        return ij_i, ij_j, int(ij_i.shape[0]), sid, S, eff, P_cnt
+
     def band(s):
         return Sp[s : s + nblk], D32p[s : s + nblk], effp[s : s + nblk]
 
@@ -521,7 +606,6 @@ def candidate_pairs_device_budgeted(
         thr[s : s + nblk] = _band_thr_from_bins(BINs, int(per_point_cap), bin_w, nbins)
         del BINs
 
-    rows_per = max(1, min(nblk, _EXTRACT_ELEMS // max(nxp, 1)))
     parts_i, parts_j = [], []
     P_cnt = torch.zeros(nxp, dtype=torch.int64, device=dev)
     for s in progress(range(0, nxp, nblk), "pair-budget pass 2", verbose):

@@ -115,10 +115,24 @@ of which exits non-zero when it fails:
    errors than its against a BruteForce on K10; then K10 at the refine
    batch's shape beside its plain version and its bound.
 
+13. the multi-device fit, its pair state sharded over a mesh of four
+   shards (``ANNCHOR_TPU_MESH_DEVICES=4``: every visible card, repeated
+   round-robin, so on one card all four shards are that card): (c) the
+   mesh's devices and distinct cards, and K1 through the sharded engine
+   against its plain version on 20,000 strings-1600 pairs; (a) phase 4's
+   JAX-stream strings-1600 fit, whose graph must equal phase 4's bit for
+   bit with its 157,793 evals; (b) phase 9's 100k fit at the pair cap
+   phase 9 derived (``ANNCHOR_TPU_PAIR_CAP``), whose pair list, m, evals
+   and graph must equal phase 9's, with each shard's residency, the
+   stage table, the wall and the peak memory beside phase 9's; (d) the
+   rms build score on the mesh, which must raise.  Each fit must launch
+   K1 on every shard.
+
 K1's launches, in all and per mode, are counted in the fits of phases
 4, 8 and 9, in the calls of phase 10 (a), (b), (d) and (e) and in phase
 11(a)'s ``exact_knn``, K10's in phase 12(c)'s fit, each with the counts
-set to 0 just before it.
+set to 0 just before it; K1's launches per shard in phase 13's fits
+(a) and (b), with the counts set to 0 just before each.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to build/chip_smoke.json.
@@ -127,6 +141,7 @@ The line before the last is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -183,6 +198,8 @@ SCALE5K_ERRORS = 240
 # Phase 9(b): 100,000 strings, the default constructor at p_work 0.01;
 # distance recall over 500 exact rows (the JAX package measured 1.0000
 # on this corpus family).
+# phase 13's mesh: shards over the visible cards, repeated on one card
+MESH_SHARDS = 4
 SCALE100K_N = 100_000
 SCALE100K_P_WORK = 0.01
 SCALE100K_ROWS = 500
@@ -1674,6 +1691,136 @@ def _alpha256(torch, np, att, report, K10):
     return launches, row
 
 
+def _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9):
+    """Phase 13: the multi-device fit on a mesh of ``MESH_SHARDS`` shards
+    (``ANNCHOR_TPU_MESH_DEVICES``; on one card every shard is that card).
+    ``ref4`` is phase 4's JAX-stream graph of strings-1600 and ``ref9``
+    phase 9's 100k fit (graph, m, evals, its derived cap, its pair list,
+    wall and peak).  Returns (K1's launches per shard in the fits of (a)
+    and (b), max |K1 - plain| through the sharded engine)."""
+    from annchor_tpu_torch import parallel
+    from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+    from annchor_tpu_torch.ops.levenshtein import encode_strings
+    from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding, myers_pairs_plain
+    from annchor_tpu_torch.ops.locality import candidate_pairs_device_budgeted
+
+    keys = ("ANNCHOR_TPU_MESH_DEVICES", "ANNCHOR_TPU_PAIR_CAP", "ANNCHOR_TPU_BUILD_SCORE")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ["ANNCHOR_TPU_MESH_DEVICES"] = str(MESH_SHARDS)
+    try:
+        mesh = parallel.auto_mesh("cuda")
+        cards = len(mesh.distinct)
+        report["mesh"] = [str(d) for d in mesh.devices]
+        print("  (c) mesh %s: %d shards on %d distinct card(s), %d visible" % (
+            ", ".join(report["mesh"]), mesh.size, cards, torch.cuda.device_count()),
+            flush=True)
+        if mesh.size != MESH_SHARDS or cards != min(MESH_SHARDS, torch.cuda.device_count()):
+            raise SystemExit("the mesh does not span the visible cards")
+
+        # K1 through the sharded engine against its plain version
+        rng = np.random.default_rng(13)
+        I = torch.as_tensor(rng.integers(0, len(X), 20_000), device="cuda")
+        J = torch.as_tensor(rng.integers(0, len(X), 20_000), device="cuda")
+        eng = att.get_function_from_input("levenshtein", device="cuda").batch
+        K1.reset_counts()
+        got = eng.batch_dev(X, I, J)
+        torch.cuda.synchronize()
+        check_shards = dict(K1.shard_launches)
+        want = myers_pairs_plain(MyersEncoding.from_codes(*encode_strings(X), "cuda"), I, J)
+        err = int((got.long() - want.long()).abs().max())
+        print("  (c) K1 vs plain through the sharded engine: 20000 pairs of strings-1600, "
+              "K1 launches per shard %s, max|diff|=%d" % (check_shards, err), flush=True)
+        if err or sorted(check_shards) != list(range(MESH_SHARDS)):
+            raise SystemExit("the sharded engine disagrees with the plain version or "
+                             "skipped a shard")
+
+        # (a) strings-1600, dense, the JAX sample stream
+        kw = dict(n_neighbors=N_NEIGHBORS, p_work=P_WORK, random_seed=42, device="cuda")
+        K1.reset_counts()
+        t0 = time.perf_counter()
+        a = att.Annchor(X, "levenshtein", uniforms=jax_threefry_uniforms, **kw)
+        a.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        a_shards = dict(K1.shard_launches)
+        same = all(np.array_equal(g, w) for g, w in zip(a.neighbor_graph, ref4[:2]))
+        report.update(sharded1600_fit_s=wall, sharded1600_evals=int(a.evals),
+                      sharded1600_k1_launches=K1.launches,
+                      sharded1600_k1_shard_launches=a_shards)
+        print("  (a) strings-1600 on %d shards: %.3f s (phase 4: %.3f s), %d evals (phase 4: "
+              "%d), graph bit-equal to phase 4's: %s, K1 launches %d, per shard %s" % (
+                  MESH_SHARDS, wall, report["jax_stream_fit_s"], a.evals, ref4[2], same,
+                  K1.launches, a_shards), flush=True)
+        if a._dev is None or a._dev.shard is None or a._dev.shard.s != MESH_SHARDS:
+            raise SystemExit("the strings-1600 fit did not shard its state")
+        if not same or a.evals != ref4[2] or a.evals != REFERENCE_EVALS:
+            raise SystemExit("the sharded strings-1600 fit differs from phase 4's")
+        if sorted(a_shards) != list(range(MESH_SHARDS)):
+            raise SystemExit("a shard never launched K1 in the strings-1600 fit")
+        del a
+
+        # (b) the 100k scale fit at phase 9's derived cap
+        os.environ["ANNCHOR_TPU_PAIR_CAP"] = str(ref9["cap"])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K1.reset_counts()
+        b, wall = _timed_fit(torch, att, big_X, "levenshtein", n_neighbors=15,
+                             p_work=SCALE100K_P_WORK, random_seed=42)
+        peak = torch.cuda.max_memory_allocated() - base
+        b_shards = dict(K1.shard_launches)
+        dev = b._dev
+        same = all(np.array_equal(g, w) for g, w in zip(b.neighbor_graph, ref9["graph"]))
+        ij = b._ij_dev
+        same_pairs = ij[2] == ref9["m"] and all(
+            torch.equal(g, w) for g, w in zip(ij[:2], ref9["ij"]))
+        report.update(sharded100k_fit_s=wall, sharded100k_m=int(ij[2]),
+                      sharded100k_evals=int(b.evals), sharded100k_peak_bytes=int(peak),
+                      sharded100k_k1_launches=K1.launches,
+                      sharded100k_k1_shard_launches=b_shards)
+        print("  (b) 100k on %d shards at cap %d: %.3f s (phase 9: %.3f s), m %d (phase 9: "
+              "%d), %d evals (phase 9: %d), graph bit-equal to phase 9's: %s, pair list "
+              "equal: %s, K1 launches %d, per shard %s, peak device memory above the %.2f "
+              "GiB held before %.2f GiB (phase 9: %.2f GiB)" % (
+                  MESH_SHARDS, ref9["cap"], wall, ref9["wall"], ij[2], ref9["m"], b.evals,
+                  ref9["evals"], same, same_pairs, K1.launches, b_shards, base / 2**30,
+                  peak / 2**30, ref9["peak"] / 2**30), flush=True)
+        if dev is None or dev.shard is None or dev.shard.s != MESH_SHARDS or not dev.sparse:
+            raise SystemExit("the 100k fit did not shard its sparse state")
+        for c in range(MESH_SHARDS):
+            pair_bytes = sum(t[c].numel() * t[c].element_size() for t in (
+                dev.ij_i, dev.ij_j, dev.lb, dev.ub, dev.dad, dev.RA, dev.ncm))
+            P = dev.P_idx_d[c]
+            print("    shard %d on %s: %d pairs (%.1f MiB), %d x %d incidence rows (%.1f MiB)"
+                  % (c, dev.RA[c].device, dev.RA[c].shape[0], pair_bytes / 2**20,
+                     P.shape[0], P.shape[1], P.numel() * P.element_size() / 2**20))
+        if not same_pairs:
+            raise SystemExit("the sharded budgeted build's pairs differ from phase 9's")
+        if not same or b.evals != ref9["evals"]:
+            raise SystemExit("the sharded 100k fit differs from phase 9's")
+        if sorted(b_shards) != list(range(MESH_SHARDS)):
+            raise SystemExit("a shard never launched K1 in the 100k fit")
+        del b, dev, ij
+
+        # (d) the rms build score on the mesh raises (ROADMAP F3)
+        os.environ["ANNCHOR_TPU_BUILD_SCORE"] = "rms"
+        D = np.random.default_rng(0).random((600, 16))
+        try:
+            candidate_pairs_device_budgeted(D, 5, 2, 30, 40, device="cuda")
+        except ValueError as exc:
+            print("  (d) rms on the mesh raises: %s" % exc, flush=True)
+        else:
+            raise SystemExit("the rms build score ran on the mesh")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shards = {c: a_shards.get(c, 0) + b_shards.get(c, 0) for c in range(MESH_SHARDS)}
+    return shards, err
+
+
 def main() -> int:
     import torch
 
@@ -1779,6 +1926,7 @@ def main() -> int:
     ref.fit()
     torch.cuda.synchronize()
     report["jax_stream_fit_s"] = time.perf_counter() - t0
+    ref4 = (ref.neighbor_graph[0].copy(), ref.neighbor_graph[1].copy(), int(ref.evals))
     ref_errors = att.compare_neighbor_graphs(ref.neighbor_graph, gt, N_NEIGHBORS)
     report.update(jax_stream_evals=int(ref.evals), jax_stream_errors=int(ref_errors))
     print("  fit with the JAX sample stream: %.3f s, %d evals (JAX package: %d), "
@@ -1903,6 +2051,10 @@ def main() -> int:
     scale_modes, scale_err, scale5k, big = _scale_path(torch, np, att, K1, report, big_X,
                                                        X5, y5, gt5)
     max_err = max(max_err, scale_err)
+    ref9 = dict(graph=tuple(g.copy() for g in big.neighbor_graph), m=int(big._ij_dev[2]),
+                evals=int(big.evals), cap=int(big._derived_pair_cap()),
+                ij=big._ij_dev[:2], wall=report["scale100k_fit_s"],
+                peak=report["scale100k_peak_bytes"])
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -1915,6 +2067,13 @@ def main() -> int:
     _phase("12. digits-5620 and the row DP (%s)" % report["card"])
     _digits5620(torch, np, att, report)
     k10_launches, k10_row = _alpha256(torch, np, att, report, K10)
+
+    _phase("13. the multi-device fit (%s)" % report["card"])
+    del big, scale5k  # phase 13 measures its own peak memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_shards, sharded_err = _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9)
+    max_err = max(max_err, sharded_err)
     main_modes = {m: fit_modes[m] + host_modes[m] + scale_modes[m] + serve_modes.get(m, 0)
                   + exact_modes[m] for m in fit_modes}
     print("  K1 launches on the main path (phases 4, 8, 9, 10, 11) by mode: %s; phase 10: "
@@ -1934,6 +2093,8 @@ def main() -> int:
         "launches_long": main_modes["long"],
         "launches_serve": sum(serve_modes.values()),
         "launches_exact": sum(exact_modes.values()),
+        "launches_sharded": sum(sharded_shards.values()),
+        "launches_per_shard": sharded_shards,
         "max_abs_err": max_err,
         "ms": refine["ms"],
         "plain_ms": refine["plain_ms"],

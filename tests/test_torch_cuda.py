@@ -255,3 +255,32 @@ def test_k10_bit_equal_to_plain(cuda, size, lo, hi):
     assert torch.equal(got, want) and torch.equal(swapped, want)
     Ih, Jh = I[:12].tolist(), J[:12].tolist()
     assert got[:12].tolist() == [levenshtein_scalar(strs[i], strs[j]) for i, j in zip(Ih, Jh)]
+
+
+@pytest.mark.parametrize("card", [0, 1], ids=["cuda0", "cuda1"])
+def test_sharded_levenshtein_engine_on_card(cuda, card, monkeypatch):
+    """The Levenshtein engine on a 4-shard mesh over one card (repeats of
+    it) is bit-equal to the unsharded engine on 20,000 random pairs of
+    strings-1600, and every shard launches K1.  ``cuda1`` needs a second
+    card."""
+    from annchor_tpu_torch import parallel
+    from annchor_tpu_torch.metrics import get_function_from_input
+
+    if card >= torch.cuda.device_count():
+        pytest.skip("needs a card cuda:%d" % card)
+    dev = torch.device("cuda", card)
+    X = list(make_strings()[0])
+    rng = np.random.default_rng(card)
+    I = torch.as_tensor(rng.integers(0, len(X), 20_000), device=dev)
+    J = torch.as_tensor(rng.integers(0, len(X), 20_000), device=dev)
+    monkeypatch.setenv("ANNCHOR_TPU_DISABLE_SHARDING", "1")
+    want = get_function_from_input("levenshtein", device=dev).batch.batch_dev(X, I, J)
+    monkeypatch.setattr(parallel, "auto_mesh",
+                        lambda device: parallel.mesh_for(4, devices=[dev]))
+    eng = get_function_from_input("levenshtein", device=dev).batch
+    K1.reset_counts()
+    got = eng.batch_dev(X, I, J)
+    torch.cuda.synchronize()
+    shards = dict(K1.shard_launches)
+    assert got.device == dev and torch.equal(got, want)
+    assert sorted(shards) == [0, 1, 2, 3] and min(shards.values()) >= 1
