@@ -3,8 +3,9 @@
 Every kernel of the port is CUDA C++ under ``csrc/``.  It is compiled
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library with a
 plain C interface at first use, cached under ``build/kernels/`` keyed
-on a hash of its sources and flags, and loaded with ``ctypes``.  A
-failed build raises: there is no fallback to another code path.
+on a hash of its source, the headers it includes and the flags, and
+loaded with ``ctypes``.  A failed build raises: there is no fallback to
+another code path.
 
 Each kernel keeps a plain-integer launch counter that its wrapper bumps
 once per launch, so a run can show that the main path went through it.
@@ -19,6 +20,7 @@ import contextvars
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,6 +39,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+
+# a quoted include of a CUDA source: a header of csrc/ (hashed with it)
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 # the mesh shard whose work the current code runs (``parallel``), or None
 _SHARD = contextvars.ContextVar("annchor_shard", default=None)
@@ -119,9 +124,29 @@ class Kernel:
         self.mode_launches = dict.fromkeys(self.mode_launches, 0)
         self.shard_launches = {}
 
+    def sources(self) -> list:
+        """The source and every file it includes by a quoted name
+        (``#include "x.cuh"``, looked up beside the including file),
+        recursively, each once."""
+        out, todo = [], [self.source]
+        while todo:
+            path = todo.pop(0)
+            if path in out or not os.path.exists(path):
+                continue
+            out.append(path)
+            with open(path) as fh:
+                names = _INCLUDE.findall(fh.read())
+            todo.extend(os.path.join(os.path.dirname(path), name) for name in names)
+        return out
+
     def library_path(self) -> str:
-        with open(self.source, "rb") as fh:
-            digest = hashlib.sha256(fh.read())
+        """Where the library of the current sources and flags is cached:
+        the key hashes the source, the headers it includes and the
+        flags, so an edited header builds anew."""
+        digest = hashlib.sha256()
+        for path in self.sources():
+            with open(path, "rb") as fh:
+                digest.update(fh.read())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(
             BUILD_DIR, "%s-%s.so" % (self.name, digest.hexdigest()[:16])

@@ -1,24 +1,29 @@
-"""String encoding, the row-DP edit distance and the scalar oracle.
+"""String encoding, the edit distance over large alphabets and the
+scalar oracle.
 
 The encoders are copied from the JAX package's ``ops/levenshtein.py``
 (backend-neutral numpy): strings become a padded codepoint matrix that
 the bit-parallel kernel's encoder (``ops/levenshtein_myers.py``) maps to
 dense alphabet ids.
 
-Over more than ``MAX_ALPHABET`` (192) distinct symbols the bit-parallel
+Over more than ``MAX_ALPHABET`` (192) distinct symbols the dense Peq
 tables are not built; the strings keep their codepoints in a
-``RowDPEncoding`` and every pair runs the row dynamic programme (K10):
-``rowdp_pairs`` sends CUDA tensors to the hand-written kernel
-(``csrc/levenshtein_rowdp.cu`` through ``ops/levenshtein_rowdp_cuda.py``)
-and CPU tensors to ``lev_pairs_plain``, the JAX package's ``_lev_batch``
-recurrence in PyTorch.  ``levenshtein_scalar`` is the pure-Python dynamic
-programme, the independent oracle the kernels are held against.
+``RowDPEncoding`` with a sparse Peq table, each string's rows of only
+the symbols it contains.  ``rowdp_pairs`` sends CUDA tensors to the
+hand-written kernel K10 (``csrc/levenshtein_rowdp.cu`` through
+``ops/levenshtein_rowdp_cuda.py``: the bit-parallel word step over that
+table) and CPU tensors to ``lev_pairs_plain``, the JAX package's
+``_lev_batch`` row dynamic programme in PyTorch.
+``sparse_myers_pairs_plain`` runs K10's table, search and word step on
+the CPU for the tests.  ``levenshtein_scalar`` is the pure-Python
+dynamic programme, the independent oracle the kernels are held against.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from annchor_tpu_torch._backend import round_up
 
@@ -74,20 +79,64 @@ def levenshtein_scalar(x, y) -> int:
     return prev[lb]
 
 
-class RowDPEncoding:
-    """Per-dataset tables of the row-DP edit distance on one device:
-    ``ids`` (n, L) int32 codepoints, -1 past each string's end, and
-    ``lengths`` (n,) int32; ``lmax``, the longest string's length, is
-    kept on the host so that the kernel's scratch is sized without a
-    read from the device."""
+# the share of a dataset's strings (in percent) that the main launch of
+# K1 and of K10 is sized for; a pair of two strings from the longest rest
+# overflows
+BULK_PERCENT = 99
+# the sparse Peq table's build holds about this many bytes per table
+# word on its device at once (the int64 sums, the int32 table)
+_TABLE_BUILD_BYTES = 12
 
-    __slots__ = ("ids", "lengths", "lmax")
+
+def bulk_and_max(values):
+    """(the value that ``BULK_PERCENT`` % of ``values`` do not exceed,
+    the largest), both 0 for none: the host's sizes of a launch plan."""
+    v = np.sort(np.asarray(values, dtype=np.int64))
+    if not v.size:
+        return 0, 0
+    return int(v[-(-v.size * BULK_PERCENT // 100) - 1]), int(v[-1])
+
+
+class RowDPEncoding:
+    """Per-dataset tables of the edit distance over more than
+    ``MAX_ALPHABET`` symbols on one device.
+
+    ``ids`` (n, L) int32 code points, -1 past each string's end, and
+    ``lengths`` (n,) int32, as the row DP reads them; and the sparse Peq
+    table of K10 (``csrc/levenshtein_rowdp.cu``), which holds for each
+    string s only the rows of the symbols it contains:
+
+    - ``sym``: int32, s's distinct code points ascending at
+      ``sym[soff[s]:soff[s+1]]`` (``soff`` int64 (n+1));
+    - ``mask``: 32-bit words held as int32 (CPU PyTorch has no uint32
+      bit operations); word w of the position mask of s's r-th symbol is
+      ``mask[moff[s] + r * Wp + w]`` (``moff`` int64 (n+1)), bit k set iff
+      character 32w + k of s is that symbol, with W = ceil(len / 32) and
+      rows Wp = W rounded up to 4 words apart, so that every row starts
+      on 16 bytes.
+
+    Kept on the host, so that a launch plan needs no read from the
+    device: ``lmax``, the longest string's length; ``wmax`` and
+    ``wbulk``, the largest word count and the one ``BULK_PERCENT`` % of
+    the strings do not exceed (as ``MyersEncoding``); ``tbulk``, the same
+    for a string's table words, n_s x (Wp + 1) with n_s its symbols.
+    The table is built with torch on the device; its size is computed on
+    the host first, and a table that does not fit the card raises."""
+
+    __slots__ = ("ids", "lengths", "lmax", "sym", "soff", "mask", "moff",
+                 "wmax", "wbulk", "tbulk")
 
     def __init__(self, codes, lengths, device):
         dev = torch.device(device)
+        lengths = np.ascontiguousarray(lengths, dtype=np.int32)
         self.ids = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int32)).to(dev)
-        self.lengths = torch.from_numpy(np.ascontiguousarray(lengths, dtype=np.int32)).to(dev)
+        self.lengths = torch.from_numpy(lengths).to(dev)
         self.lmax = int(np.max(lengths)) if len(lengths) else 0
+        words = (lengths.astype(np.int64) + 31) // 32
+        self.wbulk, self.wmax = bulk_and_max(words)
+        self.sym, self.soff, self.mask, self.moff, nsym = sparse_peq(
+            self.ids, self.lengths, words)
+        self.tbulk = bulk_and_max(nsym * (round_up_words(words) + 1))[0]
 
     @property
     def device(self) -> torch.device:
@@ -100,15 +149,67 @@ class RowDPEncoding:
     def to(self, device) -> "RowDPEncoding":
         """A copy of the tables on ``device`` (a mesh shard's)."""
         out = object.__new__(RowDPEncoding)
-        out.ids, out.lengths, out.lmax = self.ids.to(device), self.lengths.to(device), self.lmax
+        for name in self.__slots__:
+            v = getattr(self, name)
+            setattr(out, name, v.to(device) if isinstance(v, torch.Tensor) else v)
         return out
 
 
+def round_up_words(words):
+    """Row widths of the sparse table: word counts rounded up to 4."""
+    return (np.asarray(words, dtype=np.int64) + 3) // 4 * 4
+
+
+def sparse_peq(ids, lengths, words):
+    """The sparse Peq table of the strings ``ids`` (n, L) int32 code points
+    of ``lengths`` (n,) on their device, whose word counts ``words``
+    (numpy, ceil(len / 32)) the host knows.  Returns (sym, soff, mask,
+    moff) as ``RowDPEncoding`` holds them and each string's symbol count
+    (numpy int64 (n,)).
+
+    The characters are sorted stably on the key (string, code point);
+    ``unique_consecutive`` makes one slot per distinct symbol of a
+    string; each character adds its bit, a distinct power of two within
+    its word, so ``scatter_add`` over int64 words equals the OR.  The
+    key's low half is the code point plus 2^31, so a string's symbols
+    come out in signed int32 order, the order the kernel searches."""
+    dev = ids.device
+    n, L = ids.shape
+    pos = torch.arange(L, device=dev)
+    rows, cols = (pos[None, :] < lengths[:, None].long()).nonzero(as_tuple=True)
+    key = (rows << 32) | (ids[rows, cols].long() + (1 << 31))
+    key, order = torch.sort(key, stable=True)
+    slots, slot = torch.unique_consecutive(key, return_inverse=True)
+    sym = ((slots & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+    counts = torch.bincount(slots >> 32, minlength=n)
+    soff = F.pad(torch.cumsum(counts, 0), (1, 0))
+    # the table's size, on the host, before it is allocated
+    nsym = counts.cpu().numpy().astype(np.int64)
+    wp = round_up_words(words)
+    moff_h = np.concatenate([[0], np.cumsum(nsym * wp)]).astype(np.int64)
+    total = int(moff_h[-1])
+    if dev.type == "cuda":
+        need = total * _TABLE_BUILD_BYTES
+        free = torch.cuda.mem_get_info(dev)[0]
+        if need > free:
+            raise MemoryError(
+                "the sparse Peq table of %d strings needs %d words (%.3f GB to build), "
+                "%.3f GB free on %s" % (n, total, need / 1e9, free / 1e9, dev))
+    moff = torch.from_numpy(moff_h).to(dev)
+    r = rows[order]
+    c = cols[order]
+    at = moff[r] + (slot - soff[r]) * torch.from_numpy(wp).to(dev)[r] + (c >> 5)
+    acc = torch.zeros(total, dtype=torch.int64, device=dev)
+    acc.scatter_add_(0, at, torch.ones_like(c) << (c & 31))
+    mask = torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
+    return sym, soff, mask, moff, nsym
+
+
 def rowdp_pairs(enc: RowDPEncoding, I, J):
-    """Edit distances of the pairs (I[k], J[k]) as an int32 tensor, by the
-    row DP.  I and J are integer tensors on the encoding's device: a CUDA
-    device launches the hand-written kernel (K10), and the plain version
-    runs only for tensors on the CPU."""
+    """Edit distances of the pairs (I[k], J[k]) as an int32 tensor.  I and
+    J are integer tensors on the encoding's device: a CUDA device launches
+    the hand-written kernel (K10, bit-parallel over the sparse table), and
+    the plain version, the row DP, runs only for tensors on the CPU."""
     if I.device != enc.device or J.device != enc.device:
         raise ValueError(
             "pair ids on %s/%s, encoding on %s" % (I.device, J.device, enc.device)
@@ -116,7 +217,7 @@ def rowdp_pairs(enc: RowDPEncoding, I, J):
     if enc.device.type == "cuda":
         from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import rowdp_pairs_cuda
 
-        return rowdp_pairs_cuda(enc.ids, enc.lengths, I, J, lmax=enc.lmax)
+        return rowdp_pairs_cuda(enc, I, J)
     if enc.device.type == "cpu":
         return lev_pairs_plain(enc, I, J)
     raise NotImplementedError("no edit-distance kernel for %s" % enc.device)
@@ -163,3 +264,88 @@ def _rowdp_block(ids, A, Bx, la, lb):
         prev = torch.cummin(t - cols, dim=1).values + cols
         result = torch.where(la == i, prev.gather(1, lb[:, None])[:, 0], result)
     return result.to(torch.int32)
+
+
+def sparse_myers_pairs_plain(enc: RowDPEncoding, I, J, chunk: int = 1 << 16):
+    """Test-only twin of K10 on the CPU: the bit-parallel recurrence of
+    ``myers_pairs_plain`` (32-bit words in int64 lanes), each text
+    character's Eq row found in the pattern's part of the sparse table
+    by the kernel's search (``find_rows``), the zero row where the
+    pattern lacks the symbol.  A string against itself gives 0 with no
+    work, as in the kernel.  Returns int32 (B,)."""
+    from annchor_tpu_torch.ops.levenshtein_myers import _MASK
+
+    I = I.long()
+    J = J.long()
+    lengths = enc.lengths.long()
+    la0 = lengths[I]
+    lb0 = lengths[J]
+    swap = la0 > lb0
+    P = torch.where(swap, J, I)
+    T = torch.where(swap, I, J)
+    same = I == J
+    la = torch.where(same, 0, torch.minimum(la0, lb0))
+    lb = torch.where(same, 0, torch.maximum(la0, lb0))
+    out = torch.empty(I.shape[0], dtype=torch.int32, device=I.device)
+    # one zero word past each table, so a clamped gather of a missing
+    # entry reads a defined value
+    sym = F.pad(enc.sym.long(), (0, 1))
+    mask = F.pad(enc.mask.long() & _MASK, (0, 1))
+    for s in range(0, I.shape[0], chunk):
+        e = s + chunk
+        out[s:e] = _sparse_block(enc, sym, mask, P[s:e], T[s:e], la[s:e], lb[s:e])
+    return out
+
+
+def find_rows(sym, base, n, c):
+    """The kernel's search, vectorised: the row of symbol c[k] among the
+    n[k] ascending symbols sym[base[k]:base[k] + n[k]], or -1.  Halve
+    [lo, lo + len) on sym[lo + len // 2] <= c, then compare the one
+    candidate left.  ``sym`` holds one spare entry at its end."""
+    last = sym.shape[0] - 1
+    lo = torch.zeros_like(n)
+    ln = n.clone()
+    for _ in range(int(n.max()).bit_length() if n.numel() else 0):
+        half = ln >> 1
+        probe = sym[(base + lo + half).clamp(max=last)]
+        lo = lo + torch.where((ln > 1) & (probe <= c), half, 0)
+        ln = torch.where(ln > 1, ln - half, ln)
+    hit = (ln == 1) & (sym[(base + lo).clamp(max=last)] == c)
+    return torch.where(hit, lo, -1)
+
+
+def _sparse_block(enc, sym, mask, P, T, la, lb):
+    from annchor_tpu_torch.ops.levenshtein_myers import _MASK, _add_with_carry, _shift1
+
+    dev = P.device
+    L = int(enc.ids.shape[1])
+    W = max(1, (int(la.max()) + 31) // 32) if la.numel() else 1
+    wr = torch.arange(W, device=dev)
+    nbits = (la[:, None] - 32 * wr).clamp(0, 32)
+    one = torch.ones_like(nbits)
+    VP = torch.where(nbits >= 32, _MASK, (one << nbits) - 1)
+    VN = torch.zeros_like(VP)
+    m1 = (la - 1).clamp(min=0)
+    tap = torch.where(wr[None, :] == (m1 >> 5)[:, None], one[:, :1] << (m1 & 31)[:, None], 0)
+    score = la.clone()
+    base = enc.soff[P]
+    n = torch.where(la > 0, enc.soff[P + 1] - base, 0)
+    wp = ((la + 31) // 32 + 3) // 4 * 4
+    rows0 = enc.moff[P]
+    last = mask.shape[0] - 1
+    ids_flat = enc.ids.reshape(-1)
+    for j in range(int(lb.max()) if lb.numel() else 0):
+        c = ids_flat[T * L + min(j, L - 1)].long()
+        row = find_rows(sym, base, n, c)
+        at = (rows0 + row.clamp(min=0) * wp)[:, None] + wr
+        Eq = torch.where((row >= 0)[:, None] & (wr[None, :] < wp[:, None]),
+                         mask[at.clamp(max=last)], 0)
+        D0 = (_add_with_carry(Eq & VP, VP) ^ VP) | Eq | VN
+        HP = VN | (~(D0 | VP) & _MASK)
+        HN = VP & D0
+        inc = ((HP & tap) != 0).any(1).long() - ((HN & tap) != 0).any(1).long()
+        score += torch.where(j < lb, inc, 0)
+        X = _shift1(HP, 1)
+        VP = _shift1(HN, 0) | (~(D0 | X) & _MASK)
+        VN = X & D0
+    return torch.where(la == 0, lb, score).to(torch.int32)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, rowdp_pairs
+from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, bulk_and_max, rowdp_pairs
 from annchor_tpu_torch.ops.pairs import row_smallest_k
 from annchor_tpu_torch.progress import progress
 
@@ -36,10 +36,6 @@ UINT1 = np.uint32(1)
 MAX_ALPHABET = 192
 
 _MASK = 0xFFFFFFFF  # a 32-bit word held in an int64 lane
-
-# the share of a dataset's strings (in percent) that K1's main launch is
-# sized for; a pair of two strings from the longest rest overflows
-BULK_PERCENT = 99
 
 # pairs per myers_pairs call of the exact oracles: a block of sources
 # times its columns, capped so the (I, J) id tensors stay near 128 MB
@@ -119,10 +115,7 @@ class MyersEncoding:
         ).to(dev)
         self.alphabet = int(alphabet)
         self.W = int(self.peq.shape[2])
-        words = np.sort((np.asarray(lengths, dtype=np.int64) + 31) // 32)
-        self.wmax = int(words[-1]) if words.size else 0
-        bulk = -(-words.size * BULK_PERCENT // 100)  # ceil(n x BULK_PERCENT %)
-        self.wbulk = int(words[bulk - 1]) if words.size else 0
+        self.wbulk, self.wmax = bulk_and_max((np.asarray(lengths, dtype=np.int64) + 31) // 32)
 
     @property
     def device(self) -> torch.device:

@@ -21,11 +21,16 @@ of which exits non-zero when it fails:
    under ``torch.cuda.set_sync_debug_mode("error")`` on strings-1600
    and on it with one 2,100-character string, then against the
    pure-Python DP on 64 sampled strings-1600 pairs, then a small fit on
-   the card against the same fit on the CPU; K10, the row-DP kernel,
-   against its plain version bit for bit on 42,000 pairs over 193, 256
-   and 1,000 symbols (empty strings, lengths 1-2,100, both argument
-   orders) under ``set_sync_debug_mode("error")``, and 64 of them against
-   the pure-Python DP; then the hybrid's certify dispatch (the Sinkhorn
+   the card against the same fit on the CPU; K10, the kernel over more
+   than 192 symbols, in each launch mode (auto, thread, group) against
+   its plain version (the row DP) bit for bit, on 7,000 random pairs and
+   every self pair of each of four sets: 193, 256 and 1,000 symbols
+   (empty strings, lengths 1-600 and one of 2,100) and 20,000 CJK and
+   astral code points (lengths 0-600, one string of 5,000 characters and
+   one of 2,600 for long mode), both argument orders, every call under
+   ``set_sync_debug_mode("error")``, thread, group and long mode each
+   launched, and 64 pairs against the pure-Python DP; then the hybrid's
+   certify dispatch (the Sinkhorn
    scout's values of 40,000 digit pairs queued on the card) under
    ``set_sync_debug_mode("error")``, its values against the same engine
    on the CPU;
@@ -112,8 +117,14 @@ of which exits non-zero when it fails:
    half its admitted total, which must switch to the budgeted build; (c)
    strings-1600 over 256 code points (phase 4's arguments, the JAX sample
    stream), every evaluation on K10: the JAX package's evals, no more
-   errors than its against a BruteForce on K10; then K10 at the refine
-   batch's shape beside its plain version and its bound.
+   errors than its against a BruteForce on K10, K10 launched in thread
+   and group mode; the same fit under ``torch.profiler`` (K10's device
+   ms); the sparse Peq table's build seconds over 256 and 20,000
+   symbols; then K10 at the refine batch, an anchor column and
+   BruteForce's pairs: the time through its wrapper, the word steps and
+   search probes, the bound and its share, the row DP's cell bound, the
+   time before the redesign (and at the refine batch the plain version,
+   bit for bit); then the thread/group crossover sweep.
 
 13. the multi-device fit, its pair state sharded over a mesh of four
    shards (``ANNCHOR_TPU_MESH_DEVICES=4``: every visible card, repeated
@@ -130,7 +141,7 @@ of which exits non-zero when it fails:
 
 K1's launches, in all and per mode, are counted in the fits of phases
 4, 8 and 9, in the calls of phase 10 (a), (b), (d) and (e) and in phase
-11(a)'s ``exact_knn``, K10's in phase 12(c)'s fit, each with the counts
+11(a)'s ``exact_knn``, K10's, in all and per mode, in phase 12(c)'s fit, each with the counts
 set to 0 just before it; K1's launches per shard in phase 13's fits
 (a) and (b), with the counts set to 0 just before each.
 
@@ -285,9 +296,13 @@ DIGITS5620 = {"evals": 120_902, "scout_evals": 2_171_905, "m": 10_479_208, "erro
 # SMs x 64 INT32 lanes x 1.98 GHz of them a second, and moves 3.35e12
 # bytes/s.
 K1_OPS_PER_STEP = 10
-# K10's bound: a row-DP cell is about 5 INT32 operations (two adds, the
-# character compare folded into the diagonal's cost, two mins;
-# csrc/levenshtein_rowdp.cu), at the same rate
+# K10's bound: its word steps at K1's 10 INT32 instructions, plus 2 (a
+# compare and a select) for each probe of its search of the pattern's
+# symbols (csrc/levenshtein_rowdp.cu), at the same rate
+K10_OPS_PER_PROBE = 2
+# the bound of the row DP that K10 replaced, printed for the record: a
+# cell is about 5 INT32 operations (two adds, the character compare folded
+# into the diagonal's cost, two mins)
 K10_OPS_PER_CELL = 5
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
@@ -306,6 +321,13 @@ BEFORE_MS = {
     "skewed column": 4.383,
     "skewed BruteForce": 27.154,
 }
+
+
+# K10 before its redesign (the row DP, one thread per pair) through
+# ``myers_pairs`` at phase 12(c)'s shapes, timed by tools/time_k10.py on
+# the parent checkout on the same card type and limit (H100 80GB HBM3,
+# 700.00 W): the mean of two runs
+BEFORE_K10_MS = {"refine batch": 11.2886, "anchor column": 5.0819, "BruteForce": 116.5352}
 
 
 def make_blobs(n_samples, n_features, centers, seed):
@@ -388,7 +410,7 @@ def _ptxas(kernel):
     for line in kernel.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            kind = re.search(r"(k1_thread|k1_group|k1_long|k10_rowdp)", m.group(1))
+            kind = re.search(r"(k10?_thread|k10?_group|k10?_long)", m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = "%s%s" % (kind.group(1) if kind else "?",
                              "<%s>" % ",".join(args) if args else "")
@@ -530,13 +552,24 @@ def _check_oracle(torch, np, X):
     print("  K1 vs scalar oracle: 64 strings-1600 pairs equal", flush=True)
 
 
+def _cjk(size):
+    """``size`` code points: CJK ideographs from U+4E00, the last 4,000
+    astral ones from U+20000."""
+    return ([chr(0x4E00 + i) for i in range(size - 4000)]
+            + [chr(0x20000 + i) for i in range(4000)])
+
+
 def _check_k10(torch, np):
-    """K10, the row-DP kernel, against its plain version on CUDA tensors,
-    bit for bit: 7,000 pairs over each of 193, 256 and 1,000 symbols
-    (empty strings, lengths 1-2,100), in both argument orders, each call
-    under ``torch.cuda.set_sync_debug_mode("error")``; then 64 of them
-    against the pure-Python DP.  Returns (pairs compared, max |K10 -
-    plain|)."""
+    """K10 against its plain version (the row DP) on CUDA tensors, bit for
+    bit, in each launch mode (auto, thread, group), both argument orders
+    (int64 and int32 ids) and every call under
+    ``torch.cuda.set_sync_debug_mode("error")``: 7,000 pairs over each of
+    193, 256 and 1,000 symbols (the empty string, lengths 1-600 and one of
+    2,100), and over 20,000 CJK and astral code points (the empty string,
+    lengths 0-600, one string of 5,000 characters and one of 2,600, whose
+    pairs run down the overflow lists into long mode), each set's self
+    pairs included; then 64 of the pairs against the pure-Python DP.
+    Returns (pairs compared, max |K10 - plain|, launches per mode)."""
     from annchor_tpu_torch.ops.levenshtein import (
         RowDPEncoding,
         encode_strings,
@@ -544,45 +577,66 @@ def _check_k10(torch, np):
         levenshtein_scalar,
     )
     from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding
-    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import rowdp_pairs_cuda
+    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import K10, plan_for, rowdp_pairs_cuda
 
     rng = np.random.default_rng(2)
     total = worst = 0
     hits = []
-    for size, nscalar in ((193, 22), (256, 21), (1000, 21)):
-        alphabet = [chr(0x100 + i) for i in range(size)]
-        lens = np.concatenate([[0, 0, 1, 2, 2100], rng.integers(1, 601, 295)])
+    modes = dict.fromkeys(K10.mode_launches, 0)
+    for size in (193, 256, 1000, 20_000):
+        alphabet = np.array(_cjk(size) if size == 20_000
+                            else [chr(0x100 + i) for i in range(size)])
+        head = [0, 5000, 2600] if size == 20_000 else [0, 0, 1, 2, 2100]
+        lens = np.concatenate([head, rng.integers(0 if size == 20_000 else 1, 601,
+                                                  300 - len(head))])
         strs = ["".join(rng.choice(alphabet, size=int(k))) for k in lens]
         enc = MyersEncoding.from_codes(*encode_strings(strs), "cuda")
         if not isinstance(enc, RowDPEncoding):
-            raise SystemExit("%d symbols did not give the row DP's encoding" % size)
-        I = torch.as_tensor(rng.integers(0, len(strs), 7000), device="cuda")
-        J = torch.as_tensor(rng.integers(0, len(strs), 7000), device="cuda")
-        I[:5], J[:5] = torch.arange(5, device="cuda"), torch.tensor([1, 0, 4, 4, 0],
-                                                                    device="cuda")
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            got = rowdp_pairs_cuda(enc.ids, enc.lengths, I, J, enc.lmax)
-            swapped = rowdp_pairs_cuda(enc.ids, enc.lengths, J, I, enc.lmax)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        want = lev_pairs_plain(enc, I, J)
-        err = max(int((got.long() - want.long()).abs().max()),
-                  int((swapped.long() - want.long()).abs().max()))
-        print("  K10 vs plain  %4d symbols, lengths 0-%d, pairs=%d x 2 orders, no sync: "
-              "max|diff|=%d" % (size, int(lens.max()), I.shape[0], err), flush=True)
+            raise SystemExit("%d symbols did not give K10's encoding" % size)
+        n = len(strs)
+        I = torch.as_tensor(rng.integers(0, n, 7000), device="cuda")
+        J = torch.as_tensor(rng.integers(0, n, 7000), device="cuda")
+        # the head strings against each other: the empty string, and on
+        # 20,000 symbols the long pair either way (long mode's work)
+        head_pairs = (([0, 1, 2, 1, 0], [1, 2, 1, 1, 2]) if size == 20_000
+                      else ([0, 1, 2, 3, 4], [1, 0, 4, 4, 0]))
+        I[:5], J[:5] = (torch.tensor(v, device="cuda") for v in head_pairs)
+        I = torch.cat([I, torch.arange(n, device="cuda")])  # self pairs
+        J = torch.cat([J, torch.arange(n, device="cuda")])
+        want = lev_pairs_plain(enc, I, J, chunk=1024)
+        err = 0
+        for mode in ("auto", "thread", "group"):
+            before = dict(K10.mode_launches)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = rowdp_pairs_cuda(enc, I, J, mode)
+                swapped = rowdp_pairs_cuda(enc, J.int(), I.int(), mode)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            for m in modes:
+                modes[m] += K10.mode_launches[m] - before[m]
+            err = max(err, int((got.long() - want.long()).abs().max()),
+                      int((swapped.long() - want.long()).abs().max()))
+        plans = plan_for(enc, int(I.shape[0]))
+        print("  K10 vs plain  %5d symbols, lengths 0-%d, W %d/%d, pairs=%d x 2 orders x "
+              "auto (%s), thread, group, no sync: max|diff|=%d"
+              % (size, int(lens.max()), enc.wbulk, enc.wmax, I.shape[0], _modes(plans), err),
+              flush=True)
         if err:
             raise SystemExit("K10 disagrees with its plain version (%d symbols)" % size)
         worst = max(worst, err)
-        total += 2 * int(I.shape[0])
-        for k in rng.choice(I.shape[0], nscalar, replace=False):
+        total += 6 * int(I.shape[0])
+        for k in rng.choice(7000, 16, replace=False):
             i, j = int(I[k]), int(J[k])
             hits.append(int(got[k]) == levenshtein_scalar(strs[i], strs[j]))
     if not all(hits) or len(hits) != 64:
         raise SystemExit("K10 disagrees with the pure-Python DP")
-    print("  K10 vs scalar oracle: %d pairs equal" % len(hits), flush=True)
-    return total, worst
+    print("  K10 vs scalar oracle: %d pairs equal; launches by mode %s" % (len(hits), modes),
+          flush=True)
+    if not all(modes.values()):
+        raise SystemExit("the K10 checks did not launch every mode: %s" % modes)
+    return total, worst, modes
 
 
 def _check_small_fit(torch, np):
@@ -685,7 +739,8 @@ def _plan(enc, B, mode="auto"):
 def _device_profile(torch, fn, scope=None):
     """Run ``fn`` once under torch.profiler.  Returns a dict: ``wall_s``;
     ``device_ms`` and ``kernels`` in all; ``k1_device_ms`` and
-    ``k1_kernels`` (K1's launches); for the ``record_function`` ranges
+    ``k1_kernels`` (K1's launches), ``k10_device_ms`` and ``k10_kernels``
+    (K10's); for the ``record_function`` ranges
     named ``scope``, the ``scope_device_ms`` and ``scope_kernels`` of the
     kernels that run inside their mirrors on the card's timeline and
     those mirrors' ``scope_span_ms`` (idle gaps included; a mirror is
@@ -705,7 +760,7 @@ def _device_profile(torch, fn, scope=None):
     wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
     starts, durs, spans, by_name = [], [], [], {}
-    k1_us = k1_n = 0
+    k1_us = k1_n = k10_us = k10_n = 0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cuda:
             continue
@@ -719,6 +774,9 @@ def _device_profile(torch, fn, scope=None):
         if "k1_" in name:
             k1_us += us
             k1_n += 1
+        if "k10_" in name:
+            k10_us += us
+            k10_n += 1
         row = by_name.setdefault(name[:60], [0.0, 0])
         row[0] += us / 1e3
         row[1] += 1
@@ -732,6 +790,7 @@ def _device_profile(torch, fn, scope=None):
     top = sorted(((k, v[0], v[1]) for k, v in by_name.items()), key=lambda r: -r[1])[:5]
     return {"wall_s": wall, "device_ms": float(durs.sum()) / 1e3, "kernels": int(durs.size),
             "k1_device_ms": k1_us / 1e3, "k1_kernels": k1_n,
+            "k10_device_ms": k10_us / 1e3, "k10_kernels": k10_n,
             "scope_device_ms": float(durs[inside].sum()) / 1e3,
             "scope_kernels": int(inside.sum()),
             "scope_span_ms": float((spans[:, 1] - spans[:, 0]).sum()) / 1e6, "top": top}
@@ -1631,21 +1690,68 @@ def _digits5620(torch, np, att, report):
             raise SystemExit("(12a) %d errors against the exact graph" % errors)
 
 
+def _k10_bound(torch, enc, I, J):
+    """K10's work on these pairs and its bound: (word steps, search
+    probes, bound ms, what bounds it, the row DP's cell bound ms).  The
+    bound is the larger of (10 x word steps + 2 x probes) INT32
+    instructions at the card's INT32 rate and the inputs read once and
+    the output written once at its memory rate."""
+    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import cells, search_probes, word_steps
+
+    steps = word_steps(enc.lengths, I, J)
+    probes = search_probes(enc, I, J)
+    ops_ms = (steps * K1_OPS_PER_STEP + probes * K10_OPS_PER_PROBE) / INT32_OPS_PER_S * 1e3
+    tables = (enc.sym, enc.soff, enc.mask, enc.moff, enc.ids, enc.lengths, I, J)
+    nbytes = sum(t.numel() * t.element_size() for t in tables) + 4 * I.shape[0]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    cell_ms = cells(enc.lengths, I, J) * K10_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    return (steps, probes, max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", cell_ms)
+
+
+def _k10_crossover(torch, np, enc, rng):
+    """Kernel-only ms of K10's thread and group modes against the batch
+    size on strings-1600 over 256 symbols: the measurement behind
+    ``levenshtein_rowdp_cuda.GROUP_LANES_MAX``."""
+    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import launch, plan_for
+
+    rows = []
+    for B in (1_600, 5_000, 20_000, 30_000, 40_000, 50_000, 58_707, 131_072):
+        I = torch.as_tensor(rng.integers(0, enc.n, size=B), device="cuda")
+        J = torch.as_tensor(rng.integers(0, enc.n, size=B), device="cuda")
+        out = torch.empty(B, dtype=torch.int32, device="cuda")
+        row = {"pairs": B, "auto": _modes(plan_for(enc, B))}
+        for mode in ("thread", "group"):
+            plans = plan_for(enc, B, mode)
+            row[mode + "_ms"] = _time(torch, lambda: launch(plans, enc, I, J, out), 20)
+        rows.append(row)
+        print("  K10 crossover %7d pairs (auto: %-6s) thread %8.4f ms, group %8.4f ms"
+              % (B, row["auto"], row["thread_ms"], row["group_ms"]), flush=True)
+    return rows
+
+
 def _alpha256(torch, np, att, report, K10):
     """Phase 12(c): strings-1600 over 256 code points, every evaluation on
-    K10, with the JAX sample stream, against a BruteForce on K10; then
-    K10 at the refine batch's shape, beside its plain version and bound.
-    Returns (K10's launches in the fit, the timing row)."""
+    K10, with the JAX sample stream, against a BruteForce on K10, its
+    launches by mode, then the same fit under ``torch.profiler`` (K10's
+    device ms); the sparse table's build time at 256 and 20,000 symbols;
+    K10 at the refine batch's shape, an anchor column and BruteForce's
+    pairs beside its bound, the row DP's cell bound and its time before
+    the redesign (the refine batch also beside the plain version, bit for
+    bit); then the thread/group crossover sweep.  Returns (K10's launches
+    in the fit by mode, the refine batch's timing row)."""
     from annchor_tpu_torch.datasets import make_strings
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
-    from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, lev_pairs_plain
-    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import cells, rowdp_pairs_cuda
+    from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, encode_strings, lev_pairs_plain
+    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import plan_for, rowdp_pairs_cuda
 
     X, _ = make_strings(alphabet=ALPHA256)
     X = list(X)
+    fit_kw = dict(n_neighbors=N_NEIGHBORS, p_work=P_WORK, random_seed=42,
+                  uniforms=jax_threefry_uniforms)
     K10.reset_counts()
-    ann, wall = _timed_fit(torch, att, X, "levenshtein", n_neighbors=N_NEIGHBORS,
-                           p_work=P_WORK, random_seed=42, uniforms=jax_threefry_uniforms)
+    ann, wall = _timed_fit(torch, att, X, "levenshtein", **fit_kw)
+    modes = dict(K10.mode_launches)
     launches = K10.launches
     enc = ann.metric.batch._encode(X)
     t0 = time.perf_counter()
@@ -1653,42 +1759,82 @@ def _alpha256(torch, np, att, report, K10):
     bf_s = time.perf_counter() - t0
     errors = att.compare_neighbor_graphs(gt, ann.neighbor_graph, N_NEIGHBORS)
     print("  (c) strings-1600 over 256 symbols: %.3f s, %d evals (JAX package: %d), %d "
-          "errors against a BruteForce on K10 (%.3f s; JAX package: %d), K10 launches %d"
-          % (wall, ann.evals, ALPHA256_EVALS, errors, bf_s, ALPHA256_ERRORS, launches),
+          "errors against a BruteForce on K10 (%.3f s; JAX package: %d), K10 launches %d %s"
+          % (wall, ann.evals, ALPHA256_EVALS, errors, bf_s, ALPHA256_ERRORS, launches, modes),
           flush=True)
-    if not isinstance(enc, RowDPEncoding) or launches == 0:
-        raise SystemExit("(12c) the 256-symbol fit did not run on K10")
+    if not isinstance(enc, RowDPEncoding) or not (modes["thread"] and modes["group"]):
+        raise SystemExit("(12c) the 256-symbol fit did not run on K10 in thread and group "
+                         "mode: %s" % modes)
     if ann.evals != ALPHA256_EVALS or errors > ALPHA256_ERRORS:
         raise SystemExit("(12c) the 256-symbol fit differs from the JAX package's figures")
+    prof = _device_profile(torch, lambda: att.Annchor(X, "levenshtein", device="cuda",
+                                                      **fit_kw).fit())
+    print("  (c) the same fit under torch.profiler: K10 %.3f ms in %d kernels of %.3f ms "
+          "device time in %d kernels, %.3f s wall" % (
+              prof["k10_device_ms"], prof["k10_kernels"], prof["device_ms"], prof["kernels"],
+              prof["wall_s"]), flush=True)
 
+    builds = {}
+    for label, alphabet in (("256 symbols", ALPHA256), ("20,000 symbols", "".join(_cjk(20_000)))):
+        codes, lengths = encode_strings(list(make_strings(alphabet=alphabet)[0]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = RowDPEncoding(codes, lengths, "cuda")
+        torch.cuda.synchronize()
+        builds[label] = {"s": time.perf_counter() - t0, "words": int(e.mask.shape[0]),
+                         "symbols": int(e.sym.shape[0])}
+        print("  sparse table of strings-1600 over %s: %.4f s, %d symbol slots, %d words "
+              "(%.1f MB)" % (label, builds[label]["s"], builds[label]["symbols"],
+                             builds[label]["words"], builds[label]["words"] * 4e-6),
+              flush=True)
+
+    n = len(X)
     rng = np.random.default_rng(12)
-    I = torch.as_tensor(rng.integers(0, len(X), REFINE_BATCH), device="cuda")
-    J = torch.as_tensor(rng.integers(0, len(X), REFINE_BATCH), device="cuda")
-    ms = _time(torch, lambda: rowdp_pairs_cuda(enc.ids, enc.lengths, I, J, enc.lmax), 10)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = lev_pairs_plain(enc, I, J)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    got = rowdp_pairs_cuda(enc.ids, enc.lengths, I, J, enc.lmax)
-    err = int((got.long() - want.long()).abs().max())
-    ncells = cells(enc.lengths, I, J)
-    ops_ms = ncells * K10_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
-    nbytes = sum(t.numel() * t.element_size() for t in (enc.ids, enc.lengths, I, J))
-    bytes_ms = (nbytes + 4 * REFINE_BATCH) / HBM_BYTES_PER_S * 1e3
-    row = {"pairs": REFINE_BATCH, "cells": ncells, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-           "max_abs_err": err}
-    report["alpha256"] = {"fit_s": wall, "evals": int(ann.evals), "errors": int(errors),
-                          "k10_launches": launches, "bruteforce_s": bf_s, "k10": row}
-    print("  K10 at the refine batch's shape (%d pairs, %d cells): %.4f ms, plain %.3f ms, "
-          "bound %.4f ms (%s, %.1f %%), max|diff| %d" % (
-              REFINE_BATCH, ncells, ms, plain_ms, row["bound_ms"], row["bound_by"],
-              100 * row["bound_ms"] / ms, err), flush=True)
-    if err:
+    tri = torch.triu_indices(n, n, 1, device="cuda")
+    shapes = {
+        "refine batch": (torch.as_tensor(rng.integers(0, n, REFINE_BATCH), device="cuda"),
+                         torch.as_tensor(rng.integers(0, n, REFINE_BATCH), device="cuda"), 20),
+        "anchor column": (torch.tensor(1126, device="cuda").expand(n),
+                          torch.arange(n, device="cuda"), 50),
+        "BruteForce": (tri[0], tri[1], 3),
+    }
+    rows = {}
+    for name, (I, J, reps) in shapes.items():
+        B = int(I.shape[0])
+        steps, probes, bound_ms, bound_by, cell_ms = _k10_bound(torch, enc, I, J)
+        row = {"pairs": B, "mode": _modes(plan_for(enc, B)),
+               "ms": _time(torch, lambda: rowdp_pairs_cuda(enc, I, J), reps),
+               "word_steps": steps, "probes": probes, "bound_ms": bound_ms,
+               "bound_by": bound_by, "cell_bound_ms": cell_ms,
+               "before_ms": BEFORE_K10_MS[name], "plain_ms": None, "max_abs_err": 0}
+        if name == "refine batch":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = lev_pairs_plain(enc, I, J)
+            torch.cuda.synchronize()
+            row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            got = rowdp_pairs_cuda(enc, I, J)
+            row["max_abs_err"] = int((got.long() - want.long()).abs().max())
+        row["bound_share"] = bound_ms / row["ms"]
+        rows[name] = row
+        print("  K10 %-13s %8d pairs %-18s %9.4f ms | %d word steps + %d probes, bound %.4f "
+              "ms (%s), %.1f %% of it | row-DP cell bound %.4f ms | plain %s ms | before "
+              "%.4f ms" % (
+                  name, B, row["mode"], row["ms"], steps, probes, bound_ms, bound_by,
+                  100 * row["bound_share"], cell_ms,
+                  "not timed" if row["plain_ms"] is None else "%.3f" % row["plain_ms"],
+                  row["before_ms"]), flush=True)
+        if row["ms"] >= row["before_ms"]:
+            print("    not faster than before the redesign (%.4f ms)" % row["before_ms"],
+                  flush=True)
+    refine = rows["refine batch"]
+    if refine["max_abs_err"]:
         raise SystemExit("K10 disagrees with its plain version at the refine batch's shape")
-    return launches, row
+    report["alpha256"] = {"fit_s": wall, "evals": int(ann.evals), "errors": int(errors),
+                          "k10_launches": launches, "k10_modes": modes,
+                          "bruteforce_s": bf_s, "profile": prof, "table_builds": builds,
+                          "k10": rows, "crossover": _k10_crossover(torch, np, enc, rng)}
+    return modes, refine
 
 
 def _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9):
@@ -1874,7 +2020,7 @@ def main() -> int:
     report["k1_check_pairs"], max_err = _check_k1(torch, np, X)
     _check_no_sync(torch, np, X)
     _check_oracle(torch, np, X)
-    report["k10_check_pairs"], k10_err = _check_k10(torch, np)
+    report["k10_check_pairs"], k10_err, report["k10_check_modes"] = _check_k10(torch, np)
     _check_small_fit(torch, np)
     report["scout_card_vs_cpu_rel"] = _check_scout_no_sync(torch, np)
 
@@ -2066,7 +2212,7 @@ def main() -> int:
 
     _phase("12. digits-5620 and the row DP (%s)" % report["card"])
     _digits5620(torch, np, att, report)
-    k10_launches, k10_row = _alpha256(torch, np, att, report, K10)
+    k10_modes, k10_row = _alpha256(torch, np, att, report, K10)
 
     _phase("13. the multi-device fit (%s)" % report["card"])
     del big, scale5k  # phase 13 measures its own peak memory
@@ -2106,7 +2252,11 @@ def main() -> int:
         "route": "cuda",
         "source": "annchor_tpu_torch/csrc/levenshtein_rowdp.cu",
         "replaces": "annchor_tpu/ops/levenshtein.py:96",
-        "launches": k10_launches,
+        "launches": sum(k10_modes.values()),
+        "launches_thread": k10_modes["thread"],
+        "launches_group": k10_modes["group"],
+        "launches_long": k10_modes["long"],
+        "launches_check": report["k10_check_modes"],
         "max_abs_err": max(k10_err, k10_row["max_abs_err"]),
         "ms": k10_row["ms"],
         "plain_ms": k10_row["plain_ms"],

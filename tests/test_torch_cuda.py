@@ -229,11 +229,11 @@ def test_sinkhorn_scout_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("size,lo,hi", [(193, 0, 70), (256, 426, 550), (1000, 0, 2100)])
 def test_k10_bit_equal_to_plain(cuda, size, lo, hi):
-    """The row-DP kernel (K10) over more than 192 symbols against its
-    plain version, both argument orders, with no host sync in the
+    """K10 over more than 192 symbols against its plain version, both
+    argument orders (int64 and int32 ids), with no host sync in the
     wrapper, and a few pairs against the pure-Python DP."""
     from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, lev_pairs_plain
-    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import K10, rowdp_pairs_cuda
+    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import K10, plan_for, rowdp_pairs_cuda
 
     rng = np.random.default_rng(size + hi)
     strs = _strings(rng, 60, lo, hi, [chr(0x100 + i) for i in range(size)])
@@ -246,15 +246,67 @@ def test_k10_bit_equal_to_plain(cuda, size, lo, hi):
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = myers_pairs(enc, I, J)
-        swapped = rowdp_pairs_cuda(enc.ids, enc.lengths, J.int(), I.int(), enc.lmax)
+        swapped = rowdp_pairs_cuda(enc, J.int(), I.int())
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert K10.launches == before + 2
+    assert K10.launches == before + 2 * len(plan_for(enc, 2500))
     want = lev_pairs_plain(enc, I, J)
     assert torch.equal(got, want) and torch.equal(swapped, want)
     Ih, Jh = I[:12].tolist(), J[:12].tolist()
     assert got[:12].tolist() == [levenshtein_scalar(strs[i], strs[j]) for i, j in zip(Ih, Jh)]
+
+
+def _k10_case(rng, case):
+    """Strings of one K10 mode case: "short" (193 symbols, lengths 0-70:
+    group mode stages the tables in shared memory), "strings-1600" (256
+    symbols, 426-550) and "cjk" (20,000 CJK and astral code points,
+    lengths 0-600, one string of 5,000 and one of 2,600 characters whose
+    pair runs down the overflow lists into long mode, and the empty
+    string)."""
+    if case == "short":
+        return _strings(rng, 120, 0, 70, [chr(0x100 + i) for i in range(193)])
+    if case == "strings-1600":
+        return _strings(rng, 80, 426, 550, [chr(0x100 + i) for i in range(256)])
+    cjk = [chr(0x4E00 + i) for i in range(16_000)] + [chr(0x20000 + i) for i in range(4000)]
+    # 200 strings: the two long ones are the 1 % past the bulk
+    return ["", *_strings(rng, 1, 5000, 5000, cjk), *_strings(rng, 1, 2600, 2600, cjk),
+            *_strings(rng, 197, 0, 600, cjk)]
+
+
+@pytest.mark.parametrize("case", ["short", "strings-1600", "cjk"])
+@pytest.mark.parametrize("mode", ["thread", "group"])
+def test_k10_mode_bit_equal_to_plain(cuda, mode, case):
+    """Each first-launch mode of K10 against the plain version, with self
+    pairs and both argument orders; each launch of the plan counted in
+    its mode."""
+    from annchor_tpu_torch.ops.levenshtein import lev_pairs_plain
+    from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import K10, plan_for, rowdp_pairs_cuda
+
+    rng = np.random.default_rng(sum(map(ord, case)))
+    strs = _k10_case(rng, case)
+    enc = MyersEncoding.from_codes(*encode_strings(strs), cuda)
+    n = len(strs)
+    I = np.concatenate([rng.integers(0, n, 1500), np.arange(n)])
+    J = np.concatenate([rng.integers(0, n, 1500), np.arange(n)])
+    if case == "cjk":  # the two long strings, either way, and against ""
+        I = np.concatenate([I, [1, 2, 0, 1]])
+        J = np.concatenate([J, [2, 1, 1, 5]])
+    I = torch.as_tensor(I, device=cuda)
+    J = torch.as_tensor(J, device=cuda)
+    plans = plan_for(enc, len(I), mode)
+    assert plans[0].mode == mode and plans[0].smem == (case == "short" and mode == "group")
+    if case == "cjk":
+        assert [p.mode for p in plans] == [mode, "thread", "long"]
+    before = dict(K10.mode_launches)
+    got = rowdp_pairs_cuda(enc, I, J, mode)
+    swapped = rowdp_pairs_cuda(enc, J, I, mode)
+    torch.cuda.synchronize()
+    for m in K10.mode_launches:
+        assert K10.mode_launches[m] - before[m] == 2 * sum(p.mode == m for p in plans)
+    # small chunks: a chunk's rows run as long as its longest pattern
+    want = lev_pairs_plain(enc, I, J, chunk=256)
+    assert torch.equal(got, want) and torch.equal(swapped, want)
 
 
 @pytest.mark.parametrize("card", [0, 1], ids=["cuda0", "cuda1"])
