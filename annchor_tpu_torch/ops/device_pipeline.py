@@ -27,7 +27,8 @@ Parity with the JAX programs:
 
 The edit distances themselves come from the caller's ``batch_dev``
 (the metric engine), which on a CUDA device is the hand-written pair
-kernel.
+kernel; on a CUDA device the dense tighten's product is the hand-written
+K4 (``tropical_product``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from annchor_tpu_torch import parallel
+from annchor_tpu_torch.ops import tropical_cuda
 from annchor_tpu_torch.ops.bounds_update import _build_E
 from annchor_tpu_torch.ops.features import bounds_dad_dev
 
@@ -380,10 +382,19 @@ def tropical_product(E, V, Einf, y0: int, y1: int, block: int = 16):
         LB[i,j] = max_y |E[i,y] - E[j,y]|   (both entries present)
         UB[i,j] = min_y  E[i,y] + E[j,y]
 
-    in blocks of ``block`` columns, so each (nx, nx, block) temporary
-    stays bounded.  E is 0 and Einf +inf wherever V is False.  Max and
-    min are order-free, so any split of the columns gives the same
-    bits.  Returns (LB, UB), (nx, nx) float32."""
+    E is 0 and Einf +inf wherever V is False.  On a card, K4
+    (``ops/tropical_cuda.py``); on the CPU, ``tropical_product_plain``.
+    Both give the same bits.  Returns (LB, UB), (nx, nx) float32."""
+    if E.is_cuda:
+        return tropical_cuda.tropical_product_cuda(E, V, y0, y1)
+    return tropical_product_plain(E, V, Einf, y0, y1, block)
+
+
+def tropical_product_plain(E, V, Einf, y0: int, y1: int, block: int = 16):
+    """K4's plain PyTorch version: ``tropical_product`` in blocks of
+    ``block`` columns, so each (nx, nx, block) temporary stays bounded.
+    Max and min are order-free, so any split of the columns gives the
+    same bits."""
     nx = E.shape[0]
     lbM = torch.zeros((nx, nx), dtype=torch.float32, device=E.device)
     ubM = torch.full((nx, nx), F32_INF, dtype=torch.float32, device=E.device)

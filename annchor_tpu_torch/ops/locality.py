@@ -25,7 +25,9 @@ Three builds:
   bound, or with ``ANNCHOR_TPU_BUILD_SCORE=rms`` the anchor profiles'
   RMS difference) and returns the pair list on the device; on a device
   mesh its bands are dealt out over the shards
-  (``_budgeted_bands_sharded``).
+  (``_budgeted_bands_sharded``).  On a card each band pass under the
+  triangle lower bound is one launch of the hand-written K9a
+  (``ops/band_linf_cuda.py``), score, filter and epilogue fused.
 
 and the same counts serve the post-fit surface: the query candidates
 (``query_candidates``) and the nearest-enemy candidates
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from annchor_tpu_torch import parallel
+from annchor_tpu_torch.ops import band_linf_cuda
 from annchor_tpu_torch.ops.features import _f32, anchor_membership, shared_anchor_counts
 from annchor_tpu_torch.progress import progress
 
@@ -378,12 +381,27 @@ def _band_admitted(Sb, Sc, eb, ec, rows, c0: int, nx: int, upper: bool):
 
 
 def _band_bins_sym(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin,
-                   nbins: int, cchunk: int, score: str = "linf"):
+                   nbins: int, cchunk: int, score: str = "linf", cols=None):
     """int16 (B, nxp) binned ranking scores (``_band_score``) of a row
     band against every column, symmetric admitted view; the sentinel
     ``nbins`` marks non-candidates.  ``inv_bin`` is a float32 0-d tensor:
     the product lb * inv_bin is rounded to float32, then truncated to
-    int32."""
+    int32.  Under "linf" on a card this is one launch of K9a
+    (``ops/band_linf_cuda.py``) over every column, whose operands
+    ``cols`` (``band_linf_cuda.operands(D32p, Sp)``) the build makes once
+    and must pass; otherwise ``_band_bins_sym_plain``, with the same bits
+    (``cols`` unused)."""
+    if score == "linf" and Db.is_cuda:
+        return band_linf_cuda.band_bins(band_linf_cuda.operands(Db, Sb), eb, cols, effp,
+                                        row_off, nx, inv_bin, nbins)
+    return _band_bins_sym_plain(D32p, Sp, Sb, Db, eb, effp, row_off, nx, inv_bin, nbins,
+                                cchunk, score)
+
+
+def _band_bins_sym_plain(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin,
+                         nbins: int, cchunk: int, score: str = "linf"):
+    """K9a's plain PyTorch version in bins mode (and the rms score's
+    only one): ``_band_bins_sym`` in column chunks of ``cchunk``."""
     B = Sb.shape[0]
     nxp = Sp.shape[0]
     rows = row_off + torch.arange(B, device=Sb.device)
@@ -416,10 +434,28 @@ def _band_thr_from_bins(BINs, cap: int, bin_w, nbins: int):
 
 
 def _band_keep2_dense(D32p, Sp, Sb, Db, eb, effp, thr_all, row_off: int, nx: int,
-                      cchunk: int, score: str = "linf"):
+                      cchunk: int, score: str = "linf", cols=None):
     """Pass-2 keep mask of a row band: upper-triangular admitted pairs
-    whose score is under either endpoint's threshold.  Returns
-    (keep (B, nxp) bool, rowcnt (B,), colcnt (nxp,))."""
+    whose score is under either endpoint's threshold.  Under "linf" on a
+    card one launch of K9a (``cols`` as in ``_band_bins_sym``); otherwise
+    ``_band_keep2_plain``.  Returns (keep (B, nxp) bool, rowcnt (B,),
+    colcnt (nxp,))."""
+    B = Sb.shape[0]
+    if score == "linf" and Db.is_cuda:
+        keep = band_linf_cuda.band_keep(band_linf_cuda.operands(Db, Sb), eb,
+                                        thr_all[row_off : row_off + B], cols, effp,
+                                        thr_all[: Sp.shape[0]], row_off, nx)
+    else:
+        keep = _band_keep2_plain(D32p, Sp, Sb, Db, eb, effp, thr_all, row_off, nx, cchunk,
+                                 score)
+    return keep, keep.sum(dim=1), keep.sum(dim=0)
+
+
+def _band_keep2_plain(D32p, Sp, Sb, Db, eb, effp, thr_all, row_off: int, nx: int,
+                      cchunk: int, score: str = "linf"):
+    """K9a's plain PyTorch version in keep mode (and the rms score's only
+    one): the keep mask of ``_band_keep2_dense`` in column chunks of
+    ``cchunk``."""
     B = Sb.shape[0]
     nxp = Sp.shape[0]
     rows = row_off + torch.arange(B, device=Sb.device)
@@ -432,7 +468,7 @@ def _band_keep2_dense(D32p, Sp, Sb, Db, eb, effp, thr_all, row_off: int, nx: int
         keep[:, c0:c1] = adm & (
             lb <= torch.maximum(thr_rows[:, None], thr_all[None, c0:c1])
         )
-    return keep, keep.sum(dim=1), keep.sum(dim=0)
+    return keep
 
 
 def _extract_rows(keep, row_off: int, rows_per: int):
@@ -471,6 +507,11 @@ def _budgeted_bands_sharded(mesh, D32p, Sp, effp, nx: int, nblk: int, cchunk: in
     groups = range(-(-nbands // s))
     Ss, Ds, es, invs, bws = (parallel.broadcast(t, devs) for t in (Sp, D32p, effp, inv_bin,
                                                                   bin_w))
+    # K9a's column operands, one copy per distinct device
+    cols = [None] * s
+    if first.type == "cuda":
+        cols = list(zip(*(parallel.broadcast(t, devs)
+                          for t in band_linf_cuda.operands(D32p, Sp))))
 
     def bands(g):
         """(shard, first row) of group g's bands."""
@@ -480,8 +521,10 @@ def _budgeted_bands_sharded(mesh, D32p, Sp, effp, nx: int, nblk: int, cchunk: in
     for g in progress(groups, "pair-budget pass 1 (sharded)", verbose):
         for c, r0 in bands(g):
             r1 = r0 + nblk
-            BINs = _band_bins_sym(Ds[c], Ss[c], Ss[c][r0:r1], Ds[c][r0:r1], es[c][r0:r1],
-                                  es[c], r0, nx, invs[c], nbins, cchunk, "linf")
+            with parallel.shard_scope(c):
+                BINs = _band_bins_sym(Ds[c], Ss[c], Ss[c][r0:r1], Ds[c][r0:r1],
+                                      es[c][r0:r1], es[c], r0, nx, invs[c], nbins, cchunk,
+                                      "linf", cols[c])
             thr_parts.append(_band_thr_from_bins(BINs, per_point_cap, bws[c], nbins))
             del BINs
     thr = parallel.all_gather(thr_parts, devs)
@@ -491,9 +534,10 @@ def _budgeted_bands_sharded(mesh, D32p, Sp, effp, nx: int, nblk: int, cchunk: in
     for g in progress(groups, "pair-budget pass 2 (sharded)", verbose):
         for c, r0 in bands(g):
             r1 = r0 + nblk
-            keep, rowcnt, colcnt = _band_keep2_dense(
-                Ds[c], Ss[c], Ss[c][r0:r1], Ds[c][r0:r1], es[c][r0:r1], es[c], thr[c], r0,
-                nx, cchunk, "linf")
+            with parallel.shard_scope(c):
+                keep, rowcnt, colcnt = _band_keep2_dense(
+                    Ds[c], Ss[c], Ss[c][r0:r1], Ds[c][r0:r1], es[c][r0:r1], es[c], thr[c],
+                    r0, nx, cchunk, "linf", cols[c])
             pcnt[c] += colcnt
             pcnt[c][r0:r1] += rowcnt
             pi, pj = _extract_rows(keep, r0, rows_per)
@@ -598,11 +642,15 @@ def candidate_pairs_device_budgeted(
     def band(s):
         return Sp[s : s + nblk], D32p[s : s + nblk], effp[s : s + nblk]
 
+    # K9a's column operands, made once for both passes (the plain
+    # versions take none)
+    cols = band_linf_cuda.operands(D32p, Sp) if score == "linf" and dev.type == "cuda" else None
+
     thr = torch.empty(nxp, dtype=torch.float32, device=dev)
     for s in progress(range(0, nxp, nblk), "pair-budget pass 1", verbose):
         Sb, Db, eb = band(s)
         BINs = _band_bins_sym(D32p, Sp, Sb, Db, eb, effp, s, nx, inv_bin, nbins, cchunk,
-                              score)
+                              score, cols)
         thr[s : s + nblk] = _band_thr_from_bins(BINs, int(per_point_cap), bin_w, nbins)
         del BINs
 
@@ -611,7 +659,7 @@ def candidate_pairs_device_budgeted(
     for s in progress(range(0, nxp, nblk), "pair-budget pass 2", verbose):
         Sb, Db, eb = band(s)
         keep, rowcnt, colcnt = _band_keep2_dense(
-            D32p, Sp, Sb, Db, eb, effp, thr, s, nx, cchunk, score
+            D32p, Sp, Sb, Db, eb, effp, thr, s, nx, cchunk, score, cols
         )
         P_cnt += colcnt
         P_cnt[s : s + nblk] += rowcnt

@@ -347,7 +347,8 @@ class ShardedFit:
             E, V = EV[d]
             Einf = torch.where(V, E, torch.full_like(E, F32_INF))
             y0, y1 = min(c * per, nx), min((c + 1) * per, nx)
-            lbM, ubM = dp.tropical_product(E, V, Einf, y0, y1, block)
+            with parallel.shard_scope(c):
+                lbM, ubM = dp.tropical_product(E, V, Einf, y0, y1, block)
             lbs.append(lbM)
             ubs.append(ubM)
         lbM = parallel.pmax(lbs, self.devices)

@@ -9,9 +9,9 @@ against the exact graph from the port's own ``BruteForce``.  Phases, each
 of which exits non-zero when it fails:
 
 1. device: the card's name and power limit, and the build of every
-   kernel from the sources in this checkout (K1, K10 and the host EMD
-   solver, one compiler process each, started together), with ptxas's
-   registers and spills for each instantiation;
+   kernel from the sources in this checkout (K1, K10, K4, K9a and the
+   host EMD solver, one compiler process each, started together), with
+   ptxas's registers and spills for each instantiation;
 2. kernel check: the CUDA edit-distance kernel (K1), in each launch mode
    (auto, thread, group), against its plain PyTorch version, bit for
    bit, on 82,180 pairs (empty strings, word boundaries, alphabets
@@ -33,15 +33,22 @@ of which exits non-zero when it fails:
    certify dispatch (the Sinkhorn
    scout's values of 40,000 digit pairs queued on the card) under
    ``set_sync_debug_mode("error")``, its values against the same engine
-   on the CPU;
+   on the CPU; K4, the dense tropical tighten, against its plain version
+   bit for bit at nx 1, 17, 1,000, 4,096, on rows with no computed
+   entry, on an E with every entry present and on strings-1600's E at
+   both tightens of its fit (every column, a sub-range, and two
+   sub-ranges that combine to the whole); K9a, the band build's linf
+   score, in both modes bit for bit at na 5, 32, 48 and 96 over padded
+   bands, zero thresholds, the diagonal, +inf thresholds and a ragged
+   chunk; every K4 and K9a call under ``set_sync_debug_mode("error")``;
 3. exact graph: ``BruteForce`` on strings-1600 (1,279,200 pairs);
 4. fit: one warm-up fit, then one timed fit with the stage table, which
    must launch K1 and stay within the evaluation budget; then the same
    fit drawing its samples from the JAX package's stream
    (``jax_threefry_uniforms``), which must spend exactly the JAX
    package's evals on this set and score no more errors against the
-   exact graph than the JAX package does; then one fit under
-   ``torch.profiler`` for K1's share of the device time;
+   exact graph than the JAX package does, each launching K4; then one fit
+   under ``torch.profiler`` for K1's and K4's share of the device time;
 5. timing: K1 at the main path's batch shapes (strings-1600's anchor
    column, sample batch, refine batch and BruteForce, a 100,000-pair
    column of the 100k corpus, and the anchor column and BruteForce of
@@ -51,11 +58,16 @@ of which exits non-zero when it fails:
    in each forced mode, the word steps, the bound and its share, the
    plain version's time and the one-thread-per-pair kernel's it
    replaced; then the thread/group crossover
-   sweep behind the wrapper's dispatch rule;
+   sweep behind the wrapper's dispatch rule; then K4 at nx 1,600
+   (strings-1600's E) and 4,096 and K9a on a (4096, 2048, 96) chunk of
+   random profiles in both modes: ms, bound and share (the bound counts
+   the steps the data needs: K4's present entries, K9a's admitted pairs;
+   the dense bound beside it), the plain version's ms, and for K9a the
+   rms score's and ``torch.cdist(p=inf)``'s ms;
 6. vector metrics: the euclidean, sqeuclidean and cosine engine on the
    card against a float64 oracle, the blobs contract (0 errors) and a
    euclidean fit on 4,096 x 64 blobs, held to the JAX package's evals and
-   errors;
+   errors, which must launch K4;
 7. a Python-callable metric: an L1 closure evaluated on host threads
    with the fit's state on the card, held to the JAX package's figures;
 8. the host pipeline (a custom sampler): the strings-1600 fit, which
@@ -67,12 +79,17 @@ of which exits non-zero when it fails:
    its plain version on 20,000 pairs of each corpus: (a) a 5,000-string
    fit with the JAX sample stream, held to the JAX package's evals and
    errors; (b) the default-constructor fit of 100,000 evolve strings of
-   ~400 characters, which must run in sparse mode, launch K1, stay
+   ~400 characters, which must run in sparse mode, launch K1 and K9a
+   in both modes (its band build), stay
    within int(p_work * N) evals and reach distance recall >= 0.99 over
    500 exact rows from ``exact_rows`` (K1) before the fit; its
    refinement screens on the card (each round's ``screen_dev_s`` and
    host split printed), and one more round on the fitted index holds the
-   device screen's slates to the host screen's, bit for bit; (c) the
+   device screen's slates to the host screen's, bit for bit; the
+   build's first and last band, 4,096 x 102,400 at na 96, are held
+   through K9a's dispatch bit for bit to its plain versions in both
+   modes with no host sync, and timed (the kernels line's K9a figures);
+   (c) the
    5,000-string fit under ``ANNCHOR_TPU_BUILD_SCORE=rms`` within its
    budget and the JAX test's family bound of (a)'s errors, and one
    (4096, 2048, 96) band chunk's score timed under linf and rms;
@@ -85,7 +102,7 @@ of which exits non-zero when it fails:
    (d) nearest enemies and the selective subset on the 5,000-string
    fit's sparse device state, which must survive them; (e) the 100k
    index saved as v2, loaded with ``rebuild_pairs=True`` (the same
-   graph and pair list), queried with 500 mutated strings (distance
+   graph and pair list; its band build launches K9a in both modes), queried with 500 mutated strings (distance
    recall >= 0.99 over their exact rows by K1) and refined with free
    merges from the stored exact values.  Each query is timed, with the
    share of its wall spent encoding strings, then run again without the
@@ -118,7 +135,7 @@ of which exits non-zero when it fails:
    strings-1600 over 256 code points (phase 4's arguments, the JAX sample
    stream), every evaluation on K10: the JAX package's evals, no more
    errors than its against a BruteForce on K10, K10 launched in thread
-   and group mode; the same fit under ``torch.profiler`` (K10's device
+   and group mode, K4 launched; the same fit under ``torch.profiler`` (K10's device
    ms); the sparse Peq table's build seconds over 256 and 20,000
    symbols; then K10 at the refine batch, an anchor column and
    BruteForce's pairs: the time through its wrapper, the word steps and
@@ -137,13 +154,18 @@ of which exits non-zero when it fails:
    and graph must equal phase 9's, with each shard's residency, the
    stage table, the wall and the peak memory beside phase 9's; (d) the
    rms build score on the mesh, which must raise.  Each fit must launch
-   K1 on every shard.
+   K1 on every shard, (a) K4 and (b) K9a too.
 
 K1's launches, in all and per mode, are counted in the fits of phases
 4, 8 and 9, in the calls of phase 10 (a), (b), (d) and (e) and in phase
 11(a)'s ``exact_knn``, K10's, in all and per mode, in phase 12(c)'s fit, each with the counts
 set to 0 just before it; K1's launches per shard in phase 13's fits
-(a) and (b), with the counts set to 0 just before each.
+(a) and (b), with the counts set to 0 just before each.  K4's launches
+are counted the same way in phase 4's two fits (the kernels line's
+"launches"), phase 6's 4,096 x 64 fit, phase 12(c)'s fit and per shard
+in phase 13(a); K9a's by mode in phase 9(b)'s 100k fit (its
+"launches"), phase 9(a)'s, phase 10(e)'s ``load(rebuild_pairs=True)``
+and per shard in phase 13(b).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to build/chip_smoke.json.
@@ -306,6 +328,14 @@ K10_OPS_PER_PROBE = 2
 K10_OPS_PER_CELL = 5
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
+# K4's and K9a's bound: their FMNMX (float min/max), 64 lanes a clock per
+# SM on the H100 SXM, 132 x 64 x 1.98e9 a second, counted over the steps
+# the inputs need: K4 2 for each (i <= j, y) with both E[i, y] and
+# E[j, y] present (csrc/tropical_tighten.cu), K9a 1 for each anchor of a
+# pair its pass admits (csrc/band_linf.cu); beside it, the bound of the
+# steps the kernel's tiling does (K4: every (i <= j, y); K9a: every pair
+# its masks leave, before the shared-anchor filter)
+FMNMX_PER_S = 132 * 64 * 1.98e9
 # K1 through the wrapper before its redesign (one thread per pair, pairs
 # sorted by word count on the card), measured by this script's phase 5 on
 # the same card type and limit; the 100k column is get_anchors' 0.257 s
@@ -410,10 +440,13 @@ def _ptxas(kernel):
     for line in kernel.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            kind = re.search(r"(k10?_thread|k10?_group|k10?_long)", m.group(1))
+            kind = re.search(r"(k10?_thread|k10?_group|k10?_long|k4_tropical|k9a_band)",
+                             m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = "%s%s" % (kind.group(1) if kind else "?",
                              "<%s>" % ",".join(args) if args else "")
+            name = name.replace("k9a_band<1>", "k9a_band<bins>").replace(
+                "k9a_band<0>", "k9a_band<keep>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = (int(m.group(1)), int(m.group(2)))
@@ -639,6 +672,424 @@ def _check_k10(torch, np):
     return total, worst, modes
 
 
+def _bit_err(torch, got, want):
+    """max |got - want| over the entries that differ (0 when bit-equal;
+    equal infinities count as equal)."""
+    got, want = got.float(), want.float()
+    diff = torch.where(got == want, torch.zeros_like(got), (got - want).abs())
+    return float(diff.nan_to_num(float("inf")).max()) if diff.numel() else 0.0
+
+
+def _capture_tighten(torch, att, X):
+    """(E, V, Einf) of each dense tighten of phase 4's strings-1600 fit,
+    cloned as the fit hands them to ``device_pipeline.tropical_product``."""
+    from annchor_tpu_torch.ops import device_pipeline as dp
+
+    seen = []
+    real = dp.tropical_product
+
+    def capture(E, V, Einf, y0, y1, block=16):
+        seen.append((E.clone(), V.clone(), Einf.clone()))
+        return real(E, V, Einf, y0, y1, block)
+
+    dp.tropical_product = capture
+    try:
+        att.Annchor(X, "levenshtein", n_neighbors=N_NEIGHBORS, p_work=P_WORK,
+                    random_seed=42, device="cuda").fit()
+    finally:
+        dp.tropical_product = real
+    return seen
+
+
+def _k4_matrix(torch, np, nx, density, computed=1.0, empty_rows=0, full=False, seed=0):
+    """(E, V, Einf) as ``tighten_full`` builds them from a random state:
+    ``density`` of the pairs i < j tracked, ``computed`` of those
+    computed, none in the first ``empty_rows`` rows; ``full``: every
+    entry present, the diagonal too.  Integer and arbitrary float32
+    distances."""
+    from annchor_tpu_torch.ops.bounds_update import _build_E
+
+    rng = np.random.default_rng(seed + nx)
+    if full:
+        E = torch.as_tensor((rng.random((nx, nx)) * 400).astype(np.float32), device="cuda")
+        E = torch.minimum(E, E.T).contiguous()
+        V = torch.ones((nx, nx), dtype=torch.bool, device="cuda")
+    else:
+        iu, ju = np.triu_indices(nx, 1)
+        keep = rng.random(iu.size) < density
+        IJ = torch.as_tensor(np.stack([iu[keep], ju[keep]], axis=1), device="cuda")
+        m = IJ.shape[0]
+        RA = np.where(rng.random(m) < 0.5, rng.integers(0, 400, m), rng.random(m) * 400)
+        done = (rng.random(m) < computed) & (iu[keep] >= empty_rows) & (ju[keep] >= empty_rows)
+        E, V = _build_E(IJ, torch.as_tensor(RA.astype(np.float32), device="cuda"),
+                        torch.as_tensor(done, device="cuda"), nx)
+    return E, V, torch.where(V, E, torch.full_like(E, float("inf")))
+
+
+def _check_k4(torch, np, att, X):
+    """K4 against its plain version (``tropical_product_plain``) on CUDA
+    tensors, bit for bit, each kernel call under
+    ``torch.cuda.set_sync_debug_mode("error")``: nx 1 and 17, 1,000 (not a
+    multiple of the 64-point tile), 300 with 40 rows that have no computed
+    entry, 257 with every entry present (the diagonal too), strings-1600's
+    E at both dense tightens of its fit (every column, a sub-range, and two
+    sub-ranges whose max and min make the whole), and 4,096.  Returns
+    (calls compared, max |K4 - plain|, launches, the fit's last E)."""
+    from annchor_tpu_torch.ops import device_pipeline as dp
+    from annchor_tpu_torch.ops.tropical_cuda import K4
+
+    fit = _capture_tighten(torch, att, X)
+    if len(fit) != 2:
+        raise SystemExit("strings-1600's fit ran %d dense tightens, not 2" % len(fit))
+    cases = [("nx 1", _k4_matrix(torch, np, 1, 1.0)),
+             ("nx 17", _k4_matrix(torch, np, 17, 0.8, 0.5)),
+             ("nx 1000", _k4_matrix(torch, np, 1000, 0.2, 0.5)),
+             ("40 empty rows", _k4_matrix(torch, np, 300, 0.5, 0.5, empty_rows=40)),
+             ("every entry", _k4_matrix(torch, np, 257, 1.0, full=True)),
+             ("strings-1600 tighten 1", fit[0]),
+             ("strings-1600 tighten 2", fit[1]),
+             ("nx 4096", _k4_matrix(torch, np, 4096, 0.05))]
+    calls = worst = 0
+    before = K4.launches
+    for name, (E, V, Einf) in cases:
+        nx = E.shape[0]
+        a, b = nx // 3, (2 * nx) // 3 + 1
+        ranges = ([(0, nx), (a, b), (0, a), (a, nx)] if name.startswith("strings")
+                  else [(0, nx)])
+        got = {}
+        for y0, y1 in ranges:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got[y0, y1] = dp.tropical_product(E, V, Einf, y0, y1)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            want = dp.tropical_product_plain(E, V, Einf, y0, y1)
+            err = max(_bit_err(torch, g, w) for g, w in zip(got[y0, y1], want))
+            same = all(torch.equal(g, w) for g, w in zip(got[y0, y1], want))
+            worst = max(worst, err)
+            calls += 1
+            if not same:
+                raise SystemExit("K4 disagrees with its plain version: %s, columns %d..%d "
+                                 "(max|diff| %g)" % (name, y0, y1, err))
+        split = len(ranges) > 1 and torch.equal(
+            torch.maximum(got[0, a][0], got[a, nx][0]), got[0, nx][0]) and torch.equal(
+            torch.minimum(got[0, a][1], got[a, nx][1]), got[0, nx][1])
+        print("  K4 vs plain  %-22s nx %4d, %5.1f %% of entries present, columns %s, no "
+              "sync: bit-equal%s" % (
+                  name, nx, 100 * float(V.float().mean()),
+                  ", ".join("%d..%d" % r for r in ranges),
+                  "; the two sub-ranges combine to the whole" if split else ""), flush=True)
+        if len(ranges) > 1 and not split:
+            raise SystemExit("K4's two column sub-ranges do not combine to the whole")
+    launches = K4.launches - before
+    if launches != calls:
+        raise SystemExit("K4 launched %d times for %d calls" % (launches, calls))
+    return calls, worst, launches, fit[1]
+
+
+def _k9a_problem(torch, np, na, nx=5000, nxp=6144, seed=0):
+    """The band build's padded operands (``candidate_pairs_device_budgeted``)
+    on the card: D32p (nxp, na) of integer and arbitrary float32 anchor
+    distances, Sp, effp (+inf on padding, 10 % of the rows 0: ROADMAP F6),
+    inv_bin over 256 bins, and pass-2 thresholds with 0 and +inf."""
+    from annchor_tpu_torch.ops.features import anchor_membership
+
+    rng = np.random.default_rng(seed + na)
+    D = np.where(rng.random((nx, na)) < 0.5, rng.integers(0, 400, (nx, na)),
+                 rng.random((nx, na)) * 400).astype(np.float32)
+    S, _ = anchor_membership(D, min(5, na), "cuda")
+    eff = rng.integers(1, 4, nx).astype(np.float32)
+    eff[rng.random(nx) < 0.1] = 0.0
+    pad = nxp - nx
+    F = torch.nn.functional
+    thr = rng.choice(np.array([0.0, 50.0, 120.5, 200.0, 400.0, np.inf], dtype=np.float32), nxp)
+    return dict(nx=nx, D32p=F.pad(torch.as_tensor(D, device="cuda"), (0, 0, 0, pad)),
+                Sp=F.pad(S, (0, 0, 0, pad)),
+                effp=F.pad(torch.as_tensor(eff, device="cuda"), (0, pad), value=float("inf")),
+                inv_bin=torch.tensor(np.float32(256 / (2.0 * float(D.max()) + 1e-6)),
+                                     device="cuda"),
+                thr=torch.as_tensor(thr, device="cuda"))
+
+
+def _check_k9a(torch, np):
+    """K9a against its plain versions (``_band_bins_sym_plain``,
+    ``_band_keep2_plain``) on CUDA tensors, bit for bit, each dispatch
+    under ``torch.cuda.set_sync_debug_mode("error")``: 5,000 points padded
+    to 6,144 in bands of 2,048 (padding rows and columns), 10 % of the rows
+    at effective threshold 0, pass-2 thresholds with 0 and +inf, every band
+    in both modes at na 5, 32, 48 and 96, and the last band against 5,001
+    columns (a ragged chunk: not a multiple of the tile or of 4).  Returns
+    (calls compared, max |K9a - plain|, launches per mode)."""
+    from annchor_tpu_torch.ops import band_linf_cuda, locality
+    from annchor_tpu_torch.ops.band_linf_cuda import K9A
+
+    before = dict(K9A.mode_launches)
+    calls = worst = 0
+    for na in (5, 32, 48, 96):
+        P = _k9a_problem(torch, np, na)
+        D32p, Sp, effp, inv, thr = P["D32p"], P["Sp"], P["effp"], P["inv_bin"], P["thr"]
+        nxp = D32p.shape[0]
+        kept = binned = 0
+        for cols, r0s in ((nxp, range(0, nxp, 2048)), (5001, [4096])):
+            ops = band_linf_cuda.operands(D32p[:cols], Sp[:cols])
+            for r0 in r0s:
+                args = (D32p[:cols], Sp[:cols], Sp[r0 : r0 + 2048], D32p[r0 : r0 + 2048],
+                        effp[r0 : r0 + 2048], effp[:cols])
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    bins = locality._band_bins_sym(*args, r0, P["nx"], inv, 256, 2048,
+                                                   cols=ops)
+                    keep = locality._band_keep2_dense(*args, thr, r0, P["nx"], 2048,
+                                                      cols=ops)[0]
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                want_b = locality._band_bins_sym_plain(*args, r0, P["nx"], inv, 256, cols)
+                want_k = locality._band_keep2_plain(*args, thr, r0, P["nx"], cols)
+                err = max(_bit_err(torch, bins, want_b), _bit_err(torch, keep, want_k))
+                worst = max(worst, err)
+                calls += 2
+                if not (torch.equal(bins, want_b) and torch.equal(keep, want_k)):
+                    raise SystemExit("K9a disagrees with its plain version: na %d, rows "
+                                     "%d.., %d columns (max|diff| %g)" % (na, r0, cols, err))
+                binned += int((bins < 256).sum())
+                kept += int(keep.sum())
+        print("  K9a vs plain na %2d: 3 bands of 2,048 x 6,144 and one of 2,048 x 5,001, "
+              "bins and keep, no sync: bit-equal (%d pairs binned, %d kept)"
+              % (na, binned, kept), flush=True)
+    launches = {m: K9A.mode_launches[m] - before[m] for m in before}
+    if launches != {"bins": calls // 2, "keep": calls // 2}:
+        raise SystemExit("K9a launched %s for %d calls" % (launches, calls))
+    return calls, worst, launches
+
+
+@contextlib.contextmanager
+def _capture_bands():
+    """Within the block, record the operands of the single-device budgeted
+    band build as it hands them to ``locality._band_bins_sym`` and
+    ``_band_keep2_dense`` (the first build only): the padded D32p, Sp and
+    effp, nx, inv_bin, nbins, the band height and column chunk, and pass
+    2's thresholds.  They are references, not copies: the build writes
+    none of them after pass 1."""
+    from annchor_tpu_torch.ops import locality
+
+    seen = {}
+    real_bins, real_keep = locality._band_bins_sym, locality._band_keep2_dense
+
+    def bins(*a, **kw):
+        if "D32p" not in seen:
+            seen.update(D32p=a[0], Sp=a[1], nblk=a[2].shape[0], effp=a[5], nx=a[7],
+                        inv_bin=a[8], nbins=a[9], cchunk=a[10])
+        return real_bins(*a, **kw)
+
+    def keep(*a, **kw):
+        seen.setdefault("thr", a[6])
+        return real_keep(*a, **kw)
+
+    locality._band_bins_sym, locality._band_keep2_dense = bins, keep
+    try:
+        yield seen
+    finally:
+        locality._band_bins_sym, locality._band_keep2_dense = real_bins, real_keep
+
+
+def _check_k9a_bands(torch, np, cap):
+    """K9a on bands the 100k build launched (``cap``, from
+    ``_capture_bands``): its first and last band, 4,096 rows against all
+    102,400 columns, through the dispatch points ``_band_bins_sym`` and
+    ``_band_keep2_dense`` under ``torch.cuda.set_sync_debug_mode("error")``,
+    held bit for bit to ``_band_bins_sym_plain`` and ``_band_keep2_plain``.
+    Then the wrapper (``band_linf_cuda.band_bins``, ``band_keep``) timed
+    in each mode on both bands by CUDA events beside its bound
+    (``_k9a_bound``: the steps of the pairs the pass admits), with the
+    plain version's ms and ``torch.cdist(Db, D32p, p=inf)``'s.  Returns
+    the rows; the first band's are the kernels line's K9a figures."""
+    from annchor_tpu_torch.ops import band_linf_cuda, locality
+
+    if not {"D32p", "thr"} <= set(cap):
+        raise SystemExit("the 100,000-string fit ran no budgeted band build")
+    D32p, Sp, effp, thr = cap["D32p"], cap["Sp"], cap["effp"], cap["thr"]
+    nx, nblk, cchunk, nbins, inv = cap["nx"], cap["nblk"], cap["cchunk"], cap["nbins"], \
+        cap["inv_bin"]
+    nxp, na = D32p.shape
+    cols = band_linf_cuda.operands(D32p, Sp)
+    rows = {}
+    for name, r0 in (("first", 0), ("last", nxp - nblk)):
+        args = (D32p, Sp, Sp[r0 : r0 + nblk], D32p[r0 : r0 + nblk], effp[r0 : r0 + nblk], effp)
+        kernels = {
+            "bins": lambda: locality._band_bins_sym(*args, r0, nx, inv, nbins, cchunk, "linf",
+                                                    cols),
+            "keep": lambda: locality._band_keep2_dense(*args, thr, r0, nx, cchunk, "linf",
+                                                       cols)[0]}
+        plains = {
+            "bins": lambda: locality._band_bins_sym_plain(*args, r0, nx, inv, nbins, cchunk),
+            "keep": lambda: locality._band_keep2_plain(*args, thr, r0, nx, cchunk)}
+        got = {}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for mode, fn in kernels.items():
+                got[mode] = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        binned = got["bins"] < nbins
+        # the share of K9a's 64 x 64 tiles that hold an admitted pair
+        tiles = torch.nn.functional.pad(binned.to(torch.uint8), (0, -nxp % 64, 0, -nblk % 64))
+        occupied = float(tiles.view(-(-nblk // 64), 64, -1, 64).amax(dim=3).amax(dim=1)
+                         .float().mean())
+        # the wrapper alone, as the dispatch calls it
+        band = band_linf_cuda.operands(args[3], args[2])
+        wrappers = {
+            "bins": lambda: band_linf_cuda.band_bins(band, args[4], cols, effp, r0, nx, inv,
+                                                     nbins),
+            "keep": lambda: band_linf_cuda.band_keep(band, args[4], thr[r0 : r0 + nblk], cols,
+                                                     effp, thr, r0, nx)}
+        library_ms = _time(torch, lambda: torch.cdist(args[3], D32p, p=float("inf")), 2)
+        for mode, fn in wrappers.items():
+            want = plains[mode]()
+            err = _bit_err(torch, got[mode], want)
+            if not torch.equal(got[mode], want):
+                raise SystemExit("K9a disagrees with its plain version on the 100k build's "
+                                 "%s band, %s mode (max|diff| %g)" % (name, mode, err))
+            rows["K9a %s %s" % (mode, name)] = {
+                "shape": [nblk, nxp, na], "row_off": r0, "max_abs_err": err,
+                "ms": _time(torch, fn, 10), "plain_ms": _time(torch, plains[mode], 1),
+                **_k9a_bound(torch, np, binned, na, r0, nx, mode), "library_ms": library_ms,
+                "tiles_admitting": occupied}
+            del want
+        del got, binned
+    print("  K9a on the 100k build's first and last band (rows %d.. and %d.., %d columns, "
+          "na %d), bins and keep, no sync: bit-equal to the plain versions" % (
+              0, nxp - nblk, nxp, na), flush=True)
+    _print_rows(rows)
+    for key, row in rows.items():
+        print("    %s: %d pairs admitted of %d the masks leave; %.1f %% of the band's "
+              "64 x 64 tiles hold a pair pass 1 admits" % (
+                  key, row["pairs_admitted"], row["pairs_dense"],
+                  100 * row["tiles_admitting"]), flush=True)
+    return rows
+
+
+def _k4_k9a_timing(torch, np, E1600=None):
+    """K4 over every column at nx 1,600 (``E1600``: strings-1600's E at its
+    fit's second tighten, or a random one) and 4,096, and K9a on a
+    (4096, 2048, 96) chunk of random profiles in both modes (phase 9(c)'s
+    rms chunk; phase 9(b) times the 100k build's own bands): ms by CUDA
+    events beside the bound (``FMNMX_PER_S``) and its share, the plain
+    version's ms, and for K9a the rms score's ms and
+    ``torch.cdist(Db, Dc, p=inf)``'s (``library_ms``: the one PyTorch
+    call of the same score, never on the port's path).  Each kernel is
+    held to its plain version once more.  Returns the rows."""
+    from annchor_tpu_torch.ops import band_linf_cuda, locality
+    from annchor_tpu_torch.ops import device_pipeline as dp
+    from annchor_tpu_torch.ops.features import anchor_membership
+
+    rows = {}
+    for nx, EVI in ((1600, E1600), (4096, None)):
+        E, V, Einf = EVI if EVI is not None else _k4_matrix(torch, np, nx, 0.05)
+        got = dp.tropical_product(E, V, Einf, 0, nx)
+        want = dp.tropical_product_plain(E, V, Einf, 0, nx)
+        # 2 FMNMX for each (i <= j, y) with both entries present
+        present = V.sum(dim=0, dtype=torch.int64).double()
+        ops_ms = float((present * (present + 1)).sum()) / FMNMX_PER_S * 1e3
+        dense_ms = nx * (nx + 1) / 2 * nx * 2 / FMNMX_PER_S * 1e3
+        bytes_ms = nx * nx * (4 + 1 + 2 * 4) / HBM_BYTES_PER_S * 1e3  # E, V; LB, UB
+        row = {"nx": nx, "max_abs_err": max(_bit_err(torch, g, w) for g, w in zip(got, want)),
+               "ms": _time(torch, lambda: dp.tropical_product(E, V, Einf, 0, nx), 20),
+               "plain_ms": _time(torch, lambda: dp.tropical_product_plain(E, V, Einf, 0, nx),
+                                 2),
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "bound_ms_dense": max(dense_ms, bytes_ms),
+               "library_ms": None}
+        rows["K4 nx %d" % nx] = row
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, C, na = 4096, 2048, 96
+    Db = torch.rand((B, na), generator=gen, device="cuda") * 400
+    Dc = torch.rand((C, na), generator=gen, device="cuda") * 400
+    Sb, _ = anchor_membership(Db, 5, "cuda")
+    Sc, _ = anchor_membership(Dc, 5, "cuda")
+    eb = torch.randint(1, 4, (B,), generator=gen, device="cuda").float()
+    ec = torch.randint(1, 4, (C,), generator=gen, device="cuda").float()
+    thr = torch.rand((B,), generator=gen, device="cuda") * 400
+    inv = torch.tensor(np.float32(256 / 800.0), device="cuda")
+    rows_op = band_linf_cuda.operands(Db, Sb)
+    cols_op = band_linf_cuda.operands(Dc, Sc)
+    # rows and columns numbered from 0, as the plain loop numbers columns
+    side = (Dc, Sc, Sb, Db, eb, ec)
+    calls = {
+        "bins": (lambda: band_linf_cuda.band_bins(rows_op, eb, cols_op, ec, 0, C, inv, 256),
+                 lambda: locality._band_bins_sym_plain(*side, 0, C, inv, 256, C)),
+        "keep": (lambda: band_linf_cuda.band_keep(rows_op, eb, thr, cols_op, ec, thr[:C], 0, C),
+                 lambda: locality._band_keep2_plain(*side, thr, 0, C, C)),
+    }
+    library_ms = _time(torch, lambda: torch.cdist(Db, Dc, p=float("inf")), 20)
+    rms_ms = _time(torch, lambda: locality._band_score(Db, Dc, "rms"), 20)
+    binned = calls["bins"][0]() < 256
+    for mode, (kernel, plain) in calls.items():
+        row = {"shape": [B, C, na], "max_abs_err": _bit_err(torch, kernel(), plain()),
+               "ms": _time(torch, kernel, 50), "plain_ms": _time(torch, plain, 5),
+               **_k9a_bound(torch, np, binned, na, 0, C, mode),
+               "library_ms": library_ms, "rms_ms": rms_ms}
+        rows["K9a %s" % mode] = row
+    _print_rows(rows)
+    return rows
+
+
+def _print_rows(rows):
+    """Print timing rows (``_k4_k9a_timing``, ``_check_k9a_bands``) and
+    fail on any that disagrees with its plain version."""
+    for name, row in rows.items():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        dense = row["bound_ms_dense"]
+        print("  %-14s %-18s %9.4f ms | bound %.4f ms (%s), %.1f %% of it; dense %.4f ms, "
+              "%.1f %% | plain %.3f ms | %s | max|diff| %g" % (
+                  name, "nx %d" % row["nx"] if "nx" in row else "%d x %d x %d" % tuple(
+                      row["shape"]), row["ms"], row["bound_ms"], row["bound_by"],
+                  100 * row["bound_share"], dense, 100 * dense / row["ms"], row["plain_ms"],
+                  "library: none" if row["library_ms"] is None else
+                  "cdist p=inf %.3f ms%s" % (row["library_ms"], (
+                      ", rms score %.3f ms" % row["rms_ms"]) if "rms_ms" in row else ""),
+                  row["max_abs_err"]), flush=True)
+        if row["max_abs_err"]:
+            raise SystemExit("%s disagrees with its plain version" % name)
+
+
+def _k9a_bound(torch, np, binned, na, row_off, nx, mode):
+    """K9a's bound for one launch of a (B, C) band whose first row is
+    point ``row_off``: the larger of its FMNMX, one for each anchor of a
+    pair the pass admits (``binned``, pass 1's admitted mask of the same
+    band; pass 2 admits its pairs above the diagonal), and its bytes, the
+    operands read once (distances, bits, thresholds) and the output
+    written once.  ``bound_ms_dense`` counts instead every pair the pass's
+    masks leave before the shared-anchor filter (every real column but
+    the row's own, or in pass 2 above it): the steps a kernel that scores
+    before it filters must do.  Returns a dict of both, the bound's kind
+    and the pair counts."""
+    B, C = binned.shape
+    real = min(C, nx)
+    r = row_off + np.arange(B, dtype=np.int64)
+    if mode == "bins":
+        admitted = int(binned.sum())
+        dense = B * real - int(((r >= 0) & (r < real)).sum())
+    else:
+        cols = torch.arange(C, device=binned.device)
+        rows = torch.arange(row_off, row_off + B, device=binned.device)
+        admitted = int((binned & (cols[None, :] > rows[:, None])).sum())
+        dense = int(np.maximum(real - r - 1, 0).sum())
+    words = -(-na // 32)
+    side = na * 4 + words * 4 + 4 + (4 if mode == "keep" else 0)
+    nbytes = (B + C) * side + B * C * (2 if mode == "bins" else 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = admitted * na / FMNMX_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms_dense": max(dense * na / FMNMX_PER_S * 1e3, bytes_ms),
+            "pairs_admitted": admitted, "pairs_dense": dense}
+
+
 def _check_small_fit(torch, np):
     """A small fit on the card equals the same fit on the CPU."""
     from annchor_tpu_torch import Annchor
@@ -739,8 +1190,8 @@ def _plan(enc, B, mode="auto"):
 def _device_profile(torch, fn, scope=None):
     """Run ``fn`` once under torch.profiler.  Returns a dict: ``wall_s``;
     ``device_ms`` and ``kernels`` in all; ``k1_device_ms`` and
-    ``k1_kernels`` (K1's launches), ``k10_device_ms`` and ``k10_kernels``
-    (K10's); for the ``record_function`` ranges
+    ``k1_kernels`` (K1's launches), the same for K10, K4 and K9a
+    (``k10_``, ``k4_``, ``k9a_``); for the ``record_function`` ranges
     named ``scope``, the ``scope_device_ms`` and ``scope_kernels`` of the
     kernels that run inside their mirrors on the card's timeline and
     those mirrors' ``scope_span_ms`` (idle gaps included; a mirror is
@@ -760,7 +1211,9 @@ def _device_profile(torch, fn, scope=None):
     wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
     starts, durs, spans, by_name = [], [], [], {}
-    k1_us = k1_n = k10_us = k10_n = 0
+    # kernel name fragments of the hand-written kernels
+    tags = {"k1": "k1_", "k10": "k10_", "k4": "k4_tropical", "k9a": "k9a_band"}
+    own = {tag: [0.0, 0] for tag in tags}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cuda:
             continue
@@ -771,12 +1224,10 @@ def _device_profile(torch, fn, scope=None):
         us = e.duration_ns() / 1e3
         starts.append(e.start_ns())
         durs.append(us)
-        if "k1_" in name:
-            k1_us += us
-            k1_n += 1
-        if "k10_" in name:
-            k10_us += us
-            k10_n += 1
+        for tag, frag in tags.items():
+            if frag in name:
+                own[tag][0] += us
+                own[tag][1] += 1
         row = by_name.setdefault(name[:60], [0.0, 0])
         row[0] += us / 1e3
         row[1] += 1
@@ -788,9 +1239,10 @@ def _device_profile(torch, fn, scope=None):
         at = np.searchsorted(spans[:, 0], starts, side="right") - 1
         inside = (at >= 0) & (starts < spans[np.maximum(at, 0), 1])
     top = sorted(((k, v[0], v[1]) for k, v in by_name.items()), key=lambda r: -r[1])[:5]
-    return {"wall_s": wall, "device_ms": float(durs.sum()) / 1e3, "kernels": int(durs.size),
-            "k1_device_ms": k1_us / 1e3, "k1_kernels": k1_n,
-            "k10_device_ms": k10_us / 1e3, "k10_kernels": k10_n,
+    out = {"wall_s": wall, "device_ms": float(durs.sum()) / 1e3, "kernels": int(durs.size)}
+    for tag, (us, n) in own.items():
+        out.update({tag + "_device_ms": us / 1e3, tag + "_kernels": n})
+    return {**out,
             "scope_device_ms": float(durs[inside].sum()) / 1e3,
             "scope_kernels": int(inside.sum()),
             "scope_span_ms": float((spans[:, 1] - spans[:, 0]).sum()) / 1e6, "top": top}
@@ -1002,23 +1454,26 @@ def _scale_path(torch, np, att, K1, report, big_X, X, y5, gt5):
     exact graph.  Returns (K1's launches per mode in the fits of (a) and
     (b), max |K1 - plain|, (the 5,000 strings, their cluster ids, their
     fit), the 100k fit)."""
+    from annchor_tpu_torch.ops.band_linf_cuda import K9A
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
 
     rng = np.random.default_rng(9)
     worst = _k1_against_plain(torch, np, "strings-5000", X, 20_000, rng)
     K1.reset_counts()
+    K9A.reset_counts()
     ann, report["scale5k_fit_s"] = _timed_fit(
         torch, att, X, "levenshtein", n_neighbors=15, p_work=0.05, random_seed=42,
         uniforms=jax_threefry_uniforms)
     launches = K1.launches
     modes = dict(K1.mode_launches)
+    k9a5 = report["scale5k_k9a_modes"] = dict(K9A.mode_launches)
     errors = att.compare_neighbor_graphs(ann.neighbor_graph, gt5, 15)
     report.update(scale5k_evals=int(ann.evals), scale5k_errors=int(errors),
                   scale5k_m=int(ann._ij_dev[2]), scale5k_k1_launches=launches)
     print("  (a) 5,000 strings: %.3f s, m %d, %d evals (JAX package: %d), %d errors "
-          "(JAX package: %d), K1 launches %d" % (
+          "(JAX package: %d), K1 launches %d, K9a launches %s" % (
               report["scale5k_fit_s"], ann._ij_dev[2], ann.evals, SCALE5K_EVALS,
-              errors, SCALE5K_ERRORS, launches), flush=True)
+              errors, SCALE5K_ERRORS, launches, k9a5), flush=True)
     if ann._dev is None or not ann._dev.sparse or launches == 0:
         raise SystemExit("the 5,000-string fit did not run the sparse path on K1")
     if ann.evals != SCALE5K_EVALS or errors > SCALE5K_ERRORS:
@@ -1041,10 +1496,13 @@ def _scale_path(torch, np, att, K1, report, big_X, X, y5, gt5):
 
     torch.cuda.reset_peak_memory_stats()
     K1.reset_counts()
-    big, wall = _timed_fit(torch, att, X, "levenshtein", n_neighbors=15,
-                           p_work=SCALE100K_P_WORK, random_seed=42)
+    K9A.reset_counts()
+    with _capture_bands() as bands:
+        big, wall = _timed_fit(torch, att, X, "levenshtein", n_neighbors=15,
+                               p_work=SCALE100K_P_WORK, random_seed=42)
     big_launches = K1.launches
     big_modes = dict(K1.mode_launches)
+    k9a_big = report["scale100k_k9a_modes"] = dict(K9A.mode_launches)
     peak = torch.cuda.max_memory_allocated()
     budget = int(big.p_work * big.N)
     id_recall, d_recall = _recall(np, big.neighbor_graph[0], rows, R, 15)
@@ -1058,10 +1516,13 @@ def _scale_path(torch, np, att, K1, report, big_X, X, y5, gt5):
         scale100k_refine=[{k: v for k, v in st.items()} for st in big._refine_stats],
     )
     print("  (b) default-ctor fit: %.3f s, m %d, %d evals of %d allowed, K1 launches "
-          "%d %s, peak device memory %.2f GiB, id recall %.4f, distance recall %.4f "
-          "(n_anchors %d, loc_thresh %d, niters %d, refine_frac %.2f)" % (
-              wall, big._ij_dev[2], big.evals, budget, big_launches, big_modes,
+          "%d %s, K9a launches %s, peak device memory %.2f GiB, id recall %.4f, distance "
+          "recall %.4f (n_anchors %d, loc_thresh %d, niters %d, refine_frac %.2f)" % (
+              wall, big._ij_dev[2], big.evals, budget, big_launches, big_modes, k9a_big,
               peak / 2**30, id_recall, d_recall, *report["scale100k_knobs"]), flush=True)
+    if not (k9a_big["bins"] and k9a_big["keep"]):
+        raise SystemExit("the 100,000-string fit's band build did not launch K9a in both "
+                         "modes: %s" % k9a_big)
     if big._dev is None or not big._dev.sparse or big._IJs is not None:
         raise SystemExit("the 100,000-string fit did not keep its pairs on the card")
     if big_launches == 0:
@@ -1079,6 +1540,8 @@ def _scale_path(torch, np, att, K1, report, big_X, X, y5, gt5):
     if not rounds or not all("screen_dev_s" in st for st in rounds):
         raise SystemExit("the 100,000-string fit's refinement did not screen on the card")
     report["scale100k_slates"] = _slates_check(torch, np, big)
+    report["k9a_bands"] = _check_k9a_bands(torch, np, bands)
+    del bands
     return {m: modes[m] + big_modes[m] for m in modes}, worst, (X5, y5, ann), big
 
 
@@ -1401,22 +1864,29 @@ def _serve(torch, np, att, K1, report, X, ref, scale5k, big, big_X, out_dir):
     t0 = time.perf_counter()
     big.save(path)
     save_s = time.perf_counter() - t0
+    from annchor_tpu_torch.ops.band_linf_cuda import K9A
+
+    K9A.reset_counts()
     t0 = time.perf_counter()
     loaded = att.Annchor.load(path, big_X, "levenshtein", rebuild_pairs=True,
                               device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    load_k9a = dict(K9A.mode_launches)
     m = int(big._dev.m)
     same_graph = all(np.array_equal(a, b) for a, b in zip(loaded.neighbor_graph,
                                                           big.neighbor_graph))
     same_pairs = loaded._ij_dev[2] == m and all(
         torch.equal(a, b[:m]) for a, b in zip(loaded._ij_dev[:2], (big._dev.ij_i,
                                                                   big._dev.ij_j)))
-    print("  (e) v2 save %.3f s, %d bytes; load with rebuild_pairs %.3f s; graph bit-equal "
-          "%s, pair list equal (m %d) %s" % (save_s, os.path.getsize(path), load_s,
-                                              same_graph, m, same_pairs), flush=True)
+    print("  (e) v2 save %.3f s, %d bytes; load with rebuild_pairs %.3f s (K9a launches "
+          "%s); graph bit-equal %s, pair list equal (m %d) %s" % (
+              save_s, os.path.getsize(path), load_s, load_k9a, same_graph, m, same_pairs),
+          flush=True)
     if not (same_graph and same_pairs):
         raise SystemExit("(e) the loaded 100k index differs")
+    if not (load_k9a["bins"] and load_k9a["keep"]):
+        raise SystemExit("(e) the pair rebuild did not launch K9a in both modes")
     rng = np.random.default_rng(11)
     src = rng.choice(len(big_X), 500, replace=False)
     Qe = mutate_strings([big_X[i] for i in src], 0.01, 11)
@@ -1439,6 +1909,7 @@ def _serve(torch, np, att, K1, report, X, ref, scale5k, big, big_X, out_dir):
     spent = loaded.evals - ev0
     hits = sum(s.get("store_hits", 0) for s in loaded._refine_stats)
     serve["e"] = dict(row, save_s=save_s, bytes=os.path.getsize(path), load_s=load_s,
+                      load_k9a_modes=load_k9a,
                       exact_rows_s=rows_s, refine_s=refine_s, refine_evals=spent,
                       refine_store_hits=hits, refine_k1_launches=K1.launches,
                       refine=loaded._refine_stats)
@@ -1744,24 +2215,29 @@ def _alpha256(torch, np, att, report, K10):
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
     from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, encode_strings, lev_pairs_plain
     from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import plan_for, rowdp_pairs_cuda
+    from annchor_tpu_torch.ops.tropical_cuda import K4
 
     X, _ = make_strings(alphabet=ALPHA256)
     X = list(X)
     fit_kw = dict(n_neighbors=N_NEIGHBORS, p_work=P_WORK, random_seed=42,
                   uniforms=jax_threefry_uniforms)
     K10.reset_counts()
+    K4.reset_counts()
     ann, wall = _timed_fit(torch, att, X, "levenshtein", **fit_kw)
     modes = dict(K10.mode_launches)
     launches = K10.launches
+    k4_launches = K4.launches
     enc = ann.metric.batch._encode(X)
     t0 = time.perf_counter()
     gt = _bruteforce_graph(att, X, "levenshtein")
     bf_s = time.perf_counter() - t0
     errors = att.compare_neighbor_graphs(gt, ann.neighbor_graph, N_NEIGHBORS)
     print("  (c) strings-1600 over 256 symbols: %.3f s, %d evals (JAX package: %d), %d "
-          "errors against a BruteForce on K10 (%.3f s; JAX package: %d), K10 launches %d %s"
-          % (wall, ann.evals, ALPHA256_EVALS, errors, bf_s, ALPHA256_ERRORS, launches, modes),
-          flush=True)
+          "errors against a BruteForce on K10 (%.3f s; JAX package: %d), K10 launches %d %s, "
+          "K4 launches %d" % (wall, ann.evals, ALPHA256_EVALS, errors, bf_s, ALPHA256_ERRORS,
+                              launches, modes, k4_launches), flush=True)
+    if k4_launches == 0:
+        raise SystemExit("(12c) the 256-symbol fit never launched K4")
     if not isinstance(enc, RowDPEncoding) or not (modes["thread"] and modes["group"]):
         raise SystemExit("(12c) the 256-symbol fit did not run on K10 in thread and group "
                          "mode: %s" % modes)
@@ -1769,10 +2245,11 @@ def _alpha256(torch, np, att, report, K10):
         raise SystemExit("(12c) the 256-symbol fit differs from the JAX package's figures")
     prof = _device_profile(torch, lambda: att.Annchor(X, "levenshtein", device="cuda",
                                                       **fit_kw).fit())
-    print("  (c) the same fit under torch.profiler: K10 %.3f ms in %d kernels of %.3f ms "
-          "device time in %d kernels, %.3f s wall" % (
-              prof["k10_device_ms"], prof["k10_kernels"], prof["device_ms"], prof["kernels"],
-              prof["wall_s"]), flush=True)
+    print("  (c) the same fit under torch.profiler: K10 %.3f ms in %d kernels, K4 %.3f ms in "
+          "%d, of %.3f ms device time in %d kernels, %.3f s wall" % (
+              prof["k10_device_ms"], prof["k10_kernels"], prof["k4_device_ms"],
+              prof["k4_kernels"], prof["device_ms"], prof["kernels"], prof["wall_s"]),
+          flush=True)
 
     builds = {}
     for label, alphabet in (("256 symbols", ALPHA256), ("20,000 symbols", "".join(_cjk(20_000)))):
@@ -1832,9 +2309,10 @@ def _alpha256(torch, np, att, report, K10):
         raise SystemExit("K10 disagrees with its plain version at the refine batch's shape")
     report["alpha256"] = {"fit_s": wall, "evals": int(ann.evals), "errors": int(errors),
                           "k10_launches": launches, "k10_modes": modes,
+                          "k4_launches": k4_launches,
                           "bruteforce_s": bf_s, "profile": prof, "table_builds": builds,
                           "k10": rows, "crossover": _k10_crossover(torch, np, enc, rng)}
-    return modes, refine
+    return modes, refine, k4_launches
 
 
 def _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9):
@@ -1848,7 +2326,9 @@ def _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9):
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
     from annchor_tpu_torch.ops.levenshtein import encode_strings
     from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding, myers_pairs_plain
+    from annchor_tpu_torch.ops.band_linf_cuda import K9A
     from annchor_tpu_torch.ops.locality import candidate_pairs_device_budgeted
+    from annchor_tpu_torch.ops.tropical_cuda import K4
 
     keys = ("ANNCHOR_TPU_MESH_DEVICES", "ANNCHOR_TPU_PAIR_CAP", "ANNCHOR_TPU_BUILD_SCORE")
     saved = {k: os.environ.get(k) for k in keys}
@@ -1883,26 +2363,32 @@ def _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9):
         # (a) strings-1600, dense, the JAX sample stream
         kw = dict(n_neighbors=N_NEIGHBORS, p_work=P_WORK, random_seed=42, device="cuda")
         K1.reset_counts()
+        K4.reset_counts()
         t0 = time.perf_counter()
         a = att.Annchor(X, "levenshtein", uniforms=jax_threefry_uniforms, **kw)
         a.fit()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         a_shards = dict(K1.shard_launches)
+        k4_shards = dict(K4.shard_launches)
         same = all(np.array_equal(g, w) for g, w in zip(a.neighbor_graph, ref4[:2]))
         report.update(sharded1600_fit_s=wall, sharded1600_evals=int(a.evals),
                       sharded1600_k1_launches=K1.launches,
-                      sharded1600_k1_shard_launches=a_shards)
+                      sharded1600_k1_shard_launches=a_shards,
+                      sharded1600_k4_shard_launches=k4_shards)
         print("  (a) strings-1600 on %d shards: %.3f s (phase 4: %.3f s), %d evals (phase 4: "
-              "%d), graph bit-equal to phase 4's: %s, K1 launches %d, per shard %s" % (
+              "%d), graph bit-equal to phase 4's: %s, K1 launches %d, per shard %s, K4 "
+              "launches per shard %s" % (
                   MESH_SHARDS, wall, report["jax_stream_fit_s"], a.evals, ref4[2], same,
-                  K1.launches, a_shards), flush=True)
+                  K1.launches, a_shards, k4_shards), flush=True)
         if a._dev is None or a._dev.shard is None or a._dev.shard.s != MESH_SHARDS:
             raise SystemExit("the strings-1600 fit did not shard its state")
         if not same or a.evals != ref4[2] or a.evals != REFERENCE_EVALS:
             raise SystemExit("the sharded strings-1600 fit differs from phase 4's")
         if sorted(a_shards) != list(range(MESH_SHARDS)):
             raise SystemExit("a shard never launched K1 in the strings-1600 fit")
+        if sorted(k4_shards) != list(range(MESH_SHARDS)):
+            raise SystemExit("a shard never launched K4 in the strings-1600 fit")
         del a
 
         # (b) the 100k scale fit at phase 9's derived cap
@@ -1911,10 +2397,12 @@ def _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         K1.reset_counts()
+        K9A.reset_counts()
         b, wall = _timed_fit(torch, att, big_X, "levenshtein", n_neighbors=15,
                              p_work=SCALE100K_P_WORK, random_seed=42)
         peak = torch.cuda.max_memory_allocated() - base
         b_shards = dict(K1.shard_launches)
+        k9a_shards = dict(K9A.shard_launches)
         dev = b._dev
         same = all(np.array_equal(g, w) for g, w in zip(b.neighbor_graph, ref9["graph"]))
         ij = b._ij_dev
@@ -1923,14 +2411,17 @@ def _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9):
         report.update(sharded100k_fit_s=wall, sharded100k_m=int(ij[2]),
                       sharded100k_evals=int(b.evals), sharded100k_peak_bytes=int(peak),
                       sharded100k_k1_launches=K1.launches,
-                      sharded100k_k1_shard_launches=b_shards)
+                      sharded100k_k1_shard_launches=b_shards,
+                      sharded100k_k9a_shard_launches=k9a_shards,
+                      sharded100k_k9a_modes=dict(K9A.mode_launches))
         print("  (b) 100k on %d shards at cap %d: %.3f s (phase 9: %.3f s), m %d (phase 9: "
               "%d), %d evals (phase 9: %d), graph bit-equal to phase 9's: %s, pair list "
-              "equal: %s, K1 launches %d, per shard %s, peak device memory above the %.2f "
-              "GiB held before %.2f GiB (phase 9: %.2f GiB)" % (
+              "equal: %s, K1 launches %d, per shard %s, K9a launches per shard %s %s, peak "
+              "device memory above the %.2f GiB held before %.2f GiB (phase 9: %.2f GiB)" % (
                   MESH_SHARDS, ref9["cap"], wall, ref9["wall"], ij[2], ref9["m"], b.evals,
-                  ref9["evals"], same, same_pairs, K1.launches, b_shards, base / 2**30,
-                  peak / 2**30, ref9["peak"] / 2**30), flush=True)
+                  ref9["evals"], same, same_pairs, K1.launches, b_shards, k9a_shards,
+                  dict(K9A.mode_launches), base / 2**30, peak / 2**30, ref9["peak"] / 2**30),
+              flush=True)
         if dev is None or dev.shard is None or dev.shard.s != MESH_SHARDS or not dev.sparse:
             raise SystemExit("the 100k fit did not shard its sparse state")
         for c in range(MESH_SHARDS):
@@ -1946,6 +2437,8 @@ def _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9):
             raise SystemExit("the sharded 100k fit differs from phase 9's")
         if sorted(b_shards) != list(range(MESH_SHARDS)):
             raise SystemExit("a shard never launched K1 in the 100k fit")
+        if sorted(k9a_shards) != list(range(MESH_SHARDS)):
+            raise SystemExit("a shard never launched K9a in the 100k fit's band build")
         del b, dev, ij
 
         # (d) the rms build score on the mesh raises (ROADMAP F3)
@@ -1964,7 +2457,7 @@ def _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9):
             else:
                 os.environ[k] = v
     shards = {c: a_shards.get(c, 0) + b_shards.get(c, 0) for c in range(MESH_SHARDS)}
-    return shards, err
+    return shards, err, k4_shards, k9a_shards
 
 
 def main() -> int:
@@ -1979,8 +2472,10 @@ def main() -> int:
 
     import annchor_tpu_torch as att
     from annchor_tpu_torch.datasets import make_strings
+    from annchor_tpu_torch.ops.band_linf_cuda import K9A
     from annchor_tpu_torch.ops.levenshtein_cuda import K1
     from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import K10
+    from annchor_tpu_torch.ops.tropical_cuda import K4
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2000,11 +2495,11 @@ def main() -> int:
         return time.perf_counter() - t
 
     # one compiler process for each source, all started together
-    with ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(build, lib) for lib in (K1, K10, EMD)]
-        report["k1_build_s"], report["k10_build_s"], report["emd_build_s"] = (
-            b.result() for b in builds)
-    for kernel, key in ((K1, "k1"), (K10, "k10")):
+    with ThreadPoolExecutor(5) as pool:
+        builds = [pool.submit(build, lib) for lib in (K1, K10, K4, K9A, EMD)]
+        (report["k1_build_s"], report["k10_build_s"], report["k4_build_s"],
+         report["k9a_build_s"], report["emd_build_s"]) = (b.result() for b in builds)
+    for kernel, key in ((K1, "k1"), (K10, "k10"), (K4, "k4"), (K9A, "k9a")):
         print("  built %s in %.3f s" % (kernel.name, report[key + "_build_s"]))
         report[key + "_ptxas"] = _ptxas(kernel)
         for name, (regs, st, ld) in report[key + "_ptxas"].items():
@@ -2021,6 +2516,9 @@ def main() -> int:
     _check_no_sync(torch, np, X)
     _check_oracle(torch, np, X)
     report["k10_check_pairs"], k10_err, report["k10_check_modes"] = _check_k10(torch, np)
+    report["k4_check_calls"], k4_err, report["k4_check_launches"], E1600 = _check_k4(
+        torch, np, att, X)
+    report["k9a_check_calls"], k9a_err, report["k9a_check_modes"] = _check_k9a(torch, np)
     _check_small_fit(torch, np)
     report["scout_card_vs_cpu_rel"] = _check_scout_no_sync(torch, np)
 
@@ -2042,22 +2540,26 @@ def main() -> int:
 
     ann = att.Annchor(X, "levenshtein", verbose=True, **kw)
     K1.reset_counts()
+    K4.reset_counts()
     t0 = time.perf_counter()
     ann.fit()
     torch.cuda.synchronize()
     report["fit_s"] = time.perf_counter() - t0
     launches = K1.launches
+    k4_fit = K4.launches
     errors = att.compare_neighbor_graphs(ann.neighbor_graph, gt, N_NEIGHBORS)
     ngi, ngd = ann.neighbor_graph
     fit_modes = dict(K1.mode_launches)
     report.update(evals=int(ann.evals), errors=int(errors), k1_launches=launches,
-                  k1_mode_launches=fit_modes,
+                  k1_mode_launches=fit_modes, k4_launches=k4_fit,
                   anchors=[int(a) for a in ann.A[:5]], m=int(ann.IJs.shape[0]))
-    print("  fit: %.3f s, %d evals, %d errors, K1 launches %d %s, anchors %s..."
-          % (report["fit_s"], ann.evals, errors, launches, fit_modes, report["anchors"]),
-          flush=True)
+    print("  fit: %.3f s, %d evals, %d errors, K1 launches %d %s, K4 launches %d, anchors "
+          "%s..." % (report["fit_s"], ann.evals, errors, launches, fit_modes, k4_fit,
+                     report["anchors"]), flush=True)
     if launches == 0:
         raise SystemExit("the fit never launched K1")
+    if k4_fit == 0:
+        raise SystemExit("the fit never launched K4")
     if ann.evals > 1.4 * P_WORK * ann.N + 2 * 5000:
         raise SystemExit("the fit overspent: %d evals" % ann.evals)
     if errors > 2 * REFERENCE_ERRORS:
@@ -2068,17 +2570,22 @@ def main() -> int:
     # the same fit drawing the JAX package's samples must reproduce the
     # JAX package's result on this set
     ref = att.Annchor(X, "levenshtein", uniforms=jax_threefry_uniforms, **kw)
+    K4.reset_counts()
     t0 = time.perf_counter()
     ref.fit()
     torch.cuda.synchronize()
     report["jax_stream_fit_s"] = time.perf_counter() - t0
+    k4_jax_stream = K4.launches
+    k4_fit += k4_jax_stream
     ref4 = (ref.neighbor_graph[0].copy(), ref.neighbor_graph[1].copy(), int(ref.evals))
     ref_errors = att.compare_neighbor_graphs(ref.neighbor_graph, gt, N_NEIGHBORS)
     report.update(jax_stream_evals=int(ref.evals), jax_stream_errors=int(ref_errors))
     print("  fit with the JAX sample stream: %.3f s, %d evals (JAX package: %d), "
-          "%d errors (JAX package: %d)" % (report["jax_stream_fit_s"], ref.evals,
-                                           REFERENCE_EVALS, ref_errors,
-                                           REFERENCE_ERRORS), flush=True)
+          "%d errors (JAX package: %d), K4 launches %d" % (
+              report["jax_stream_fit_s"], ref.evals, REFERENCE_EVALS, ref_errors,
+              REFERENCE_ERRORS, k4_jax_stream), flush=True)
+    if k4_jax_stream == 0:
+        raise SystemExit("the JAX-stream fit never launched K4")
     if ref.evals != REFERENCE_EVALS:
         raise SystemExit("fit spent %d evals, the JAX package %d"
                          % (ref.evals, REFERENCE_EVALS))
@@ -2088,9 +2595,11 @@ def main() -> int:
 
     prof = report["fit_profile"] = _device_profile(
         torch, lambda: att.Annchor(X, "levenshtein", **kw).fit())
-    print("  fit under torch.profiler: K1 %.3f ms in %d kernels of %.3f ms device "
-          "time, %.3f s wall" % (prof["k1_device_ms"], prof["k1_kernels"],
-                                 prof["device_ms"], prof["wall_s"]), flush=True)
+    print("  fit under torch.profiler: K1 %.3f ms in %d kernels, K4 %.3f ms in %d, of "
+          "%.3f ms device time in %d kernels, %.3f s wall" % (
+              prof["k1_device_ms"], prof["k1_kernels"], prof["k4_device_ms"],
+              prof["k4_kernels"], prof["device_ms"], prof["kernels"], prof["wall_s"]),
+          flush=True)
 
     _phase("5. timing (%s)" % report["card"])
     t0 = time.perf_counter()
@@ -2100,6 +2609,8 @@ def main() -> int:
     report["scale100k_data_s"] = time.perf_counter() - t0
     report["k1_timing"] = _timings(torch, np, X, ann.IJs, big_X)
     refine = report["k1_timing"]["refine batch"]
+    report["k4_k9a_timing"] = timing = _k4_k9a_timing(torch, np, E1600)
+    del E1600
 
     _phase("6. vector metrics (%s)" % report["card"])
     X64, _ = make_blobs(4096, 64, 10, 42)
@@ -2114,17 +2625,22 @@ def main() -> int:
           % (report["blobs_fit_s"], small.evals, blob_errors), flush=True)
     if blob_errors != 0:
         raise SystemExit("the blobs contract needs 0 errors, got %d" % blob_errors)
+    K4.reset_counts()
     wide, report["blobs4096_fit_s"] = _timed_fit(
         torch, att, X64, "euclidean", n_neighbors=15, p_work=0.05, random_seed=42,
         uniforms=jax_threefry_uniforms)
+    k4_blobs = report["blobs4096_k4_launches"] = K4.launches
     wide_errors = att.compare_neighbor_graphs(
         _bruteforce_graph(att, X64, "euclidean"), wide.neighbor_graph, 15)
     report.update(blobs4096_evals=int(wide.evals), blobs4096_errors=int(wide_errors))
     print("  blobs 4096 x 64: %.3f s, %d evals (JAX package: %d), %d errors (JAX "
-          "package: %d)" % (report["blobs4096_fit_s"], wide.evals, BLOBS4096_EVALS,
-                            wide_errors, BLOBS4096_ERRORS), flush=True)
+          "package: %d), K4 launches %d" % (report["blobs4096_fit_s"], wide.evals,
+                                            BLOBS4096_EVALS, wide_errors, BLOBS4096_ERRORS,
+                                            k4_blobs), flush=True)
     if wide.evals != BLOBS4096_EVALS or wide_errors > BLOBS4096_ERRORS:
         raise SystemExit("the 4096 x 64 fit differs from the JAX package's figures")
+    if k4_blobs == 0:
+        raise SystemExit("the 4096 x 64 fit never launched K4")
 
     _phase("7. Python-callable metric (%s)" % report["card"])
 
@@ -2212,22 +2728,32 @@ def main() -> int:
 
     _phase("12. digits-5620 and the row DP (%s)" % report["card"])
     _digits5620(torch, np, att, report)
-    k10_modes, k10_row = _alpha256(torch, np, att, report, K10)
+    k10_modes, k10_row, k4_alpha = _alpha256(torch, np, att, report, K10)
 
     _phase("13. the multi-device fit (%s)" % report["card"])
     del big, scale5k  # phase 13 measures its own peak memory
     gc.collect()
     torch.cuda.empty_cache()
-    sharded_shards, sharded_err = _sharded(torch, np, att, K1, report, X, ref4, big_X, ref9)
+    sharded_shards, sharded_err, k4_shards, k9a_shards = _sharded(
+        torch, np, att, K1, report, X, ref4, big_X, ref9)
     max_err = max(max_err, sharded_err)
     main_modes = {m: fit_modes[m] + host_modes[m] + scale_modes[m] + serve_modes.get(m, 0)
                   + exact_modes[m] for m in fit_modes}
+    # K9a's main path: phase 9(b)'s 100k fit, whose band build it runs
+    k9a_main = report["scale100k_k9a_modes"]
+    print("  K4 launches: phase 4 %d, blobs 4096 x 64 %d, 256 symbols %d, per shard %s; K9a "
+          "launches: 100k fit %s, strings-5000 %s, load(rebuild_pairs) %s, per shard %s" % (
+              k4_fit, k4_blobs, k4_alpha, k4_shards, k9a_main, report["scale5k_k9a_modes"],
+              report["serve"]["e"]["load_k9a_modes"], k9a_shards))
     print("  K1 launches on the main path (phases 4, 8, 9, 10, 11) by mode: %s; phase 10: "
           "%s; phase 11: %s" % (main_modes, serve_modes, exact_modes))
     if not (main_modes["thread"] and main_modes["group"]):
         raise SystemExit("the main path did not launch both K1 modes: %s" % main_modes)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
+    # K9a's figures: the 100k build's first band (phase 9(b))
+    k9a_band = report["k9a_bands"]
+    k9a_bins, k9a_keep = k9a_band["K9a bins first"], k9a_band["K9a keep first"]
     print(json.dumps({"kernels": [{
         "name": "levenshtein_myers (K1)",
         "route": "cuda",
@@ -2263,6 +2789,55 @@ def main() -> int:
         "bound_ms": k10_row["bound_ms"],
         "bound_by": k10_row["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "tropical_tighten (K4)",
+        "route": "cuda",
+        "source": "annchor_tpu_torch/csrc/tropical_tighten.cu",
+        "replaces": "annchor_tpu/ops/device_pipeline.py:602",
+        "launches": k4_fit,
+        "launches_blobs4096": k4_blobs,
+        "launches_alpha256": k4_alpha,
+        "launches_check": report["k4_check_launches"],
+        "launches_per_shard": k4_shards,
+        "max_abs_err": max(k4_err, timing["K4 nx 1600"]["max_abs_err"],
+                           timing["K4 nx 4096"]["max_abs_err"]),
+        "ms": timing["K4 nx 1600"]["ms"],
+        "plain_ms": timing["K4 nx 1600"]["plain_ms"],
+        "bound_ms": timing["K4 nx 1600"]["bound_ms"],
+        "bound_by": timing["K4 nx 1600"]["bound_by"],
+        "library_ms": None,
+        "ms_nx4096": timing["K4 nx 4096"]["ms"],
+        "plain_ms_nx4096": timing["K4 nx 4096"]["plain_ms"],
+        "bound_ms_nx4096": timing["K4 nx 4096"]["bound_ms"],
+        "bound_ms_dense": timing["K4 nx 1600"]["bound_ms_dense"],
+        "bound_ms_dense_nx4096": timing["K4 nx 4096"]["bound_ms_dense"],
+    }, {
+        "name": "band_linf (K9a)",
+        "route": "cuda",
+        "source": "annchor_tpu_torch/csrc/band_linf.cu",
+        "replaces": "annchor_tpu/ops/locality.py:550",
+        "launches": sum(k9a_main.values()),
+        "launches_bins": k9a_main["bins"],
+        "launches_keep": k9a_main["keep"],
+        "launches_scale5k": sum(report["scale5k_k9a_modes"].values()),
+        "launches_load": sum(report["serve"]["e"]["load_k9a_modes"].values()),
+        "launches_check": report["k9a_check_modes"],
+        "launches_per_shard": k9a_shards,
+        "max_abs_err": max([k9a_err] + [r["max_abs_err"] for k, r in timing.items()
+                                        if k.startswith("K9a")]
+                           + [r["max_abs_err"] for r in k9a_band.values()]),
+        "shape": k9a_bins["shape"],
+        "ms": k9a_bins["ms"],
+        "plain_ms": k9a_bins["plain_ms"],
+        "bound_ms": k9a_bins["bound_ms"],
+        "bound_by": k9a_bins["bound_by"],
+        "bound_ms_dense": k9a_bins["bound_ms_dense"],
+        "library_ms": k9a_bins["library_ms"],
+        "ms_keep": k9a_keep["ms"],
+        "plain_ms_keep": k9a_keep["plain_ms"],
+        "bound_ms_keep": k9a_keep["bound_ms"],
+        "bound_by_keep": k9a_keep["bound_by"],
+        "bound_ms_dense_keep": k9a_keep["bound_ms_dense"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -336,3 +336,144 @@ def test_sharded_levenshtein_engine_on_card(cuda, card, monkeypatch):
     shards = dict(K1.shard_launches)
     assert got.device == dev and torch.equal(got, want)
     assert sorted(shards) == [0, 1, 2, 3] and min(shards.values()) >= 1
+
+
+# K4, the dense tropical tighten, and K9a, the band build's linf score
+
+# (nx, share of the i < j pairs tracked, share computed, rows with no
+# computed entry, column ranges: the whole, a sub-range, and two
+# sub-ranges that together make the whole)
+K4_CASES = {
+    "nx1": (1, 1.0, 1.0, 0),
+    "nx17": (17, 0.8, 0.5, 0),
+    "nx1000": (1000, 0.2, 0.5, 0),  # not a multiple of the 64-point tile
+    "nx1600": (1600, 0.09, 0.6, 0),
+    "nx4096": (4096, 0.02, 0.5, 0),
+    "empty-rows": (300, 0.5, 0.5, 40),
+    "full": (257, 1.0, 1.0, 0),
+}
+
+
+def _k4_matrix(case, dev):
+    """(E, V, Einf) as ``tighten_full`` builds them from a random state:
+    integer and arbitrary float32 distances."""
+    from annchor_tpu_torch.ops.bounds_update import _build_E
+
+    nx, density, computed, empty = K4_CASES[case]
+    rng = np.random.default_rng(nx)
+    iu, ju = np.triu_indices(nx, 1)
+    keep = rng.random(iu.size) < density
+    IJ = torch.as_tensor(np.stack([iu[keep], ju[keep]], axis=1), device=dev)
+    m = IJ.shape[0]
+    RA = np.where(rng.random(m) < 0.5, rng.integers(0, 400, m), rng.random(m) * 400)
+    done = (rng.random(m) < computed) & (iu[keep] >= empty) & (ju[keep] >= empty)
+    E, V = _build_E(IJ, torch.as_tensor(RA.astype(np.float32), device=dev),
+                    torch.as_tensor(done, device=dev), nx)
+    return E, V, torch.where(V, E, torch.full_like(E, float("inf")))
+
+
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_k4_bit_equal_to_plain(cuda, case):
+    from annchor_tpu_torch.ops import device_pipeline as dp
+    from annchor_tpu_torch.ops.tropical_cuda import K4
+
+    E, V, Einf = _k4_matrix(case, cuda)
+    nx = E.shape[0]
+    a, b = nx // 3, (2 * nx) // 3 + 1
+    got = {}
+    for y0, y1 in ((0, nx), (a, b), (0, a), (a, nx)):
+        before = K4.launches
+        got[y0, y1] = dp.tropical_product(E, V, Einf, y0, y1)
+        torch.cuda.synchronize()
+        assert K4.launches == before + 1
+        want = dp.tropical_product_plain(E, V, Einf, y0, y1)
+        assert torch.equal(got[y0, y1][0], want[0]) and torch.equal(got[y0, y1][1], want[1])
+    lo, hi = got[0, a], got[a, nx]
+    assert torch.equal(torch.maximum(lo[0], hi[0]), got[0, nx][0])
+    assert torch.equal(torch.minimum(lo[1], hi[1]), got[0, nx][1])
+
+
+def test_k4_call_does_not_sync(cuda):
+    from annchor_tpu_torch.ops import device_pipeline as dp
+
+    E, V, Einf = _k4_matrix("nx1000", cuda)
+    want = dp.tropical_product(E, V, Einf, 0, 1000)  # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dp.tropical_product(E, V, Einf, 0, 1000)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _k9a_problem(na, dev, nx=300, nxp=384, zero_thr=True):
+    """The band build's padded operands (``candidate_pairs_device_budgeted``):
+    D32p, Sp, effp (+inf on padding, some rows 0: F6), inv_bin, and a
+    pass-2 threshold vector with zeros and +inf."""
+    from annchor_tpu_torch.ops.features import anchor_membership
+
+    rng = np.random.default_rng(na)
+    D = np.where(rng.random((nx, na)) < 0.5, rng.integers(0, 60, (nx, na)),
+                 rng.random((nx, na)) * 60).astype(np.float32)
+    S, _ = anchor_membership(D, min(5, na), dev)
+    eff = rng.integers(1, 4, nx).astype(np.float32)
+    if zero_thr:
+        eff[rng.random(nx) < 0.1] = 0.0
+    pad = nxp - nx
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    thr = rng.choice(np.array([0.0, 5.0, 12.5, 20.0, 40.0, np.inf], dtype=np.float32), nxp)
+    return dict(nx=nx, D32p=torch.nn.functional.pad(t(D), (0, 0, 0, pad)),
+                Sp=torch.nn.functional.pad(S, (0, 0, 0, pad)),
+                effp=torch.nn.functional.pad(t(eff), (0, pad), value=float("inf")),
+                inv_bin=t(np.float32(256 / (2.0 * D.max() + 1e-6))), thr=t(thr))
+
+
+@pytest.mark.parametrize("na", [5, 32, 48, 96])
+@pytest.mark.parametrize("mode", ["bins", "keep"])
+def test_k9a_bit_equal_to_plain(cuda, na, mode):
+    """Every 128-row band of 300 points padded to 384 (padding rows and
+    columns, zero thresholds, the diagonal, +inf thresholds), then a
+    column count that is not a multiple of 4 (the unpacked stores)."""
+    from annchor_tpu_torch.ops import band_linf_cuda, locality
+    from annchor_tpu_torch.ops.band_linf_cuda import K9A
+
+    P = _k9a_problem(na, cuda)
+    D32p, Sp, effp, inv, thr = P["D32p"], P["Sp"], P["effp"], P["inv_bin"], P["thr"]
+    for ncols in (384, 301):
+        cols = band_linf_cuda.operands(D32p[:ncols], Sp[:ncols])
+        for r0 in range(0, ncols, 128):
+            r1 = r0 + 128
+            args = (D32p[:ncols], Sp[:ncols], Sp[r0:r1], D32p[r0:r1], effp[r0:r1],
+                    effp[:ncols])
+            before = K9A.mode_launches[mode]
+            if mode == "bins":
+                got = locality._band_bins_sym(*args, r0, P["nx"], inv, 256, ncols, cols=cols)
+                want = locality._band_bins_sym_plain(*args, r0, P["nx"], inv, 256, ncols)
+            else:
+                got = locality._band_keep2_dense(*args, thr, r0, P["nx"], ncols, cols=cols)[0]
+                want = locality._band_keep2_plain(*args, thr, r0, P["nx"], ncols)
+            torch.cuda.synchronize()
+            assert K9A.mode_launches[mode] == before + 1
+            assert torch.equal(got, want)
+
+
+def test_k9a_call_does_not_sync(cuda):
+    from annchor_tpu_torch.ops import band_linf_cuda, locality
+
+    P = _k9a_problem(96, cuda)
+    D32p, Sp, effp = P["D32p"], P["Sp"], P["effp"]
+    cols = band_linf_cuda.operands(D32p, Sp)
+    args = (D32p, Sp, Sp[128:256], D32p[128:256], effp[128:256], effp)
+    want = locality._band_bins_sym(*args, 128, P["nx"], P["inv_bin"], 256, 384,
+                                   cols=cols)  # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bins = locality._band_bins_sym(*args, 128, P["nx"], P["inv_bin"], 256, 384,
+                                       cols=cols)
+        keep = locality._band_keep2_dense(*args, P["thr"], 128, P["nx"], 384, cols=cols)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(bins, want)
+    assert torch.equal(keep[0], locality._band_keep2_plain(*args, P["thr"], 128, P["nx"], 384))
