@@ -15,6 +15,11 @@ Both converge to the entropy-regularised transport cost, which is biased
 against exact EMD and can break the triangle inequality, so their fits
 take the non-metric path.
 
+On a card both loops run as K8, one hand-written CUDA launch per chunk
+(``ops/sinkhorn_cuda.py``): ``sinkhorn_exp_chunk`` and ``sinkhorn_batch``
+dispatch CUDA tensors to it and CPU tensors to their plain versions,
+``sinkhorn_exp_chunk_plain`` and ``sinkhorn_batch_plain``.
+
 The exp-domain products run in float64 on float32 operands and are
 rounded once to float32: each term of a 64-term dot product is exact in
 float64, so the result is the float32 rounding of the exact product,
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from annchor_tpu_torch._backend import resolve_device
+from annchor_tpu_torch.ops import sinkhorn_cuda
 
 TINY = float(np.float32(1e-35))
 
@@ -58,14 +64,22 @@ def _exp_iterations(A, B, K64, Kt64, n_iter: int):
 def sinkhorn_exp_chunk(Xn, Zn, I, J, K64, KC64, n_iter: int):
     """Exp-domain Sinkhorn cost <P, C> = sum_ij u_i K_ij C_ij v_j of the
     pairs (Xn[I[k]], Zn[J[k]]): float32 (B,).  Xn, Zn: float32 histograms
-    with unit row mass; K64 = exp(-C/eps) and KC64 = K * C as float64
-    tensors of float32 values."""
+    with unit row mass; I, J: int64 ids; K64 = exp(-C/eps) and KC64 = K * C
+    as float64 tensors of float32 values.  On a card one K8a launch
+    (``sinkhorn_cuda.sinkhorn_exp_cuda``), on the CPU the plain version."""
     # a named range for profiler traces (chip_smoke.py sums its kernels)
     with torch.profiler.record_function("sinkhorn_exp_chunk"):
-        A = Xn.index_select(0, I)
-        B = Zn.index_select(0, J)
-        u, v = _exp_iterations(A, B, K64, K64.T.contiguous(), n_iter)
-        return (u * (v @ KC64.T)).sum(dim=1).to(torch.float32)
+        if Xn.is_cuda:
+            return sinkhorn_cuda.sinkhorn_exp_cuda(Xn, Zn, I, J, K64, KC64, n_iter, TINY)
+        return sinkhorn_exp_chunk_plain(Xn, Zn, I, J, K64, KC64, n_iter)
+
+
+def sinkhorn_exp_chunk_plain(Xn, Zn, I, J, K64, KC64, n_iter: int):
+    """K8a's plain PyTorch version of ``sinkhorn_exp_chunk``."""
+    A = Xn.index_select(0, I)
+    B = Zn.index_select(0, J)
+    u, v = _exp_iterations(A, B, K64, K64.T.contiguous(), n_iter)
+    return (u * (v @ KC64.T)).sum(dim=1).to(torch.float32)
 
 
 def sinkhorn_maxmin(Xn, K64, KC64, first: int, na: int, n_iter: int):
@@ -91,8 +105,16 @@ def sinkhorn_maxmin(Xn, K64, KC64, first: int, na: int, n_iter: int):
 
 def sinkhorn_batch(A, B, C, eps: float, n_iter: int):
     """Batched log-domain Sinkhorn: A, B (m, n) float32 histograms (rows
-    sum to 1, zeros allowed), C (n, n) cost, eps the temperature.
-    Returns the (m,) transport costs <P, C>."""
+    sum to 1, zeros allowed), C (n, n) float32 cost, eps the temperature.
+    Returns the (m,) transport costs <P, C>.  On a card one K8b launch
+    (``sinkhorn_cuda.sinkhorn_log_cuda``), on the CPU the plain version."""
+    if A.is_cuda:
+        return sinkhorn_cuda.sinkhorn_log_cuda(A, B, C, eps, n_iter)
+    return sinkhorn_batch_plain(A, B, C, eps, n_iter)
+
+
+def sinkhorn_batch_plain(A, B, C, eps: float, n_iter: int):
+    """K8b's plain PyTorch version of ``sinkhorn_batch``."""
     logA = torch.log(torch.where(A > 0, A, 1.0)) + torch.where(A > 0, 0.0, -1e9)
     logB = torch.log(torch.where(B > 0, B, 1.0)) + torch.where(B > 0, 0.0, -1e9)
     negC = -C[None, :, :] / eps

@@ -9,9 +9,9 @@ against the exact graph from the port's own ``BruteForce``.  Phases, each
 of which exits non-zero when it fails:
 
 1. device: the card's name and power limit, and the build of every
-   kernel from the sources in this checkout (K1, K10, K4, K9a and the
-   host EMD solver, one compiler process each, started together), with
-   ptxas's registers and spills for each instantiation;
+   kernel from the sources in this checkout (K1, K10, K4, K9a, K8 and
+   the host EMD solver, one compiler process each, started together),
+   with ptxas's registers and spills for each instantiation;
 2. kernel check: the CUDA edit-distance kernel (K1), in each launch mode
    (auto, thread, group), against its plain PyTorch version, bit for
    bit, on 82,180 pairs (empty strings, word boundaries, alphabets
@@ -41,6 +41,18 @@ of which exits non-zero when it fails:
    score, in both modes bit for bit at na 5, 32, 48 and 96 over padded
    bands, zero thresholds, the diagonal, +inf thresholds and a ragged
    chunk; every K4 and K9a call under ``set_sync_debug_mode("error")``;
+   K8a, the Sinkhorn scout's loop, against its plain version to rtol 2e-6
+   and bit for bit against its torch model, on the digits (with all-zero
+   rows, one-bin rows and self pairs) at n_iter 1, 2 and 300 on 1, 256,
+   1,797 (an anchor column) and 8,192 pairs, the column and the chunk in
+   every tile, on random costs at 5 (8,192 pairs in every tile), 100,
+   300 (K from global memory), 2,100 (two column passes) and 7,200 bins
+   (u and v in global memory), and through the engine's dispatch of
+   9,000 pairs (a ragged last chunk); K8b, the log-domain loop, against
+   its plain version to rtol 1e-5 on the digits at n_iter 1, 2 and 200
+   on 1, 256 and 4,096 pairs and on random costs at 5, 100, 300 and
+   14,401 bins (the potentials in global memory); every K8 call under
+   ``set_sync_debug_mode("error")``, one launch each;
 3. exact graph: ``BruteForce`` on strings-1600 (1,279,200 pairs);
 4. fit: one warm-up fit, then one timed fit with the stage table, which
    must launch K1 and stay within the evaluation budget; then the same
@@ -63,7 +75,11 @@ of which exits non-zero when it fails:
    random profiles in both modes: ms, bound and share (the bound counts
    the steps the data needs: K4's present entries, K9a's admitted pairs;
    the dense bound beside it), the plain version's ms, and for K9a the
-   rms score's and ``torch.cdist(p=inf)``'s ms;
+   rms score's and ``torch.cdist(p=inf)``'s ms; then K8a on an 8,192-pair
+   digits chunk and a 1,797-pair anchor column at n_iter 300 (the plan's
+   tile and each tile forced) and K8b on 4,096 pairs at n_iter 200,
+   beside their bounds (the FP64 peak, and the DFMA units' rate beside
+   it; expf) and plain versions;
 6. vector metrics: the euclidean, sqeuclidean and cosine engine on the
    card against a float64 oracle, the blobs contract (0 errors) and a
    euclidean fit on 4,096 x 64 blobs, held to the JAX package's evals and
@@ -118,9 +134,10 @@ of which exits non-zero when it fails:
    protocol), scored against ``exact_knn(X, "wasserstein", k=25)`` on the
    host's EMD solver: < 10 errors, every reported distance the exact EMD
    to 1e-9; its wall split into the Sinkhorn scout's device time (under
-   ``torch.profiler``) and the host EMD seconds; (c) ``wasserstein_sinkhorn``
-   on the first 300 digits: neighbour-set recall >= 0.9 against the exact
-   graph; (d) graph-sp on the 796-vertex component of ``make_graph()``
+   ``torch.profiler``: K8a's device ms and launches) and the host EMD
+   seconds, K8a launched; (c) ``wasserstein_sinkhorn`` on the first 300
+   digits: neighbour-set recall >= 0.9 against the exact graph, K8b
+   launched; (d) graph-sp on the 796-vertex component of ``make_graph()``
    with the JAX sample stream, which must spend the JAX package's evals
    and score no more errors against the exact graph;
 12. the admit-everything build and the row DP: (a) the digits-5620
@@ -129,8 +146,8 @@ of which exits non-zero when it fails:
    p_work=0.1``, the JAX sample stream), non-metric above 4,096 points so
    built by ``candidate_pairs_device``, held to the JAX package's pinned
    calls and errors against the stored exact graph, every reported
-   distance the exact EMD to 1e-9; timed with the stage table, then under
-   ``torch.profiler``; (b) the same fit with ``max_resident_pairs`` at
+   distance the exact EMD to 1e-9, K8a launched; timed with the stage
+   table, then under ``torch.profiler``; (b) the same fit with ``max_resident_pairs`` at
    half its admitted total, which must switch to the budgeted build; (c)
    strings-1600 over 256 code points (phase 4's arguments, the JAX sample
    stream), every evaluation on K10: the JAX package's evals, no more
@@ -165,7 +182,9 @@ are counted the same way in phase 4's two fits (the kernels line's
 "launches"), phase 6's 4,096 x 64 fit, phase 12(c)'s fit and per shard
 in phase 13(a); K9a's by mode in phase 9(b)'s 100k fit (its
 "launches"), phase 9(a)'s, phase 10(e)'s ``load(rebuild_pairs=True)``
-and per shard in phase 13(b).
+and per shard in phase 13(b); K8a's in each fit of phase 11(b) and
+12(a) (its "launches": the two timed fits) and K8b's in phase 11(c)'s
+fit.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to build/chip_smoke.json.
@@ -336,6 +355,22 @@ HBM_BYTES_PER_S = 3.35e12
 # steps the kernel's tiling does (K4: every (i <= j, y); K9a: every pair
 # its masks leave, before the shared-anchor filter)
 FMNMX_PER_S = 132 * 64 * 1.98e9
+# K8's bounds (csrc/sinkhorn.cu): K8a's (2 n_iter + 2) n^2 FP64 FMA a pair
+# at the card's FP64 peak, its tensor cores' 128 FMA a clock per SM (67
+# TFLOP/s); beside it, at the 64 DFMA lanes a clock per SM that K8a uses;
+# K8b's (2 n_iter + 1) n^2 expf a pair, one MUFU.EX2 each at 16 a clock
+# per SM; H100 SXM, 132 SMs at 1.98 GHz
+FP64_FMA_PER_S = 132 * 128 * 1.98e9
+DFMA_PER_S = 132 * 64 * 1.98e9
+EXPF_PER_S = 132 * 16 * 1.98e9
+# K8 against its plain versions: K8a rounds each float64 sum once to
+# float32 as the plain version does, but sums in another order than
+# cuBLAS (tests/test_torch_sinkhorn.py).  K8b sums its float32 terms in
+# another order than PyTorch's reductions, and its result exp(-C/eps + f/eps
+# + g/eps) C takes the potentials' rounding whole: f/eps and g/eps reach
+# max(C)/eps = 50, whose float32 ulp is 3.8e-6 of exp's argument
+K8A_RTOL = 2e-6
+K8B_RTOL = 1e-5
 # K1 through the wrapper before its redesign (one thread per pair, pairs
 # sorted by word count on the card), measured by this script's phase 5 on
 # the same card type and limit; the 100k column is get_anchors' 0.257 s
@@ -440,8 +475,8 @@ def _ptxas(kernel):
     for line in kernel.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            kind = re.search(r"(k10?_thread|k10?_group|k10?_long|k4_tropical|k9a_band)",
-                             m.group(1))
+            kind = re.search(r"(k10?_thread|k10?_group|k10?_long|k4_tropical|k9a_band|"
+                             r"k8a_exp|k8b_log)", m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = "%s%s" % (kind.group(1) if kind else "?",
                              "<%s>" % ",".join(args) if args else "")
@@ -1151,6 +1186,268 @@ def _check_scout_no_sync(torch, np):
     return rel
 
 
+def _k8_digits(np):
+    """The digits (1,797 x 64, the grid cost) with their first 16 rows
+    replaced: 8 all-zero rows (``unit_mass`` keeps them zero) and 8 of one
+    bin each."""
+    from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
+
+    X = digit_images()[0].astype(np.float32)
+    X[:16] = 0
+    X[np.arange(8, 16), np.arange(8) * 7] = 5
+    return X, grid_cost_matrix()
+
+
+def _k8_random(np, n, m, seed):
+    """m random histograms of n bins (30 % zero bins) with the same
+    special rows as ``_k8_digits``, and a random asymmetric cost."""
+    rng = np.random.default_rng(seed)
+    X = (rng.random((m, n)) * (rng.random((m, n)) < 0.7)).astype(np.float32)
+    X[:16] = 0
+    X[np.arange(8, 16), (np.arange(8) * 7) % n] = 5
+    return X, (rng.random((n, n)) * 10).astype(np.float32)
+
+
+def _k8_pairs(np, m, B, seed):
+    """B random pairs of m rows, the first ones self pairs and pairs of
+    the all-zero and one-bin rows."""
+    edge = np.array([(0, 0), (0, 20), (20, 0), (8, 8), (8, 9), (9, 30), (3, 12), (40, 40)])
+    IJ = np.random.default_rng(seed).integers(0, m, size=(B, 2))
+    IJ[: min(B, len(edge))] = edge[:B]
+    return IJ
+
+
+def _k8_compare(torch, got, want):
+    """K8 against its plain version: the largest relative difference (the
+    plain version's zeros must be met exactly), the largest absolute one,
+    the share of bit-equal values and whether every value is finite."""
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    nz = w != 0
+    return {"max_rel": float((diff[nz] / w[nz].abs()).max()) if bool(nz.any()) else 0.0,
+            "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "bit_equal_share": float((got == want).double().mean()) if got.numel() else 1.0,
+            "zeros_equal": bool((diff[~nz] == 0).all()),
+            "finite": bool(torch.isfinite(g).all())}
+
+
+def _no_sync(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _check_k8(torch, np):
+    """Phase 2's K8 check.  K8a against its plain version to ``K8A_RTOL``
+    and against its torch model (``sinkhorn_cuda.exp_chunk_model``) bit
+    for bit: the digits (with all-zero rows, one-bin rows and self pairs)
+    at n_iter 1, 2 and 300 on 1, 256, 1,797 (an anchor column: one id
+    expanded with stride 0) and 8,192 pairs, the column and the chunk also
+    in the other tiles; random asymmetric costs at n 5 (8,192 pairs in
+    every tile: the 8-column tile has half as many threads as pairs
+    there), 100, 300 (K read from global memory), 2,100 (two column
+    passes) and 7,200 (u and v in global memory); the engine's dispatch
+    of 9,000 pairs (a ragged last chunk of 808).  K8b against its plain version to
+    ``K8B_RTOL`` on the digits at n_iter 1, 2 and 200 on 1, 256 and 4,096
+    pairs and on random costs at n 5, 100, 300 and 14,401 (the potentials
+    in global memory).  Every kernel call under
+    ``set_sync_debug_mode("error")``, one launch each.  Returns (calls,
+    largest absolute difference, rows)."""
+    from annchor_tpu_torch.ops import sinkhorn_cuda as sc
+    from annchor_tpu_torch.ops import wasserstein as w
+
+    dev = torch.device("cuda")
+    rows = []
+
+    def exp_case(label, Xd, I, J, K, KC, n_iter, rc=None):
+        before = sc.K8.mode_launches["exp"]
+        plan = sc.exp_plan(int(I.shape[0]), int(Xd.shape[1]), rc)
+        got = _no_sync(torch, lambda: sc.sinkhorn_exp_cuda(
+            Xd, Xd, I, J, K, KC, n_iter, w.TINY, _plan=plan) if rc is not None else
+            w.sinkhorn_exp_chunk(Xd, Xd, I, J, K, KC, n_iter))
+        launched = sc.K8.mode_launches["exp"] - before
+        row = _k8_compare(torch, got, w.sinkhorn_exp_chunk_plain(Xd, Xd, I, J, K, KC, n_iter))
+        row.update(kernel="K8a", case=label, n_iter=n_iter, launches=launched,
+                   plan="rc %d P %d %s%s" % (
+                       plan["rc"], plan["P"], "resident" if plan["resident"] else "streamed",
+                       ", uv global" if plan["global_uv"] else ""),
+                   model_equal=bool(torch.equal(got, sc.exp_chunk_model(
+                       Xd, Xd, I, J, K, KC, n_iter, w.TINY, plan=plan))))
+        row["ok"] = (launched == 1 and row["finite"] and row["zeros_equal"]
+                     and row["max_rel"] <= K8A_RTOL and row["model_equal"])
+        rows.append(row)
+
+    def log_case(label, A, B, C, eps, n_iter):
+        before = sc.K8.mode_launches["log"]
+        got = _no_sync(torch, lambda: w.sinkhorn_batch(A, B, C, eps, n_iter))
+        launched = sc.K8.mode_launches["log"] - before
+        plan = sc.log_plan(int(A.shape[0]), int(A.shape[1]))
+        row = _k8_compare(torch, got, w.sinkhorn_batch_plain(A, B, C, eps, n_iter))
+        row.update(kernel="K8b", case=label, n_iter=n_iter, launches=launched,
+                   plan="G %d P %d %s%s" % (
+                       plan["G"], plan["P"], "resident" if plan["resident"] else "streamed",
+                       ", f g global" if plan["global_v"] else ""))
+        row["ok"] = (launched == 1 and row["finite"] and row["zeros_equal"]
+                     and row["max_rel"] <= K8B_RTOL)
+        rows.append(row)
+
+    X, M = _k8_digits(np)
+    eng = w.SinkhornExpEngine(M, device="cuda")
+    Xd = eng._table(X)
+    for B in (1, 256, 1797, 8192):
+        if B == 1797:  # an anchor column, as sinkhorn_maxmin passes it
+            I = torch.tensor(1126, device=dev).expand(B)
+            J = torch.arange(B, device=dev)
+        else:
+            IJ = torch.as_tensor(_k8_pairs(np, len(X), B, B), device=dev)
+            I, J = IJ[:, 0], IJ[:, 1]
+        for n_iter in (1, 2, 300):
+            exp_case("digits B %d" % B, Xd, I, J, eng._K, eng._KC, n_iter)
+        if B in (1797, 8192):
+            for rc in sc.EXP_MAX_THREADS:
+                if rc != sc.exp_plan(B, 64)["rc"]:
+                    exp_case("digits B %d, rc %d" % (B, rc), Xd, I, J, eng._K, eng._KC, 300,
+                             rc)
+    for n, B in ((5, 256), (5, 8192), (100, 256), (100, 8192), (300, 256), (300, 8192),
+                 (2100, 4), (7200, 5)):
+        Xr, Cr = _k8_random(np, n, 2000, n)
+        er = w.SinkhornExpEngine(Cr, device="cuda")
+        IJ = torch.as_tensor(_k8_pairs(np, len(Xr), B, B + n), device=dev)
+        Xrd = er._table(Xr)
+        exp_case("random n %d B %d" % (n, B), Xrd, IJ[:, 0], IJ[:, 1], er._K, er._KC,
+                 2 if n > 2048 else 20)
+        if (n, B) == (5, 8192):
+            for rc in sc.EXP_MAX_THREADS:
+                if rc != sc.exp_plan(B, n)["rc"]:
+                    exp_case("random n %d B %d, rc %d" % (n, B, rc), Xrd, IJ[:, 0], IJ[:, 1],
+                             er._K, er._KC, 20, rc)
+        del er, Xrd
+    # the engine's dispatch: two chunks, the last of 808 pairs
+    IJ = _k8_pairs(np, len(X), 9000, 9)
+    before = sc.K8.mode_launches["exp"]
+    got, m = _no_sync(torch, lambda: eng.dispatch(X, X, IJ))
+    launched = sc.K8.mode_launches["exp"] - before
+    I, J = (torch.as_tensor(IJ[:, k], device=dev) for k in (0, 1))
+    want = torch.cat([w.sinkhorn_exp_chunk_plain(Xd, Xd, I[s:s + 8192], J[s:s + 8192], eng._K,
+                                                 eng._KC, 300) for s in (0, 8192)])
+    row = _k8_compare(torch, got, want)
+    row.update(kernel="K8a", case="dispatch of 9,000 (8,192 + 808)", n_iter=300,
+               launches=launched, plan="two launches", model_equal=True)
+    row["ok"] = (m == 9000 and launched == 2 and row["finite"] and row["zeros_equal"]
+                 and row["max_rel"] <= K8A_RTOL)
+    rows.append(row)
+
+    Cd = torch.as_tensor(M.astype(np.float32), device=dev)
+    eps = float(np.float32(0.02 * M.max()))
+    Xu = torch.as_tensor(w.unit_mass(X), device=dev)
+    for B in (1, 256, 4096):
+        IJ = torch.as_tensor(_k8_pairs(np, len(X), B, B + 1), device=dev)
+        A, Bh = Xu[IJ[:, 0]].contiguous(), Xu[IJ[:, 1]].contiguous()
+        for n_iter in (1, 2, 200):
+            log_case("digits B %d" % B, A, Bh, Cd, eps, n_iter)
+    for n, B in ((5, 256), (100, 256), (300, 256), (14401, 2)):
+        Xr, Cr = _k8_random(np, n, 60 if n > 2048 else 2000, n + 1)
+        Xu = torch.as_tensor(w.unit_mass(Xr), device=dev)
+        IJ = torch.as_tensor(_k8_pairs(np, len(Xr), B, n), device=dev)
+        log_case("random n %d B %d" % (n, B), Xu[IJ[:, 0]].contiguous(),
+                 Xu[IJ[:, 1]].contiguous(), torch.as_tensor(Cr, device=dev),
+                 float(np.float32(0.02 * Cr.max())), 1 if n > 2048 else 30)
+        del Cr
+    torch.cuda.empty_cache()
+
+    for r in rows:
+        print("  %s %-34s n_iter %3d %-32s: max rel %.3g, max abs %.3g, bit-equal %.4f, "
+              "model bit-equal %s, %d launch(es)%s" % (
+                  r["kernel"], r["case"], r["n_iter"], r["plan"], r["max_rel"],
+                  r["max_abs_err"], r["bit_equal_share"], r.get("model_equal", "-"),
+                  r["launches"], "" if r["ok"] else "  <-- FAILED"), flush=True)
+    bad = [r["kernel"] + " " + r["case"] for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit("K8 disagrees with its plain version or model: %s" % bad)
+    return len(rows), max(r["max_abs_err"] for r in rows), rows
+
+
+def _k8_timing(torch, np):
+    """Phase 5's K8 rows: K8a on a full 8,192-pair chunk of the digits and
+    on a 1,797-pair anchor column at n_iter 300 (the wrapper's tile, and
+    each tile forced), K8b on a 4,096-pair chunk at n_iter 200: ms by
+    CUDA events beside the bound (K8a's FMA at ``FP64_FMA_PER_S``, K8b's
+    expf at ``EXPF_PER_S``, or the bytes at ``HBM_BYTES_PER_S`` if
+    larger) and its share, K8a's bound at the DFMA units' rate
+    (``bound_ms_dfma``), and the plain version's ms.  No one PyTorch call
+    computes the loop (library none)."""
+    from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
+    from annchor_tpu_torch.ops import sinkhorn_cuda as sc
+    from annchor_tpu_torch.ops import wasserstein as w
+
+    dev = torch.device("cuda")
+    X, _ = digit_images()
+    M = grid_cost_matrix()
+    eng = w.SinkhornExpEngine(M, device="cuda")
+    Xd = eng._table(X)
+    n, n_iter = Xd.shape[1], eng.n_iter
+    IJ = torch.as_tensor(np.random.default_rng(5).integers(0, len(X), size=(8192, 2)),
+                         device=dev)
+    shapes = {"K8a chunk": (IJ[:, 0], IJ[:, 1]),
+              "K8a column": (torch.tensor(1126, device=dev).expand(len(X)),
+                             torch.arange(len(X), device=dev))}
+    rows = {}
+    for name, (I, J) in shapes.items():
+        B = int(I.shape[0])
+        args = (Xd, Xd, I, J, eng._K, eng._KC, n_iter)
+        fma = B * (2 * n_iter + 2) * n * n
+        ops_ms = fma / FP64_FMA_PER_S * 1e3
+        bytes_ms = (B * (2 * n * 4 + 2 * 8 + 4) + 2 * n * n * 8) / HBM_BYTES_PER_S * 1e3
+        rows[name] = {
+            "pairs": B, "n": n, "n_iter": n_iter, "rc": sc.exp_plan(B, n)["rc"],
+            "ms": _time(torch, lambda: w.sinkhorn_exp_chunk(*args), 10),
+            "plain_ms": _time(torch, lambda: w.sinkhorn_exp_chunk_plain(*args), 2),
+            "tiles_ms": {rc: _time(torch, lambda p=sc.exp_plan(B, n, rc): sc.sinkhorn_exp_cuda(
+                *args, w.TINY, _plan=p), 5) for rc in sc.EXP_MAX_THREADS},
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms_dfma": max(fma / DFMA_PER_S * 1e3, bytes_ms),
+            "library_ms": None,
+            **_k8_compare(torch, w.sinkhorn_exp_chunk(*args), w.sinkhorn_exp_chunk_plain(*args))}
+    leng = w.SinkhornEngine(M, device="cuda")
+    Xu = torch.as_tensor(w.unit_mass(X), device=dev)
+    A, Bh = Xu[IJ[:4096, 0]].contiguous(), Xu[IJ[:4096, 1]].contiguous()
+    Cd = torch.as_tensor(leng.C, device=dev)
+    args = (A, Bh, Cd, leng.eps, leng.n_iter)
+    B = 4096
+    ops_ms = B * (2 * leng.n_iter + 1) * n * n / EXPF_PER_S * 1e3
+    bytes_ms = (B * (2 * n * 4 + 4) + n * n * 4) / HBM_BYTES_PER_S * 1e3
+    rows["K8b chunk"] = {
+        "pairs": B, "n": n, "n_iter": leng.n_iter, "plan": "G %d P %d" % (
+            sc.log_plan(B, n)["G"], sc.log_plan(B, n)["P"]),
+        "ms": _time(torch, lambda: w.sinkhorn_batch(*args), 5),
+        "plain_ms": _time(torch, lambda: w.sinkhorn_batch_plain(*args), 1),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+        **_k8_compare(torch, w.sinkhorn_batch(*args), w.sinkhorn_batch_plain(*args))}
+    for name, row in rows.items():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        plan = ("rc %d" % row["rc"]) if "rc" in row else row["plan"]
+        dfma = (", DFMA-unit bound %.4f ms, %.1f %% of it" % (
+            row["bound_ms_dfma"], 100 * row["bound_ms_dfma"] / row["ms"])
+            if "bound_ms_dfma" in row else "")
+        print("  %-10s %5d pairs, n_iter %d, %-8s %9.4f ms | bound %.4f ms (%s), %.1f %% of "
+              "it%s | plain %.3f ms | %s| library: none | max rel %.3g" % (
+                  name, row["pairs"], row["n_iter"], plan, row["ms"], row["bound_ms"],
+                  row["bound_by"], 100 * row["bound_share"], dfma, row["plain_ms"],
+                  "".join("rc %d %.4f ms, " % kv for kv in row["tiles_ms"].items())
+                  if "tiles_ms" in row else "", row["max_rel"]), flush=True)
+        tol = K8B_RTOL if name.startswith("K8b") else K8A_RTOL
+        if row["max_rel"] > tol or not row["finite"]:
+            raise SystemExit("%s disagrees with its plain version" % name)
+    return rows
+
+
 def _time(torch, fn, reps):
     """Mean ms per call, by CUDA events, after one warm-up call."""
     fn()
@@ -1190,8 +1487,8 @@ def _plan(enc, B, mode="auto"):
 def _device_profile(torch, fn, scope=None):
     """Run ``fn`` once under torch.profiler.  Returns a dict: ``wall_s``;
     ``device_ms`` and ``kernels`` in all; ``k1_device_ms`` and
-    ``k1_kernels`` (K1's launches), the same for K10, K4 and K9a
-    (``k10_``, ``k4_``, ``k9a_``); for the ``record_function`` ranges
+    ``k1_kernels`` (K1's launches), the same for K10, K4, K9a, K8a and
+    K8b (``k10_``, ``k4_``, ``k9a_``, ``k8a_``, ``k8b_``); for the ``record_function`` ranges
     named ``scope``, the ``scope_device_ms`` and ``scope_kernels`` of the
     kernels that run inside their mirrors on the card's timeline and
     those mirrors' ``scope_span_ms`` (idle gaps included; a mirror is
@@ -1212,7 +1509,8 @@ def _device_profile(torch, fn, scope=None):
     cuda = torch.autograd.DeviceType.CUDA
     starts, durs, spans, by_name = [], [], [], {}
     # kernel name fragments of the hand-written kernels
-    tags = {"k1": "k1_", "k10": "k10_", "k4": "k4_tropical", "k9a": "k9a_band"}
+    tags = {"k1": "k1_", "k10": "k10_", "k4": "k4_tropical", "k9a": "k9a_band",
+            "k8a": "k8a_exp", "k8b": "k8b_log"}
     own = {tag: [0.0, 0] for tag in tags}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cuda:
@@ -1937,6 +2235,7 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
         make_graph,
     )
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+    from annchor_tpu_torch.ops.sinkhorn_cuda import K8
 
     out = report["slow_metrics"] = {}
 
@@ -1989,6 +2288,7 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
                 emd["calls"] += len(IJ)
 
         ann._exact_eval = timed_exact
+        K8.reset_counts()
         if run == "timed":
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1999,6 +2299,7 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
             row = _device_profile(torch, ann.fit, "sinkhorn_exp_chunk")
             for name, ms, cnt in row["top"]:
                 print("    %-60s %10.3f ms in %6d events" % (name, ms, cnt), flush=True)
+        row["k8a_launches"] = K8.mode_launches["exp"]
         errors = att.compare_neighbor_graphs((ei, ed), ann.neighbor_graph, N_NEIGHBORS)
         ngi, ngd = ann.neighbor_graph
         check = native.emd_batch(Xd, Xd, M, np.repeat(np.arange(len(Xd)), N_NEIGHBORS),
@@ -2010,14 +2311,19 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
         rows.append(row)
         print("  (b) digits-1797 hybrid (%s): %.3f s wall, %d exact calls (JAX package on a "
               "CPU: %d), %d scout calls (%d), %d errors (%d; contract < %d), reported "
-              "distances within %.3g of the exact EMD, host EMD %.3f s in %d calls%s" % (
+              "distances within %.3g of the exact EMD, host EMD %.3f s in %d calls, K8a "
+              "launches %d%s" % (
                   run, row["wall_s"], ann.evals, DIGITS_EVALS, ann.scout_evals,
                   DIGITS_SCOUT_EVALS, errors, DIGITS_ERRORS, DIGITS_MAX_ERRORS,
-                  row["max_abs_err_reported"], emd["s"], emd["calls"],
+                  row["max_abs_err_reported"], emd["s"], emd["calls"], row["k8a_launches"],
                   "" if run == "timed" else "; device %.3f ms in %d kernels, the Sinkhorn "
-                  "scout %.3f ms in %d kernels over a %.3f ms span of the card's timeline"
+                  "scout %.3f ms in %d kernels over a %.3f ms span of the card's timeline, "
+                  "K8a %.3f ms in %d kernels"
                   % (row["device_ms"], row["kernels"], row["scope_device_ms"],
-                     row["scope_kernels"], row["scope_span_ms"])), flush=True)
+                     row["scope_kernels"], row["scope_span_ms"], row["k8a_device_ms"],
+                     row["k8a_kernels"])), flush=True)
+        if not row["k8a_launches"]:
+            raise SystemExit("(b) the digits hybrid never launched K8a")
         if errors >= DIGITS_MAX_ERRORS or row["max_abs_err_reported"] > 1e-9:
             raise SystemExit("(b) the digits hybrid: %d errors, reported distances off by "
                              "%.3g" % (errors, row["max_abs_err_reported"]))
@@ -2030,6 +2336,7 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
     # (c) wasserstein_sinkhorn on 300 digits (tests/test_hybrid.py:123-131)
     X3 = Xd[:300]
     exact10 = att.exact_knn(X3, "wasserstein", {"cost_matrix": M}, k=10, device="cuda")[0]
+    K8.reset_counts()
     t0 = time.perf_counter()
     sk = att.Annchor(X3, "wasserstein_sinkhorn", func_kwargs={"cost_matrix": M},
                      n_anchors=15, n_neighbors=10, n_samples=2000, p_work=0.3,
@@ -2037,13 +2344,17 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
     sk.fit()
     torch.cuda.synchronize()
     sk_s = time.perf_counter() - t0
+    k8b = K8.mode_launches["log"]
     got = sk.neighbor_graph[0][:, :10]
     recall = sum(len(np.intersect1d(exact10[i], got[i])) for i in range(len(X3))) / got.size
-    out["c"] = {"fit_s": sk_s, "evals": int(sk.evals), "recall": recall}
+    out["c"] = {"fit_s": sk_s, "evals": int(sk.evals), "recall": recall, "k8b_launches": k8b}
     print("  (c) wasserstein_sinkhorn on 300 digits: %.3f s, %d evals, neighbour-set recall "
-          "%.4f (floor %.2f)" % (sk_s, sk.evals, recall, SINKHORN_MIN_RECALL), flush=True)
+          "%.4f (floor %.2f), K8b launches %d" % (sk_s, sk.evals, recall,
+                                                   SINKHORN_MIN_RECALL, k8b), flush=True)
     if recall < SINKHORN_MIN_RECALL or sk.is_metric:
         raise SystemExit("(c) the Sinkhorn-only fit's recall %.4f" % recall)
+    if not k8b:
+        raise SystemExit("(c) the Sinkhorn-only fit never launched K8b")
 
     # (d) graph-sp on the giant component of make_graph()
     edges, weights, y = make_graph()
@@ -2079,6 +2390,7 @@ def _digits5620(torch, np, att, report):
     from annchor_tpu_torch import native
     from annchor_tpu_torch.datasets import load_digits_large
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+    from annchor_tpu_torch.ops.sinkhorn_cuda import K8
 
     d = load_digits_large()
     X, M = d["X"], d["cost_matrix"]
@@ -2101,18 +2413,22 @@ def _digits5620(torch, np, att, report):
         print("  (%s) digits-5620 hybrid (%s): %.3f s wall, build %s, m %d of %d admitted, "
               "%d exact calls (JAX package on a CPU: %d), %d scout calls (%d), %d errors "
               "(%d; contract < %d), reported distances within %.3g of the exact EMD, host "
-              "EMD %.3f s in %d calls%s" % (
+              "EMD %.3f s in %d calls, K8a launches %d%s" % (
                   "b" if run == "switched" else "a", run, row["wall_s"],
                   row["locality"]["build"], row["m"], row["locality"]["admitted"],
                   ann.evals, pin["evals"], ann.scout_evals, pin["scout_evals"], errors,
                   pin["errors"], DIGITS_MAX_ERRORS, row["max_abs_err_reported"],
-                  row["host_emd_s"], row["host_emd_calls"],
+                  row["host_emd_s"], row["host_emd_calls"], row["k8a_launches"],
                   "" if "device_ms" not in row else "; device %.3f ms in %d kernels, the "
                   "Sinkhorn scout %.3f ms in %d kernels over a %.3f ms span of the card's "
-                  "timeline" % (row["device_ms"], row["kernels"], row["scope_device_ms"],
-                                row["scope_kernels"], row["scope_span_ms"])), flush=True)
+                  "timeline, K8a %.3f ms in %d kernels" % (
+                      row["device_ms"], row["kernels"], row["scope_device_ms"],
+                      row["scope_kernels"], row["scope_span_ms"], row["k8a_device_ms"],
+                      row["k8a_kernels"])), flush=True)
         if row["max_abs_err_reported"] > 1e-9 or not ann._scouting:
             raise SystemExit("(12) a reported distance is not the exact EMD")
+        if not row["k8a_launches"]:
+            raise SystemExit("(12) the digits-5620 hybrid never launched K8a")
         if ngi.shape != (len(X), N_NEIGHBORS):
             raise SystemExit("(12) graph of shape %s" % (ngi.shape,))
         return errors
@@ -2132,6 +2448,7 @@ def _digits5620(torch, np, att, report):
                 emd["calls"] += len(IJ)
 
         ann._exact_eval = timed_exact
+        K8.reset_counts()
         if run == "profiled":
             row = _device_profile(torch, ann.fit, "sinkhorn_exp_chunk")
             for name, ms, cnt in row["top"]:
@@ -2142,7 +2459,8 @@ def _digits5620(torch, np, att, report):
             ann.fit()
             torch.cuda.synchronize()
             row = {"wall_s": time.perf_counter() - t0}
-        row.update(host_emd_s=emd["s"], host_emd_calls=emd["calls"])
+        row.update(host_emd_s=emd["s"], host_emd_calls=emd["calls"],
+                   k8a_launches=K8.mode_launches["exp"])
         errors = check(ann, run, row)
         if run == "switched":
             if ann._locality_info["build"] != "budgeted" or ann._dev is None:
@@ -2475,6 +2793,7 @@ def main() -> int:
     from annchor_tpu_torch.ops.band_linf_cuda import K9A
     from annchor_tpu_torch.ops.levenshtein_cuda import K1
     from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import K10
+    from annchor_tpu_torch.ops.sinkhorn_cuda import K8
     from annchor_tpu_torch.ops.tropical_cuda import K4
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2495,11 +2814,12 @@ def main() -> int:
         return time.perf_counter() - t
 
     # one compiler process for each source, all started together
-    with ThreadPoolExecutor(5) as pool:
-        builds = [pool.submit(build, lib) for lib in (K1, K10, K4, K9A, EMD)]
+    with ThreadPoolExecutor(6) as pool:
+        builds = [pool.submit(build, lib) for lib in (K1, K10, K4, K9A, K8, EMD)]
         (report["k1_build_s"], report["k10_build_s"], report["k4_build_s"],
-         report["k9a_build_s"], report["emd_build_s"]) = (b.result() for b in builds)
-    for kernel, key in ((K1, "k1"), (K10, "k10"), (K4, "k4"), (K9A, "k9a")):
+         report["k9a_build_s"], report["k8_build_s"],
+         report["emd_build_s"]) = (b.result() for b in builds)
+    for kernel, key in ((K1, "k1"), (K10, "k10"), (K4, "k4"), (K9A, "k9a"), (K8, "k8")):
         print("  built %s in %.3f s" % (kernel.name, report[key + "_build_s"]))
         report[key + "_ptxas"] = _ptxas(kernel)
         for name, (regs, st, ld) in report[key + "_ptxas"].items():
@@ -2521,6 +2841,8 @@ def main() -> int:
     report["k9a_check_calls"], k9a_err, report["k9a_check_modes"] = _check_k9a(torch, np)
     _check_small_fit(torch, np)
     report["scout_card_vs_cpu_rel"] = _check_scout_no_sync(torch, np)
+    report["k8_check_calls"], k8_err, report["k8_check"] = _check_k8(torch, np)
+    k8_check_launches = dict(K8.mode_launches)
 
     _phase("3. exact graph")
     t0 = time.perf_counter()
@@ -2611,6 +2933,7 @@ def main() -> int:
     refine = report["k1_timing"]["refine batch"]
     report["k4_k9a_timing"] = timing = _k4_k9a_timing(torch, np, E1600)
     del E1600
+    report["k8_timing"] = k8_timing = _k8_timing(torch, np)
 
     _phase("6. vector metrics (%s)" % report["card"])
     X64, _ = make_blobs(4096, 64, 10, 42)
@@ -2749,6 +3072,13 @@ def main() -> int:
           "%s; phase 11: %s" % (main_modes, serve_modes, exact_modes))
     if not (main_modes["thread"] and main_modes["group"]):
         raise SystemExit("the main path did not launch both K1 modes: %s" % main_modes)
+    # K8's main paths: the hybrids' timed fits (11(b), 12(a)) and the
+    # wasserstein_sinkhorn fit (11(c))
+    k8a_1797 = report["slow_metrics"]["b"]["fits"][0]["k8a_launches"]
+    k8a_5620 = report["digits5620"]["fits"][0]["k8a_launches"]
+    k8b_main = report["slow_metrics"]["c"]["k8b_launches"]
+    print("  K8 launches: K8a digits-1797 %d, digits-5620 %d; K8b wasserstein_sinkhorn %d"
+          % (k8a_1797, k8a_5620, k8b_main))
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     # K9a's figures: the 100k build's first band (phase 9(b))
@@ -2838,6 +3168,48 @@ def main() -> int:
         "bound_ms_keep": k9a_keep["bound_ms"],
         "bound_by_keep": k9a_keep["bound_by"],
         "bound_ms_dense_keep": k9a_keep["bound_ms_dense"],
+    }, {
+        "name": "sinkhorn_exp (K8a)",
+        "route": "cuda",
+        "source": "annchor_tpu_torch/csrc/sinkhorn.cu",
+        "replaces": "annchor_tpu/ops/wasserstein.py:65",
+        "launches": k8a_1797 + k8a_5620,
+        "launches_digits1797": k8a_1797,
+        "launches_digits5620": k8a_5620,
+        "launches_check": k8_check_launches["exp"],
+        "max_abs_err": max([r["max_abs_err"] for r in report["k8_check"]
+                            if r["kernel"] == "K8a"]
+                           + [k8_timing[k]["max_abs_err"] for k in ("K8a chunk", "K8a column")]),
+        "max_rel_err": max([r["max_rel"] for r in report["k8_check"] if r["kernel"] == "K8a"]
+                           + [k8_timing[k]["max_rel"] for k in ("K8a chunk", "K8a column")]),
+        "shape": [k8_timing["K8a chunk"]["pairs"], 64, k8_timing["K8a chunk"]["n_iter"]],
+        "ms": k8_timing["K8a chunk"]["ms"],
+        "plain_ms": k8_timing["K8a chunk"]["plain_ms"],
+        "bound_ms": k8_timing["K8a chunk"]["bound_ms"],
+        "bound_by": k8_timing["K8a chunk"]["bound_by"],
+        "bound_ms_dfma": k8_timing["K8a chunk"]["bound_ms_dfma"],
+        "library_ms": None,
+        "ms_column": k8_timing["K8a column"]["ms"],
+        "plain_ms_column": k8_timing["K8a column"]["plain_ms"],
+        "bound_ms_column": k8_timing["K8a column"]["bound_ms"],
+        "bound_ms_dfma_column": k8_timing["K8a column"]["bound_ms_dfma"],
+    }, {
+        "name": "sinkhorn_log (K8b)",
+        "route": "cuda",
+        "source": "annchor_tpu_torch/csrc/sinkhorn.cu",
+        "replaces": "annchor_tpu/ops/wasserstein.py:24",
+        "launches": k8b_main,
+        "launches_check": k8_check_launches["log"],
+        "max_abs_err": max([r["max_abs_err"] for r in report["k8_check"]
+                            if r["kernel"] == "K8b"] + [k8_timing["K8b chunk"]["max_abs_err"]]),
+        "max_rel_err": max([r["max_rel"] for r in report["k8_check"] if r["kernel"] == "K8b"]
+                           + [k8_timing["K8b chunk"]["max_rel"]]),
+        "shape": [k8_timing["K8b chunk"]["pairs"], 64, k8_timing["K8b chunk"]["n_iter"]],
+        "ms": k8_timing["K8b chunk"]["ms"],
+        "plain_ms": k8_timing["K8b chunk"]["plain_ms"],
+        "bound_ms": k8_timing["K8b chunk"]["bound_ms"],
+        "bound_by": k8_timing["K8b chunk"]["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernel on the card, held against its plain
-PyTorch version.  Every test here needs an NVIDIA card (marker ``gpu``)
+"""The hand-written CUDA kernels on the card, held against their plain
+PyTorch versions.  Every test here needs an NVIDIA card (marker ``gpu``)
 and skips without one.  This file imports no JAX, so it also runs on a
 machine that has only the port's dependencies:
 
@@ -22,6 +22,11 @@ from annchor_tpu_torch.ops.levenshtein_myers import (
 )
 
 pytestmark = pytest.mark.gpu
+
+# K8b against its plain version: both float32, summed in other orders;
+# the cost exp(-C/eps + f/eps + g/eps) C takes the potentials' rounding
+# whole, and f/eps, g/eps reach max(C)/eps = 50 (a float32 ulp of 3.8e-6)
+K8B_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -477,3 +482,175 @@ def test_k9a_call_does_not_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(bins, want)
     assert torch.equal(keep[0], locality._band_keep2_plain(*args, P["thr"], 128, P["nx"], 384))
+
+
+def _k8_problem(n, m, seed):
+    """(X float32 (m, n), C float32 (n, n)): the digits and their grid cost
+    at n 64, else random histograms (30 % zero bins) and an asymmetric
+    cost; rows 0-7 all zero, rows 8-15 one bin each."""
+    from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
+
+    rng = np.random.default_rng(seed)
+    if n == 64:
+        X = digit_images()[0][:m].astype(np.float32)
+        C = grid_cost_matrix().astype(np.float32)
+    else:
+        X = (rng.random((m, n)) * (rng.random((m, n)) < 0.7)).astype(np.float32)
+        C = (rng.random((n, n)) * 10).astype(np.float32)
+    X[:16] = 0
+    X[np.arange(8, 16), (np.arange(8) * 7) % n] = 5
+    return X, C
+
+
+def _k8_ids(m, B, seed, dev):
+    IJ = np.random.default_rng(seed).integers(0, m, size=(B, 2))
+    IJ[: min(B, 6)] = np.array([(0, 0), (0, 20), (20, 0), (8, 8), (8, 9), (40, 40)])[:B]
+    t = torch.as_tensor(IJ, device=dev)
+    return t[:, 0], t[:, 1]
+
+
+@pytest.mark.parametrize("B", [1, 256, 1797, 8192])
+@pytest.mark.parametrize("n", [5, 64, 100, 300])
+def test_k8a_matches_plain(cuda, n, B):
+    """K8a against its plain version to rtol 2e-6 (cuBLAS sums the float64
+    products in another order) and against its torch model bit for bit,
+    with all-zero rows, one-bin rows and self pairs; at n 300 K is read
+    from global memory; B 1,797 is an anchor column (one id expanded)."""
+    from annchor_tpu_torch.ops import sinkhorn_cuda as sc
+    from annchor_tpu_torch.ops import wasserstein as w
+
+    X, C = _k8_problem(n, 1797, n + B)
+    eng = w.SinkhornExpEngine(C, device=cuda)
+    Xd = eng._table(X)
+    if B == 1797:
+        I, J = torch.tensor(1126, device=cuda).expand(B), torch.arange(B, device=cuda)
+    else:
+        I, J = _k8_ids(len(X), B, B, cuda)
+    n_iter = 300 if n == 64 else 20
+    before = sc.K8.mode_launches["exp"]
+    got = w.sinkhorn_exp_chunk(Xd, Xd, I, J, eng._K, eng._KC, n_iter)
+    torch.cuda.synchronize()
+    assert sc.K8.mode_launches["exp"] == before + 1
+    want = w.sinkhorn_exp_chunk_plain(Xd, Xd, I, J, eng._K, eng._KC, n_iter)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-6)
+    model = sc.exp_chunk_model(Xd, Xd, I, J, eng._K, eng._KC, n_iter, w.TINY)
+    assert torch.equal(got, model)
+
+
+@pytest.mark.parametrize("rc", [2, 4, 8])
+def test_k8a_forced_tile_matches_plain(cuda, rc):
+    """K8a in each tile at n 5 and 8,192 pairs (32 pairs a block): the
+    8-column tile has one thread a column block there, half as many
+    threads as pairs, and every pair's cost must still be written."""
+    from annchor_tpu_torch.ops import sinkhorn_cuda as sc
+    from annchor_tpu_torch.ops import wasserstein as w
+
+    X, C = _k8_problem(5, 1797, 5)
+    eng = w.SinkhornExpEngine(C, device=cuda)
+    Xd = eng._table(X)
+    I, J = _k8_ids(len(X), 8192, 8192, cuda)
+    plan = sc.exp_plan(8192, 5, rc)
+    assert (plan["rc"], plan["P"]) == (rc, 32)
+    got = sc.sinkhorn_exp_cuda(Xd, Xd, I, J, eng._K, eng._KC, 20, w.TINY, _plan=plan)
+    want = w.sinkhorn_exp_chunk_plain(Xd, Xd, I, J, eng._K, eng._KC, 20)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-6)
+    assert torch.equal(got, sc.exp_chunk_model(Xd, Xd, I, J, eng._K, eng._KC, 20, w.TINY,
+                                               plan=plan))
+
+
+@pytest.mark.parametrize("n,B", [(2100, 4), (7200, 5)])
+def test_k8a_large_n_matches_plain(cuda, n, B):
+    """K8a above 2,048 bins (column passes) and above 7,136 (u and v in a
+    global workspace): against its plain version and its model."""
+    from annchor_tpu_torch.ops import sinkhorn_cuda as sc
+    from annchor_tpu_torch.ops import wasserstein as w
+
+    X, C = _k8_problem(n, 64, n)
+    eng = w.SinkhornExpEngine(C, device=cuda)
+    Xd = eng._table(X)
+    I, J = _k8_ids(len(X), B, B, cuda)
+    plan = sc.exp_plan(B, n)
+    assert plan["passes"] > 1 and plan["global_uv"] == (n > 7136)
+    got = w.sinkhorn_exp_chunk(Xd, Xd, I, J, eng._K, eng._KC, 2)
+    want = w.sinkhorn_exp_chunk_plain(Xd, Xd, I, J, eng._K, eng._KC, 2)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-6)
+    assert torch.equal(got, sc.exp_chunk_model(Xd, Xd, I, J, eng._K, eng._KC, 2, w.TINY))
+
+
+def test_k8b_large_n_matches_plain(cuda):
+    """K8b above 14,400 bins, where the potentials and log histograms of a
+    pair live in a global workspace."""
+    from annchor_tpu_torch.ops import sinkhorn_cuda as sc
+    from annchor_tpu_torch.ops import wasserstein as w
+
+    n = 14_401
+    X, C = _k8_problem(n, 32, n)
+    assert sc.log_plan(2, n)["global_v"]
+    Xu = torch.as_tensor(w.unit_mass(X), device=cuda)
+    I, J = _k8_ids(len(X), 2, 3, cuda)
+    A, Bh = Xu[I].contiguous(), Xu[J].contiguous()
+    Cd = torch.as_tensor(C, device=cuda)
+    eps = float(np.float32(0.02 * C.max()))
+    got = w.sinkhorn_batch(A, Bh, Cd, eps, 1)
+    want = w.sinkhorn_batch_plain(A, Bh, Cd, eps, 1)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=K8B_RTOL)
+
+
+@pytest.mark.parametrize("B", [1, 256, 4096])
+@pytest.mark.parametrize("n", [5, 64, 100, 300])
+def test_k8b_matches_plain(cuda, n, B):
+    """K8b against its plain version on the card, both float32: only the
+    order of the sums differs."""
+    from annchor_tpu_torch.ops import sinkhorn_cuda as sc
+    from annchor_tpu_torch.ops import wasserstein as w
+
+    X, C = _k8_problem(n, 1797, n + B + 1)
+    Xu = torch.as_tensor(w.unit_mass(X), device=cuda)
+    I, J = _k8_ids(len(X), B, B + 1, cuda)
+    A, Bh = Xu[I].contiguous(), Xu[J].contiguous()
+    Cd = torch.as_tensor(C, device=cuda)
+    eps = float(np.float32(0.02 * C.max()))
+    n_iter = 200 if n == 64 else 30
+    before = sc.K8.mode_launches["log"]
+    got = w.sinkhorn_batch(A, Bh, Cd, eps, n_iter)
+    torch.cuda.synchronize()
+    assert sc.K8.mode_launches["log"] == before + 1
+    want = w.sinkhorn_batch_plain(A, Bh, Cd, eps, n_iter)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=K8B_RTOL)
+
+
+def test_k8_call_does_not_sync(cuda):
+    """The hybrid's certify dispatch (two K8a launches: 8,192 + 808
+    pairs), the max-min anchors' column and a K8b call queue on the card
+    without a host sync."""
+    from annchor_tpu_torch.ops import sinkhorn_cuda as sc
+    from annchor_tpu_torch.ops import wasserstein as w
+
+    X, C = _k8_problem(64, 1797, 0)
+    eng = w.SinkhornExpEngine(C, device=cuda)
+    IJ = np.random.default_rng(1).integers(0, len(X), size=(9000, 2))
+    want, _ = eng.dispatch(X, X, IJ)  # builds the kernel, uploads the table
+    Xd = eng._table(X)
+    Xu = torch.as_tensor(w.unit_mass(X[:300]), device=cuda)
+    Cd = torch.as_tensor(C, device=cuda)
+    log_want = w.sinkhorn_batch(Xu, Xu.flip(0).contiguous(), Cd, 0.5, 20)
+    I = torch.tensor(7, device=cuda).expand(len(X))  # a blocking copy: outside the check
+    J = torch.arange(len(X), device=cuda)
+    col = w.sinkhorn_exp_chunk(Xd, Xd, I, J, eng._K, eng._KC, 300)
+    torch.cuda.synchronize()
+    before = dict(sc.K8.mode_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, m = eng.dispatch(X, X, IJ)
+        log_got = w.sinkhorn_batch(Xu, Xu.flip(0).contiguous(), Cd, 0.5, 20)
+        col_got = w.sinkhorn_exp_chunk(Xd, Xd, I, J, eng._K, eng._KC, 300)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert m == 9000
+    assert sc.K8.mode_launches == {"exp": before["exp"] + 3, "log": before["log"] + 1}
+    assert torch.equal(got, want) and torch.equal(log_got, log_want) and torch.equal(col_got, col)
