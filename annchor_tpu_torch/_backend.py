@@ -112,12 +112,14 @@ class Kernel:
         self._lib = None
         self._lock = threading.Lock()
 
-    def count(self, mode: str) -> None:
-        self.launches += 1
-        self.mode_launches[mode] += 1
+    def count(self, mode: str, n: int = 1) -> None:
+        """Count ``n`` launches of ``mode`` (a call that launches the
+        kernel's source several times counts each)."""
+        self.launches += n
+        self.mode_launches[mode] += n
         shard = _SHARD.get()
         if shard is not None:
-            self.shard_launches[shard] = self.shard_launches.get(shard, 0) + 1
+            self.shard_launches[shard] = self.shard_launches.get(shard, 0) + n
 
     def reset_counts(self) -> None:
         self.launches = 0

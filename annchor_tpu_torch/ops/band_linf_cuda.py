@@ -6,10 +6,12 @@ package's XLA program ``_band_score`` inside ``_band_bins_sym`` and
 band build's triangle lower bound max_k |Db[i,k] - Dc[j,k]| of a row band
 against a block of columns, fused with the candidate filter (shared
 near-anchor count >= min(eff_i, eff_j), the diagonal or the upper
-triangle, real columns only) and either pass 1's int16 binning ("bins")
-or pass 2's threshold keep ("keep").  Its plain PyTorch versions are
-``locality._band_bins_sym_plain`` and ``locality._band_keep2_plain``;
-the dispatch points ``locality._band_bins_sym`` and
+triangle, real columns only) and either pass 1's per-row histogram of
+the admitted pairs' bins ("hist", which replaces the JAX package's
+(B, C) int16 bins and their bisection) or pass 2's threshold keep
+("keep").  Its plain PyTorch versions are
+``locality._band_hist_sym_plain`` and ``locality._band_keep2_plain``;
+the dispatch points ``locality._band_hist_sym`` and
 ``locality._band_keep2_dense`` launch it for CUDA tensors under the
 "linf" score.  One launch a call on PyTorch's current stream, no host
 sync.
@@ -39,10 +41,10 @@ K9A = Kernel(
     "band_linf",
     "band_linf.cu",
     {
-        "annchor_k9a_bins": _COMMON + [_P, _I, _P, _P],
+        "annchor_k9a_hist": _COMMON + [_P, _I, _P, _P],
         "annchor_k9a_keep": _COMMON + [_P, _P, _P, _P],
     },
-    modes=("bins", "keep"),
+    modes=("hist", "keep"),
 )
 
 _INT_MAX = (1 << 31) - 1
@@ -123,19 +125,18 @@ def _launch(fn, mode, dev, args):
     K9A.check(fn, code)
 
 
-def band_bins(rows, eb, cols, ec, row_off: int, nx: int, inv_bin, nbins: int):
-    """Pass 1: int16 (B, C) bins of the band rows against the columns,
-    ``nbins`` for a pair not admitted (the symmetric view: every column
-    but the row's own).  ``rows``, ``cols``: ``operands`` of each side;
-    eb, ec: their effective thresholds; row_off: the point id of the
-    first row (column j is point j); inv_bin: a 0-d float32 tensor on
-    the card."""
+def band_hist(rows, eb, cols, ec, row_off: int, nx: int, inv_bin, nbins: int):
+    """Pass 1: int32 (B, nbins), row i's count of admitted pairs in each
+    bin of the score (the symmetric view: every column but the row's
+    own).  ``rows``, ``cols``: ``operands`` of each side; eb, ec: their
+    effective thresholds; row_off: the point id of the first row (column
+    j is point j); inv_bin: a 0-d float32 tensor on the card."""
     dev, B, C, args = _args(rows, eb, cols, ec, row_off, nx)
     _check("inv_bin", inv_bin, torch.float32, dev, ())
     if not 0 < nbins < 1 << 15:
-        raise ValueError("nbins %d does not fit int16" % nbins)
-    out = torch.empty((B, C), dtype=torch.int16, device=dev)
-    _launch("annchor_k9a_bins", "bins", dev,
+        raise ValueError("nbins %d does not fit the plain version's int16 bins" % nbins)
+    out = torch.zeros((B, nbins), dtype=torch.int32, device=dev)
+    _launch("annchor_k9a_hist", "hist", dev,
             (*args, inv_bin.data_ptr(), int(nbins), out.data_ptr()))
     return out
 
@@ -143,7 +144,7 @@ def band_bins(rows, eb, cols, ec, row_off: int, nx: int, inv_bin, nbins: int):
 def band_keep(rows, eb, tb, cols, ec, tc, row_off: int, nx: int):
     """Pass 2: bool (B, C), True for an admitted pair above the diagonal
     whose score is at most max(tb[i], tc[j]).  Arguments as
-    ``band_bins``; tb, tc: the rows' and columns' score thresholds."""
+    ``band_hist``; tb, tc: the rows' and columns' score thresholds."""
     dev, B, C, args = _args(rows, eb, cols, ec, row_off, nx)
     _check("tb", tb, torch.float32, dev, (B,))
     _check("tc", tc, torch.float32, dev, (C,))

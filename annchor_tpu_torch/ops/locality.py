@@ -380,28 +380,41 @@ def _band_admitted(Sb, Sc, eb, ec, rows, c0: int, nx: int, upper: bool):
     return (counts >= thr) & off & (cols < nx)[None, :]
 
 
-def _band_bins_sym(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin,
+def _band_hist_sym(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin,
                    nbins: int, cchunk: int, score: str = "linf", cols=None):
-    """int16 (B, nxp) binned ranking scores (``_band_score``) of a row
-    band against every column, symmetric admitted view; the sentinel
-    ``nbins`` marks non-candidates.  ``inv_bin`` is a float32 0-d tensor:
-    the product lb * inv_bin is rounded to float32, then truncated to
-    int32.  Under "linf" on a card this is one launch of K9a
+    """int32 (B, nbins): each band row's count of admitted partners in
+    each bin of the ranking score (``_band_score``), symmetric admitted
+    view.  Under "linf" on a card this is one launch of K9a in hist mode
     (``ops/band_linf_cuda.py``) over every column, whose operands
     ``cols`` (``band_linf_cuda.operands(D32p, Sp)``) the build makes once
-    and must pass; otherwise ``_band_bins_sym_plain``, with the same bits
-    (``cols`` unused)."""
+    and must pass; otherwise ``_band_hist_sym_plain``, with the same
+    counts (``cols`` unused)."""
     if score == "linf" and Db.is_cuda:
-        return band_linf_cuda.band_bins(band_linf_cuda.operands(Db, Sb), eb, cols, effp,
+        return band_linf_cuda.band_hist(band_linf_cuda.operands(Db, Sb), eb, cols, effp,
                                         row_off, nx, inv_bin, nbins)
-    return _band_bins_sym_plain(D32p, Sp, Sb, Db, eb, effp, row_off, nx, inv_bin, nbins,
+    return _band_hist_sym_plain(D32p, Sp, Sb, Db, eb, effp, row_off, nx, inv_bin, nbins,
                                 cchunk, score)
+
+
+def _band_hist_sym_plain(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin,
+                         nbins: int, cchunk: int, score: str = "linf"):
+    """K9a's plain PyTorch version in hist mode: the plain bins
+    (``_band_bins_sym_plain``) counted per row, the sentinel dropped."""
+    BINs = _band_bins_sym_plain(D32p, Sp, Sb, Db, eb, effp, row_off, nx, inv_bin, nbins,
+                                cchunk, score)
+    H = torch.zeros((BINs.shape[0], nbins + 1), dtype=torch.int32, device=BINs.device)
+    H.scatter_add_(1, BINs.long(), torch.ones_like(BINs, dtype=torch.int32))
+    return H[:, :nbins].contiguous()
 
 
 def _band_bins_sym_plain(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin,
                          nbins: int, cchunk: int, score: str = "linf"):
-    """K9a's plain PyTorch version in bins mode (and the rms score's
-    only one): ``_band_bins_sym`` in column chunks of ``cchunk``."""
+    """int16 (B, nxp) binned ranking scores (``_band_score``) of a row
+    band against every column, symmetric admitted view, in column chunks
+    of ``cchunk``; the sentinel ``nbins`` marks non-candidates.
+    ``inv_bin`` is a float32 0-d tensor: the product lb * inv_bin is
+    rounded to float32, then truncated to int32.  The JAX package's
+    ``_band_bins_sym``; pass 1 off the card (the rms score everywhere)."""
     B = Sb.shape[0]
     nxp = Sp.shape[0]
     rows = row_off + torch.arange(B, device=Sb.device)
@@ -433,11 +446,39 @@ def _band_thr_from_bins(BINs, cap: int, bin_w, nbins: int):
     return torch.where(kept >= cap, thr, float("inf"))
 
 
+def _band_thr_from_hist(H, cap: int, bin_w):
+    """``_band_thr_from_bins`` from the per-row histogram of the bins
+    (K9a's hist mode), in one pass: the first bin whose cumulative count
+    reaches ``cap`` is the number of bins whose cumulative count is below
+    it, and the same float32 operations give the same threshold bit for
+    bit; +inf for rows with fewer than ``cap`` candidates."""
+    kept = H.sum(dim=1)
+    first = (H.cumsum(dim=1) < cap).sum(dim=1)
+    thr = (first.to(torch.float32) + 1.0) * bin_w
+    return torch.where(kept >= cap, thr, float("inf"))
+
+
+def _band_thresholds(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin, bin_w,
+                     nbins: int, cap: int, cchunk: int, score: str = "linf", cols=None):
+    """Pass 1 of a row band: each row's score threshold.  Under "linf" on
+    a card the histogram of K9a's hist mode (``_band_hist_sym``) and
+    ``_band_thr_from_hist``, so no (B, nxp) bin matrix is made; otherwise
+    the JAX package's way, the plain bins and their bisection
+    (``_band_thr_from_bins``).  Both give the same bits."""
+    if score == "linf" and Db.is_cuda:
+        H = _band_hist_sym(D32p, Sp, Sb, Db, eb, effp, row_off, nx, inv_bin, nbins, cchunk,
+                           score, cols)
+        return _band_thr_from_hist(H, cap, bin_w)
+    BINs = _band_bins_sym_plain(D32p, Sp, Sb, Db, eb, effp, row_off, nx, inv_bin, nbins,
+                                cchunk, score)
+    return _band_thr_from_bins(BINs, cap, bin_w, nbins)
+
+
 def _band_keep2_dense(D32p, Sp, Sb, Db, eb, effp, thr_all, row_off: int, nx: int,
                       cchunk: int, score: str = "linf", cols=None):
     """Pass-2 keep mask of a row band: upper-triangular admitted pairs
     whose score is under either endpoint's threshold.  Under "linf" on a
-    card one launch of K9a (``cols`` as in ``_band_bins_sym``); otherwise
+    card one launch of K9a (``cols`` as in ``_band_hist_sym``); otherwise
     ``_band_keep2_plain``.  Returns (keep (B, nxp) bool, rowcnt (B,),
     colcnt (nxp,))."""
     B = Sb.shape[0]
@@ -522,11 +563,9 @@ def _budgeted_bands_sharded(mesh, D32p, Sp, effp, nx: int, nblk: int, cchunk: in
         for c, r0 in bands(g):
             r1 = r0 + nblk
             with parallel.shard_scope(c):
-                BINs = _band_bins_sym(Ds[c], Ss[c], Ss[c][r0:r1], Ds[c][r0:r1],
-                                      es[c][r0:r1], es[c], r0, nx, invs[c], nbins, cchunk,
-                                      "linf", cols[c])
-            thr_parts.append(_band_thr_from_bins(BINs, per_point_cap, bws[c], nbins))
-            del BINs
+                thr_parts.append(_band_thresholds(
+                    Ds[c], Ss[c], Ss[c][r0:r1], Ds[c][r0:r1], es[c][r0:r1], es[c], r0, nx,
+                    invs[c], bws[c], nbins, per_point_cap, cchunk, "linf", cols[c]))
     thr = parallel.all_gather(thr_parts, devs)
 
     parts_i, parts_j = [], []
@@ -649,10 +688,9 @@ def candidate_pairs_device_budgeted(
     thr = torch.empty(nxp, dtype=torch.float32, device=dev)
     for s in progress(range(0, nxp, nblk), "pair-budget pass 1", verbose):
         Sb, Db, eb = band(s)
-        BINs = _band_bins_sym(D32p, Sp, Sb, Db, eb, effp, s, nx, inv_bin, nbins, cchunk,
-                              score, cols)
-        thr[s : s + nblk] = _band_thr_from_bins(BINs, int(per_point_cap), bin_w, nbins)
-        del BINs
+        thr[s : s + nblk] = _band_thresholds(D32p, Sp, Sb, Db, eb, effp, s, nx, inv_bin,
+                                             bin_w, nbins, int(per_point_cap), cchunk, score,
+                                             cols)
 
     parts_i, parts_j = [], []
     P_cnt = torch.zeros(nxp, dtype=torch.int64, device=dev)

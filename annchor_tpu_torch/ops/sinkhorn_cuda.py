@@ -17,7 +17,10 @@ Each launch goes on PyTorch's current stream; nothing here waits for the
 card or reads a value back from it.  ``exp_plan`` and ``log_plan`` are the
 launch plans, pure functions of the batch and the bin count;
 ``exp_chunk_model`` repeats K8a's arithmetic in torch in the kernel's
-order of summation.
+order of summation.  K8a runs its products on the FP64 tensor cores
+(``mma.sync`` m16n8k8 and m16n8k4), the pairs as the mma's rows: one
+launch a chunk while K stays in shared memory (``RES_MAX_BINS``), one a
+half step beyond.
 """
 
 from __future__ import annotations
@@ -38,10 +41,12 @@ K8 = Kernel(
     "sinkhorn",
     "sinkhorn.cu",
     {
-        # Xn, Zn, I, sI, J, sJ, K, KC, B, n, npad, tx, P, rc, resident,
-        # global_uv, n_iter, tiny, ws, out, stream
-        "annchor_k8a_exp": [_P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _F, _P, _P, _P],
+        # Xn, Zn, I, sI, J, sJ, K, KC, B, n, npad, n_iter, tiny, out, stream
+        "annchor_k8a_resident": [_P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+        # Xn, Zn, I, sI, J, sJ, K, KC, B, n, npad, Bp, bn, n_iter, tiny, ws,
+        # out, stream
+        "annchor_k8a_streamed": [_P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                 _P, _P, _P],
         # A, B, C, m, n, P, G, resident, global_v, eps, inv, n_iter, ws, out,
         # stream
         "annchor_k8b_log": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P],
@@ -51,65 +56,73 @@ K8 = Kernel(
 
 SMS = 132  # streaming multiprocessors of the H100 SXM
 SMEM_MAX = 232_448  # dynamic shared memory a block can have (227 KB)
-# K8a's thread tiles: RC output columns of 2 pairs a thread, and the most
-# threads a block of each may have (the kernel's __launch_bounds__)
-EXP_MAX_THREADS = {2: 512, 4: 256, 8: 256}
-# the plan's tile: RC 2 below this many pairs, 4 from it (the crossover
-# on the H100 at n 64, n_iter 300, tools/time_k8.py: RC 2 2.73 against
-# RC 4 3.21 ms at 4,224 pairs, RC 4 5.06 against 5.18 at 6,144 and 5.10
-# against 5.18 at 8,192; RC 8 is slower at each)
-EXP_MEDIUM_MIN = 6144
+# K8a resident: 16 pairs a block (one m16 tile), a warp per 8 output
+# columns, K, u and v as float64 rows of stride npad + 4 in shared memory;
+# the most bins that fit (of the variants tried on the H100, m16n8k8 with
+# 8 columns a warp led on the digits at every batch; 32 pairs a block, 16
+# columns a warp, m16n8k4 and m16n8k16 were slower)
+RES_PAIRS = 16
+RES_MAX_BINS = 144
+# K8a streamed: a block's tile is 64 pairs by STREAM_COLS[i] columns, the
+# widest that gives every SM a block, else the narrowest
+STREAM_PAIRS = 64
+STREAM_COLS = (64, 32, 16)
+STREAM_MAX_TILES = 65_535  # the grid's second dimension: pair tiles
 LOG_THREADS = 256  # threads a K8b block at most
 _INT_MAX = (1 << 31) - 1
 
 
-def _exp_smem(npad: int, tx: int, P: int, resident: bool, global_uv: bool) -> int:
-    """Bytes of shared memory of a K8a block (csrc/sinkhorn.cu exp_smem):
-    K and K^T as (npad, npad + 2) float64 each when resident, u and v as
-    (npad, P) float64 unless they live in global memory, the cost's
-    partial sums (P, tx) float64."""
-    k = 2 * npad * (npad + 2) if resident else 0
-    uv = 0 if global_uv else 2 * npad * P
-    return 8 * (k + uv + P * tx)
+def _res_smem(npad: int) -> int:
+    """Bytes of shared memory of a resident K8a block (csrc/sinkhorn.cu
+    res_smem): K, u and v as float64 rows of stride npad + 4."""
+    return 8 * (npad + 4) * (npad + 2 * RES_PAIRS)
 
 
-def exp_plan(B: int, n: int, rc: int | None = None) -> dict:
+def exp_plan(B: int, n: int, path: str | None = None, cols: int | None = None) -> dict:
     """K8a's launch for B pairs of n-bin histograms, a pure function of
-    (B, n).  The tile: ``rc`` output columns of 2 pairs a thread, 4 from
-    ``EXP_MEDIUM_MIN`` pairs, else 2 (``rc`` forces the tile to start
-    from, for timing), doubled to at most 8 where a pair's columns would
-    need more threads than a block has; above that (2,048 bins) ``tx``
-    threads a pair take their columns in ``passes``.  ``npad`` = tx rc
-    passes >= n.  Pairs a block ``P``: the largest power of two up to 64
-    that still gives every SM a block, at least 2, halved until the block
-    fits its thread and shared-memory limits.  K is resident in shared
-    memory where it fits (to 112 bins), else read from global memory; u
-    and v leave shared memory for a global workspace where two pairs'
-    do not fit (``global_uv``, above 7,136 bins)."""
+    (B, n); a block's tile is ``P`` pairs by ``cols`` columns.
+    "resident" up to ``RES_MAX_BINS`` bins (one launch, 16 pairs a block
+    by all npad = n rounded up to 16 columns, a warp per 8), else
+    "streamed" (2 n_iter + 4 launches of tiles of 64 pairs by ``cols``
+    columns: the widest of ``STREAM_COLS`` that gives every SM a block,
+    else 16; npad rounded up to 64, the workspace's rows ``Bp`` to 64).
+    ``path`` and ``cols`` force a plan, for the tests and for timing; a
+    resident plan past ``RES_MAX_BINS`` raises, and so does a streamed
+    plan of more than 64 x 65,535 pairs (a chunk of the engine is
+    8,192)."""
     if n < 1 or B < 0:
         raise ValueError("K8a needs n >= 1 bins and B >= 0 pairs, got n %d, B %d" % (n, B))
-    if rc is None:
-        rc = 4 if B >= EXP_MEDIUM_MIN else 2
-    if rc not in EXP_MAX_THREADS:
-        raise ValueError("rc must be one of %s, got %r" % (sorted(EXP_MAX_THREADS), rc))
-    n8 = round_up(n, 8)
-    while rc < 8 and n8 // rc > EXP_MAX_THREADS[rc]:
-        rc *= 2
-    passes = -(-n8 // (rc * EXP_MAX_THREADS[rc]))
-    tx = -(-n8 // (rc * passes))
-    npad = tx * rc * passes
-    global_uv = _exp_smem(npad, tx, 2, False, False) > SMEM_MAX
-    resident = not global_uv and _exp_smem(npad, tx, 2, True, False) <= SMEM_MAX
-    P = 64
-    while P > 2 and -(-B // P) < SMS:
-        P //= 2
-    while P > 2 and (tx * P // 2 > EXP_MAX_THREADS[rc]
-                     or _exp_smem(npad, tx, P, resident, global_uv) > SMEM_MAX):
-        P //= 2
-    return {"B": B, "n": n, "npad": npad, "rc": rc, "tx": tx, "passes": passes, "P": P,
-            "threads": tx * P // 2, "blocks": -(-B // P),
-            "smem": _exp_smem(npad, tx, P, resident, global_uv), "resident": resident,
-            "global_uv": global_uv}
+    if path is None:
+        path = "resident" if n <= RES_MAX_BINS else "streamed"
+    if path == "resident":
+        if n > RES_MAX_BINS:
+            raise ValueError("no resident plan at %d bins (at most %d)" % (n, RES_MAX_BINS))
+        npad = round_up(n, 16)
+        return {"B": B, "n": n, "path": path, "npad": npad, "P": RES_PAIRS, "cols": npad,
+                "threads": 4 * npad, "blocks": -(-B // RES_PAIRS), "smem": _res_smem(npad),
+                "Bp": 0}
+    if path != "streamed":
+        raise ValueError("path must be 'resident' or 'streamed', got %r" % (path,))
+    npad = round_up(n, STREAM_COLS[0])
+    Bp = round_up(max(B, 1), STREAM_PAIRS)
+    if Bp // STREAM_PAIRS > STREAM_MAX_TILES:
+        raise ValueError("K8a's streamed path takes at most %d pairs a call, got %d"
+                         % (STREAM_PAIRS * STREAM_MAX_TILES, B))
+    if cols is None:
+        cols = next((c for c in STREAM_COLS if npad // c * (Bp // STREAM_PAIRS) >= SMS),
+                    STREAM_COLS[-1])
+    if cols not in STREAM_COLS:
+        raise ValueError("cols must be one of %s, got %r" % (STREAM_COLS, cols))
+    return {"B": B, "n": n, "path": path, "npad": npad, "P": STREAM_PAIRS, "cols": cols,
+            "threads": 128, "blocks": npad // cols * (Bp // STREAM_PAIRS), "smem": 40_960,
+            "Bp": Bp}
+
+
+def exp_launches(plan: dict, n_iter: int) -> int:
+    """CUDA launches of one K8a call under ``plan``."""
+    if plan["B"] == 0:
+        return 0
+    return 1 if plan["path"] == "resident" else 2 * int(n_iter) + 4
 
 
 def _log_ldc(n: int) -> int:
@@ -162,27 +175,28 @@ def _check(name, t, dtype, shape=None, dim=None):
         raise ValueError("%s has shape %s, expected %s" % (name, tuple(t.shape), tuple(shape)))
 
 
-def _launch(fn, mode, dev, args):
+def _launch(fn, mode, dev, args, launches=1):
     if dev.type != "cuda":
         raise ValueError("K8 takes tensors on a card, got %s" % dev)
     lib = K8.lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, fn)(*args, stream)
-    K8.count(mode)
+    K8.count(mode, launches)
     K8.check(fn, code)
 
 
 def sinkhorn_exp_cuda(Xn, Zn, I, J, K64, KC64, n_iter: int, tiny: float, _plan=None):
     """K8a: the exp-domain Sinkhorn cost of the pairs (Xn[I[k]], Zn[J[k]]),
-    float32 (B,) on the card, in one launch.
+    float32 (B,) on the card: one launch while K fits shared memory,
+    ``exp_launches`` beyond.
 
     Xn (nX, n), Zn (nZ, n): contiguous float32 histograms; I, J: int64
     (B,) row ids in range, any stride (``expand`` of one id is fine);
     K64, KC64: contiguous (n, n) float64 (K = exp(-C/eps), KC = K * C);
     tiny: the clamp's float32 floor.  ``_plan``, an ``exp_plan`` of these
-    B and n, forces a tile (for timing).  Nothing here waits for the
-    card."""
+    B and n, forces a path (for the tests and timing).  Nothing here waits
+    for the card."""
     _check("Xn", Xn, torch.float32, dim=2)
     n = int(Xn.shape[1])
     _check("Zn", Zn, torch.float32, dim=2)
@@ -209,13 +223,18 @@ def sinkhorn_exp_cuda(Xn, Zn, I, J, K64, KC64, n_iter: int, tiny: float, _plan=N
     out = torch.empty(B, dtype=torch.float32, device=dev)
     if dev.type == "cuda" and B == 0:
         return out
-    ws = (torch.empty(plan["blocks"] * 2 * plan["npad"] * plan["P"], dtype=torch.float64,
-                      device=dev) if plan["global_uv"] else None)
-    _launch("annchor_k8a_exp", "exp", dev,
-            (Xn.data_ptr(), Zn.data_ptr(), I.data_ptr(), I.stride(0), J.data_ptr(),
-             J.stride(0), K64.data_ptr(), KC64.data_ptr(), B, n, plan["npad"], plan["tx"],
-             plan["P"], plan["rc"], int(plan["resident"]), int(plan["global_uv"]), int(n_iter),
-             float(np.float32(tiny)), None if ws is None else ws.data_ptr(), out.data_ptr()))
+    ids = (Xn.data_ptr(), Zn.data_ptr(), I.data_ptr(), I.stride(0), J.data_ptr(),
+           J.stride(0), K64.data_ptr(), KC64.data_ptr(), B, n, plan["npad"])
+    tiny32 = float(np.float32(tiny))
+    if plan["path"] == "resident":
+        _launch("annchor_k8a_resident", "exp", dev, (*ids, int(n_iter), tiny32, out.data_ptr()))
+        return out
+    # u, then v: (Bp, npad) float64 each
+    ws = torch.empty(2 * plan["Bp"] * plan["npad"], dtype=torch.float64, device=dev)
+    _launch("annchor_k8a_streamed", "exp", dev,
+            (*ids, plan["Bp"], plan["cols"], int(n_iter), tiny32, ws.data_ptr(),
+             out.data_ptr()),
+            exp_launches(plan, n_iter))
     return out
 
 
@@ -252,20 +271,19 @@ def sinkhorn_log_cuda(A, B, C, eps: float, n_iter: int):
     return out
 
 
-def exp_chunk_model(Xn, Zn, I, J, K64, KC64, n_iter: int, tiny: float, plan=None):
+def exp_chunk_model(Xn, Zn, I, J, K64, KC64, n_iter: int, tiny: float):
     """K8a's arithmetic in torch, on any device, summed in the kernel's
-    order: each product entry the float64 sum over k = 0..n-1 in order of
-    exact products, rounded once to float32, clamped at ``tiny``, one
-    float32 division; the cost's terms u_c (v KC^T)_c summed per thread of
-    the plan (columns c = tx + TX j, j in order), then over the threads in
-    order.  On a card its values are the kernel's, bit for bit; on the
-    CPU it calibrates the kernel against the plain version.  Slow: n
-    steps a product."""
+    order (on every path): each product entry the float64 sum over
+    k = 0..n-1 in order of exact products (the FP64 tensor cores' chained
+    mma is that FMA chain, tools/probe_dmma.cu), rounded once to float32,
+    clamped at ``tiny``, one float32 division; the cost's terms
+    u_c (v KC^T)_c, each a rounded product, summed over c in order.  On a
+    card its values are the kernel's, bit for bit; on the CPU it
+    calibrates the kernel against the plain version.  Slow: n steps a
+    product."""
     A = Xn.index_select(0, I)
     Bh = Zn.index_select(0, J)
     n = int(Xn.shape[1])
-    if plan is None:
-        plan = exp_plan(int(I.shape[0]), n)
     Kt = K64.t()
     KCt = KC64.t()
 
@@ -286,13 +304,7 @@ def exp_chunk_model(Xn, Zn, I, J, K64, KC64, n_iter: int, tiny: float, plan=None
         v = scale(Bh, u, K64)
     u = scale(A, v, Kt)
     terms = u * product(v, KCt)
-    terms = torch.nn.functional.pad(terms, (0, plan["npad"] - n))
-    nj = plan["npad"] // plan["tx"]
-    terms = terms.reshape(-1, nj, plan["tx"])  # [pair, j, tx]: c = TX j + tx
-    part = torch.zeros(terms.shape[0], plan["tx"], dtype=torch.float64, device=A.device)
-    for j in range(nj):
-        part = part + terms[:, j]
     total = torch.zeros(terms.shape[0], dtype=torch.float64, device=A.device)
-    for x in range(plan["tx"]):
-        total = total + part[:, x]
+    for c in range(n):
+        total = total + terms[:, c]
     return total.to(torch.float32)

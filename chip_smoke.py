@@ -38,21 +38,23 @@ of which exits non-zero when it fails:
    entry, on an E with every entry present and on strings-1600's E at
    both tightens of its fit (every column, a sub-range, and two
    sub-ranges that combine to the whole); K9a, the band build's linf
-   score, in both modes bit for bit at na 5, 32, 48 and 96 over padded
-   bands, zero thresholds, the diagonal, +inf thresholds and a ragged
-   chunk; every K4 and K9a call under ``set_sync_debug_mode("error")``;
-   K8a, the Sinkhorn scout's loop, against its plain version to rtol 2e-6
-   and bit for bit against its torch model, on the digits (with all-zero
+   score, in both modes (pass 1's per-row histogram, pass 2's keep mask)
+   bit for bit at na 5, 32, 48, 96 and 160 over padded bands, zero
+   thresholds, the diagonal, +inf thresholds and a ragged chunk, and the
+   thresholds from each histogram bit for bit the plain bins' bisection;
+   every K4 and K9a call under ``set_sync_debug_mode("error")``; K8a,
+   the Sinkhorn scout's loop, against its plain version to rtol 2e-6 and
+   bit for bit against its torch model, on the digits (with all-zero
    rows, one-bin rows and self pairs) at n_iter 1, 2 and 300 on 1, 256,
-   1,797 (an anchor column) and 8,192 pairs, the column and the chunk in
-   every tile, on random costs at 5 (8,192 pairs in every tile), 100,
-   300 (K from global memory), 2,100 (two column passes) and 7,200 bins
-   (u and v in global memory), and through the engine's dispatch of
-   9,000 pairs (a ragged last chunk); K8b, the log-domain loop, against
-   its plain version to rtol 1e-5 on the digits at n_iter 1, 2 and 200
-   on 1, 256 and 4,096 pairs and on random costs at 5, 100, 300 and
-   14,401 bins (the potentials in global memory); every K8 call under
-   ``set_sync_debug_mode("error")``, one launch each;
+   1,797 (an anchor column) and 8,192 pairs, the column and the chunk
+   also streamed, on random costs at 5 (8,192 pairs, streamed in every
+   tile), 100, 144 (the most bins resident), 145 and 300 (streamed), 784,
+   2,100 and 7,200 bins, and through the engine's dispatch of 9,000
+   pairs (a ragged last chunk); K8b, the log-domain loop, against its
+   plain version to rtol 1e-5 on the digits at n_iter 1, 2 and 200 on 1,
+   256 and 4,096 pairs and on random costs at 5, 100, 300 and 14,401 bins
+   (the potentials in global memory); every K8 call under
+   ``set_sync_debug_mode("error")``, with its plan's launches;
 3. exact graph: ``BruteForce`` on strings-1600 (1,279,200 pairs);
 4. fit: one warm-up fit, then one timed fit with the stage table, which
    must launch K1 and stay within the evaluation budget; then the same
@@ -76,10 +78,11 @@ of which exits non-zero when it fails:
    the steps the data needs: K4's present entries, K9a's admitted pairs;
    the dense bound beside it), the plain version's ms, and for K9a the
    rms score's and ``torch.cdist(p=inf)``'s ms; then K8a on an 8,192-pair
-   digits chunk and a 1,797-pair anchor column at n_iter 300 (the plan's
-   tile and each tile forced) and K8b on 4,096 pairs at n_iter 200,
-   beside their bounds (the FP64 peak, and the DFMA units' rate beside
-   it; expf) and plain versions;
+   digits chunk and a 1,797-pair anchor column at n_iter 300 (resident,
+   and streamed forced) and at large n (300 and 784 bins on 8,192 pairs,
+   2,100 and 7,200 on 64) and K8b on 4,096 pairs at n_iter 200, beside
+   their bounds (the FP64 peak; expf), plain versions and, for K8a, the
+   plain version's float64 ``torch.mm`` alone;
 6. vector metrics: the euclidean, sqeuclidean and cosine engine on the
    card against a float64 oracle, the blobs contract (0 errors) and a
    euclidean fit on 4,096 x 64 blobs, held to the JAX package's evals and
@@ -357,12 +360,15 @@ HBM_BYTES_PER_S = 3.35e12
 FMNMX_PER_S = 132 * 64 * 1.98e9
 # K8's bounds (csrc/sinkhorn.cu): K8a's (2 n_iter + 2) n^2 FP64 FMA a pair
 # at the card's FP64 peak, its tensor cores' 128 FMA a clock per SM (67
-# TFLOP/s); beside it, at the 64 DFMA lanes a clock per SM that K8a uses;
-# K8b's (2 n_iter + 1) n^2 expf a pair, one MUFU.EX2 each at 16 a clock
-# per SM; H100 SXM, 132 SMs at 1.98 GHz
+# TFLOP/s), which K8a's mma.sync runs on; K8b's (2 n_iter + 1) n^2 expf a
+# pair, one MUFU.EX2 each at 16 a clock per SM; H100 SXM, 132 SMs at 1.98
+# GHz
 FP64_FMA_PER_S = 132 * 128 * 1.98e9
-DFMA_PER_S = 132 * 64 * 1.98e9
 EXPF_PER_S = 132 * 16 * 1.98e9
+# K8a's large-n shapes timed in phase 5 (bins, pairs, n_iter): random
+# histograms of 300 and 784 bins (28 x 28 images) in chunks of 8,192, and
+# 64 pairs at 2,100 and 7,200 bins
+K8A_LARGE = ((300, 8192, 20), (784, 8192, 20), (2100, 64, 2), (7200, 64, 2))
 # K8 against its plain versions: K8a rounds each float64 sum once to
 # float32 as the plain version does, but sums in another order than
 # cuBLAS (tests/test_torch_sinkhorn.py).  K8b sums its float32 terms in
@@ -476,11 +482,11 @@ def _ptxas(kernel):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             kind = re.search(r"(k10?_thread|k10?_group|k10?_long|k4_tropical|k9a_band|"
-                             r"k8a_exp|k8b_log)", m.group(1))
+                             r"k8a_resident|k8a_step|k8a_ones|k8a_sum|k8b_log)", m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = "%s%s" % (kind.group(1) if kind else "?",
                              "<%s>" % ",".join(args) if args else "")
-            name = name.replace("k9a_band<1>", "k9a_band<bins>").replace(
+            name = name.replace("k9a_band<1>", "k9a_band<hist>").replace(
                 "k9a_band<0>", "k9a_band<keep>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -848,24 +854,29 @@ def _k9a_problem(torch, np, na, nx=5000, nxp=6144, seed=0):
 
 
 def _check_k9a(torch, np):
-    """K9a against its plain versions (``_band_bins_sym_plain``,
+    """K9a against its plain versions (``_band_hist_sym_plain``,
     ``_band_keep2_plain``) on CUDA tensors, bit for bit, each dispatch
     under ``torch.cuda.set_sync_debug_mode("error")``: 5,000 points padded
     to 6,144 in bands of 2,048 (padding rows and columns), 10 % of the rows
     at effective threshold 0, pass-2 thresholds with 0 and +inf, every band
-    in both modes at na 5, 32, 48 and 96, and the last band against 5,001
-    columns (a ragged chunk: not a multiple of the tile or of 4).  Returns
-    (calls compared, max |K9a - plain|, launches per mode)."""
+    in both modes at na 5, 32, 48, 96 and 160 (5 words of bits a point,
+    past the 4 held in registers), and the last band against 5,001
+    columns (a ragged chunk: not a multiple of the tile or of 4); the
+    thresholds from each histogram (``_band_thr_from_hist``) bit for bit
+    the plain bins' bisection (``_band_thr_from_bins``) at caps 1, 15 and
+    200.  Returns (calls compared, max |K9a - plain|, launches per
+    mode)."""
     from annchor_tpu_torch.ops import band_linf_cuda, locality
     from annchor_tpu_torch.ops.band_linf_cuda import K9A
 
     before = dict(K9A.mode_launches)
     calls = worst = 0
-    for na in (5, 32, 48, 96):
+    for na in (5, 32, 48, 96, 160):
         P = _k9a_problem(torch, np, na)
         D32p, Sp, effp, inv, thr = P["D32p"], P["Sp"], P["effp"], P["inv_bin"], P["thr"]
+        bin_w = 1.0 / inv
         nxp = D32p.shape[0]
-        kept = binned = 0
+        kept = counted = 0
         for cols, r0s in ((nxp, range(0, nxp, 2048)), (5001, [4096])):
             ops = band_linf_cuda.operands(D32p[:cols], Sp[:cols])
             for r0 in r0s:
@@ -874,27 +885,32 @@ def _check_k9a(torch, np):
                 torch.cuda.synchronize()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    bins = locality._band_bins_sym(*args, r0, P["nx"], inv, 256, 2048,
+                    hist = locality._band_hist_sym(*args, r0, P["nx"], inv, 256, 2048,
                                                    cols=ops)
                     keep = locality._band_keep2_dense(*args, thr, r0, P["nx"], 2048,
                                                       cols=ops)[0]
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
-                want_b = locality._band_bins_sym_plain(*args, r0, P["nx"], inv, 256, cols)
+                want_h = locality._band_hist_sym_plain(*args, r0, P["nx"], inv, 256, cols)
                 want_k = locality._band_keep2_plain(*args, thr, r0, P["nx"], cols)
-                err = max(_bit_err(torch, bins, want_b), _bit_err(torch, keep, want_k))
+                bins = locality._band_bins_sym_plain(*args, r0, P["nx"], inv, 256, cols)
+                thr_equal = all(torch.equal(
+                    locality._band_thr_from_hist(hist, cap, bin_w),
+                    locality._band_thr_from_bins(bins, cap, bin_w, 256)) for cap in (1, 15, 200))
+                err = max(_bit_err(torch, hist, want_h), _bit_err(torch, keep, want_k))
                 worst = max(worst, err)
                 calls += 2
-                if not (torch.equal(bins, want_b) and torch.equal(keep, want_k)):
+                if not (torch.equal(hist, want_h) and torch.equal(keep, want_k) and thr_equal):
                     raise SystemExit("K9a disagrees with its plain version: na %d, rows "
-                                     "%d.., %d columns (max|diff| %g)" % (na, r0, cols, err))
-                binned += int((bins < 256).sum())
+                                     "%d.., %d columns (max|diff| %g, thresholds equal %s)"
+                                     % (na, r0, cols, err, thr_equal))
+                counted += int(hist.sum())
                 kept += int(keep.sum())
         print("  K9a vs plain na %2d: 3 bands of 2,048 x 6,144 and one of 2,048 x 5,001, "
-              "bins and keep, no sync: bit-equal (%d pairs binned, %d kept)"
-              % (na, binned, kept), flush=True)
+              "hist and keep, no sync: bit-equal, thresholds bit-equal to the bisection "
+              "(%d pairs counted, %d kept)" % (na, counted, kept), flush=True)
     launches = {m: K9A.mode_launches[m] - before[m] for m in before}
-    if launches != {"bins": calls // 2, "keep": calls // 2}:
+    if launches != {"hist": calls // 2, "keep": calls // 2}:
         raise SystemExit("K9a launched %s for %d calls" % (launches, calls))
     return calls, worst, launches
 
@@ -902,44 +918,49 @@ def _check_k9a(torch, np):
 @contextlib.contextmanager
 def _capture_bands():
     """Within the block, record the operands of the single-device budgeted
-    band build as it hands them to ``locality._band_bins_sym`` and
+    band build as it hands them to ``locality._band_thresholds`` and
     ``_band_keep2_dense`` (the first build only): the padded D32p, Sp and
-    effp, nx, inv_bin, nbins, the band height and column chunk, and pass
-    2's thresholds.  They are references, not copies: the build writes
-    none of them after pass 1."""
+    effp, nx, inv_bin, bin_w, nbins, the cap, the band height and column
+    chunk, and pass 2's thresholds.  They are references, not copies: the
+    build writes none of them after pass 1."""
     from annchor_tpu_torch.ops import locality
 
     seen = {}
-    real_bins, real_keep = locality._band_bins_sym, locality._band_keep2_dense
+    real_thr, real_keep = locality._band_thresholds, locality._band_keep2_dense
 
-    def bins(*a, **kw):
+    def thresholds(*a, **kw):
         if "D32p" not in seen:
             seen.update(D32p=a[0], Sp=a[1], nblk=a[2].shape[0], effp=a[5], nx=a[7],
-                        inv_bin=a[8], nbins=a[9], cchunk=a[10])
-        return real_bins(*a, **kw)
+                        inv_bin=a[8], bin_w=a[9], nbins=a[10], cap=a[11], cchunk=a[12])
+        return real_thr(*a, **kw)
 
     def keep(*a, **kw):
         seen.setdefault("thr", a[6])
         return real_keep(*a, **kw)
 
-    locality._band_bins_sym, locality._band_keep2_dense = bins, keep
+    locality._band_thresholds, locality._band_keep2_dense = thresholds, keep
     try:
         yield seen
     finally:
-        locality._band_bins_sym, locality._band_keep2_dense = real_bins, real_keep
+        locality._band_thresholds, locality._band_keep2_dense = real_thr, real_keep
 
 
 def _check_k9a_bands(torch, np, cap):
     """K9a on bands the 100k build launched (``cap``, from
     ``_capture_bands``): its first and last band, 4,096 rows against all
-    102,400 columns, through the dispatch points ``_band_bins_sym`` and
+    102,400 columns, through the dispatch points ``_band_hist_sym`` and
     ``_band_keep2_dense`` under ``torch.cuda.set_sync_debug_mode("error")``,
-    held bit for bit to ``_band_bins_sym_plain`` and ``_band_keep2_plain``.
-    Then the wrapper (``band_linf_cuda.band_bins``, ``band_keep``) timed
+    held bit for bit to ``_band_hist_sym_plain`` and ``_band_keep2_plain``,
+    and the band's thresholds (``_band_thresholds``: the histogram, then
+    ``_band_thr_from_hist``) bit for bit to the plain bins' bisection
+    (``_band_thr_from_bins``, the JAX package's way) at the build's cap.
+    Then the wrapper (``band_linf_cuda.band_hist``, ``band_keep``) timed
     in each mode on both bands by CUDA events beside its bound
     (``_k9a_bound``: the steps of the pairs the pass admits), with the
-    plain version's ms and ``torch.cdist(Db, D32p, p=inf)``'s.  Returns
-    the rows; the first band's are the kernels line's K9a figures."""
+    plain version's ms and ``torch.cdist(Db, D32p, p=inf)``'s, and pass
+    1's whole threshold on the card (``thr_ms``) beside the plain bins and
+    their bisection (``thr_plain_ms``).  Returns the rows; the first
+    band's are the kernels line's K9a figures."""
     from annchor_tpu_torch.ops import band_linf_cuda, locality
 
     if not {"D32p", "thr"} <= set(cap):
@@ -947,28 +968,38 @@ def _check_k9a_bands(torch, np, cap):
     D32p, Sp, effp, thr = cap["D32p"], cap["Sp"], cap["effp"], cap["thr"]
     nx, nblk, cchunk, nbins, inv = cap["nx"], cap["nblk"], cap["cchunk"], cap["nbins"], \
         cap["inv_bin"]
+    bin_w, per_point = cap["bin_w"], cap["cap"]
     nxp, na = D32p.shape
     cols = band_linf_cuda.operands(D32p, Sp)
     rows = {}
     for name, r0 in (("first", 0), ("last", nxp - nblk)):
         args = (D32p, Sp, Sp[r0 : r0 + nblk], D32p[r0 : r0 + nblk], effp[r0 : r0 + nblk], effp)
         kernels = {
-            "bins": lambda: locality._band_bins_sym(*args, r0, nx, inv, nbins, cchunk, "linf",
+            "hist": lambda: locality._band_hist_sym(*args, r0, nx, inv, nbins, cchunk, "linf",
                                                     cols),
             "keep": lambda: locality._band_keep2_dense(*args, thr, r0, nx, cchunk, "linf",
                                                        cols)[0]}
         plains = {
-            "bins": lambda: locality._band_bins_sym_plain(*args, r0, nx, inv, nbins, cchunk),
+            "hist": lambda: locality._band_hist_sym_plain(*args, r0, nx, inv, nbins, cchunk),
             "keep": lambda: locality._band_keep2_plain(*args, thr, r0, nx, cchunk)}
+        thr_card = lambda: locality._band_thresholds(  # noqa: E731
+            *args, r0, nx, inv, bin_w, nbins, per_point, cchunk, "linf", cols)
+        thr_plain = lambda: locality._band_thr_from_bins(  # noqa: E731
+            locality._band_bins_sym_plain(*args, r0, nx, inv, nbins, cchunk), per_point, bin_w,
+            nbins)
         got = {}
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             for mode, fn in kernels.items():
                 got[mode] = fn()
+            got_thr = thr_card()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        binned = got["bins"] < nbins
+        if not torch.equal(got_thr, thr_plain()):
+            raise SystemExit("K9a's thresholds from the histogram differ from the bisection "
+                             "of the plain bins on the 100k build's %s band" % name)
+        binned = locality._band_bins_sym_plain(*args, r0, nx, inv, nbins, cchunk) < nbins
         # the share of K9a's 64 x 64 tiles that hold an admitted pair
         tiles = torch.nn.functional.pad(binned.to(torch.uint8), (0, -nxp % 64, 0, -nblk % 64))
         occupied = float(tiles.view(-(-nblk // 64), 64, -1, 64).amax(dim=3).amax(dim=1)
@@ -976,7 +1007,7 @@ def _check_k9a_bands(torch, np, cap):
         # the wrapper alone, as the dispatch calls it
         band = band_linf_cuda.operands(args[3], args[2])
         wrappers = {
-            "bins": lambda: band_linf_cuda.band_bins(band, args[4], cols, effp, r0, nx, inv,
+            "hist": lambda: band_linf_cuda.band_hist(band, args[4], cols, effp, r0, nx, inv,
                                                      nbins),
             "keep": lambda: band_linf_cuda.band_keep(band, args[4], thr[r0 : r0 + nblk], cols,
                                                      effp, thr, r0, nx)}
@@ -990,19 +1021,23 @@ def _check_k9a_bands(torch, np, cap):
             rows["K9a %s %s" % (mode, name)] = {
                 "shape": [nblk, nxp, na], "row_off": r0, "max_abs_err": err,
                 "ms": _time(torch, fn, 10), "plain_ms": _time(torch, plains[mode], 1),
-                **_k9a_bound(torch, np, binned, na, r0, nx, mode), "library_ms": library_ms,
-                "tiles_admitting": occupied}
+                **_k9a_bound(torch, np, binned, na, r0, nx, mode, nbins),
+                "library_ms": library_ms, "tiles_admitting": occupied}
             del want
+        rows["K9a hist %s" % name].update(thr_ms=_time(torch, thr_card, 10),
+                                          thr_plain_ms=_time(torch, thr_plain, 1))
         del got, binned
     print("  K9a on the 100k build's first and last band (rows %d.. and %d.., %d columns, "
-          "na %d), bins and keep, no sync: bit-equal to the plain versions" % (
-              0, nxp - nblk, nxp, na), flush=True)
+          "na %d), hist and keep, no sync: bit-equal to the plain versions, thresholds "
+          "bit-equal to the bisection" % (0, nxp - nblk, nxp, na), flush=True)
     _print_rows(rows)
     for key, row in rows.items():
         print("    %s: %d pairs admitted of %d the masks leave; %.1f %% of the band's "
-              "64 x 64 tiles hold a pair pass 1 admits" % (
+              "64 x 64 tiles hold a pair pass 1 admits%s" % (
                   key, row["pairs_admitted"], row["pairs_dense"],
-                  100 * row["tiles_admitting"]), flush=True)
+                  100 * row["tiles_admitting"], "; pass 1's thresholds %.4f ms (plain bins "
+                  "and bisection %.3f ms)" % (row["thr_ms"], row["thr_plain_ms"])
+                  if "thr_ms" in row else ""), flush=True)
     return rows
 
 
@@ -1055,14 +1090,14 @@ def _k4_k9a_timing(torch, np, E1600=None):
     # rows and columns numbered from 0, as the plain loop numbers columns
     side = (Dc, Sc, Sb, Db, eb, ec)
     calls = {
-        "bins": (lambda: band_linf_cuda.band_bins(rows_op, eb, cols_op, ec, 0, C, inv, 256),
-                 lambda: locality._band_bins_sym_plain(*side, 0, C, inv, 256, C)),
+        "hist": (lambda: band_linf_cuda.band_hist(rows_op, eb, cols_op, ec, 0, C, inv, 256),
+                 lambda: locality._band_hist_sym_plain(*side, 0, C, inv, 256, C)),
         "keep": (lambda: band_linf_cuda.band_keep(rows_op, eb, thr, cols_op, ec, thr[:C], 0, C),
                  lambda: locality._band_keep2_plain(*side, thr, 0, C, C)),
     }
     library_ms = _time(torch, lambda: torch.cdist(Db, Dc, p=float("inf")), 20)
     rms_ms = _time(torch, lambda: locality._band_score(Db, Dc, "rms"), 20)
-    binned = calls["bins"][0]() < 256
+    binned = locality._band_bins_sym_plain(*side, 0, C, inv, 256, C) < 256
     for mode, (kernel, plain) in calls.items():
         row = {"shape": [B, C, na], "max_abs_err": _bit_err(torch, kernel(), plain()),
                "ms": _time(torch, kernel, 50), "plain_ms": _time(torch, plain, 5),
@@ -1092,21 +1127,22 @@ def _print_rows(rows):
             raise SystemExit("%s disagrees with its plain version" % name)
 
 
-def _k9a_bound(torch, np, binned, na, row_off, nx, mode):
+def _k9a_bound(torch, np, binned, na, row_off, nx, mode, nbins=256):
     """K9a's bound for one launch of a (B, C) band whose first row is
     point ``row_off``: the larger of its FMNMX, one for each anchor of a
     pair the pass admits (``binned``, pass 1's admitted mask of the same
     band; pass 2 admits its pairs above the diagonal), and its bytes, the
     operands read once (distances, bits, thresholds) and the output
-    written once.  ``bound_ms_dense`` counts instead every pair the pass's
-    masks leave before the shared-anchor filter (every real column but
-    the row's own, or in pass 2 above it): the steps a kernel that scores
-    before it filters must do.  Returns a dict of both, the bound's kind
-    and the pair counts."""
+    written once (hist: B x nbins int32; keep: B x C bool).
+    ``bound_ms_dense`` counts instead every pair the pass's masks leave
+    before the shared-anchor filter (every real column but the row's own,
+    or in pass 2 above it): the steps a kernel that scores before it
+    filters must do.  Returns a dict of both, the bound's kind and the
+    pair counts."""
     B, C = binned.shape
     real = min(C, nx)
     r = row_off + np.arange(B, dtype=np.int64)
-    if mode == "bins":
+    if mode == "hist":
         admitted = int(binned.sum())
         dense = B * real - int(((r >= 0) & (r < real)).sum())
     else:
@@ -1116,7 +1152,7 @@ def _k9a_bound(torch, np, binned, na, row_off, nx, mode):
         dense = int(np.maximum(real - r - 1, 0).sum())
     words = -(-na // 32)
     side = na * 4 + words * 4 + 4 + (4 if mode == "keep" else 0)
-    nbytes = (B + C) * side + B * C * (2 if mode == "bins" else 1)
+    nbytes = (B + C) * side + (B * nbins * 4 if mode == "hist" else B * C)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = admitted * na / FMNMX_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
@@ -1247,38 +1283,37 @@ def _check_k8(torch, np):
     for bit: the digits (with all-zero rows, one-bin rows and self pairs)
     at n_iter 1, 2 and 300 on 1, 256, 1,797 (an anchor column: one id
     expanded with stride 0) and 8,192 pairs, the column and the chunk also
-    in the other tiles; random asymmetric costs at n 5 (8,192 pairs in
-    every tile: the 8-column tile has half as many threads as pairs
-    there), 100, 300 (K read from global memory), 2,100 (two column
-    passes) and 7,200 (u and v in global memory); the engine's dispatch
-    of 9,000 pairs (a ragged last chunk of 808).  K8b against its plain version to
-    ``K8B_RTOL`` on the digits at n_iter 1, 2 and 200 on 1, 256 and 4,096
-    pairs and on random costs at n 5, 100, 300 and 14,401 (the potentials
-    in global memory).  Every kernel call under
-    ``set_sync_debug_mode("error")``, one launch each.  Returns (calls,
-    largest absolute difference, rows)."""
+    on the streamed path; random asymmetric costs at n 5 (8,192 pairs,
+    also streamed in every tile), 100, 144 (the most bins resident), 145
+    and 300 (streamed), 784 (28 x 28 images), 2,100 and 7,200 (K read by
+    column tiles); the engine's dispatch of 9,000 pairs (a ragged last
+    chunk of 808).  K8b against its plain version to ``K8B_RTOL`` on the
+    digits at n_iter 1, 2 and 200 on 1, 256 and 4,096 pairs and on random
+    costs at n 5, 100, 300 and 14,401 (the potentials in global memory).
+    Every kernel call under ``set_sync_debug_mode("error")``, with the
+    plan's launches.  Returns (calls, largest absolute difference,
+    rows)."""
     from annchor_tpu_torch.ops import sinkhorn_cuda as sc
     from annchor_tpu_torch.ops import wasserstein as w
 
     dev = torch.device("cuda")
     rows = []
 
-    def exp_case(label, Xd, I, J, K, KC, n_iter, rc=None):
+    def exp_case(label, Xd, I, J, K, KC, n_iter, force=None):
         before = sc.K8.mode_launches["exp"]
-        plan = sc.exp_plan(int(I.shape[0]), int(Xd.shape[1]), rc)
+        plan = sc.exp_plan(int(I.shape[0]), int(Xd.shape[1]), *(force or ()))
         got = _no_sync(torch, lambda: sc.sinkhorn_exp_cuda(
-            Xd, Xd, I, J, K, KC, n_iter, w.TINY, _plan=plan) if rc is not None else
+            Xd, Xd, I, J, K, KC, n_iter, w.TINY, _plan=plan) if force else
             w.sinkhorn_exp_chunk(Xd, Xd, I, J, K, KC, n_iter))
         launched = sc.K8.mode_launches["exp"] - before
         row = _k8_compare(torch, got, w.sinkhorn_exp_chunk_plain(Xd, Xd, I, J, K, KC, n_iter))
         row.update(kernel="K8a", case=label, n_iter=n_iter, launches=launched,
-                   plan="rc %d P %d %s%s" % (
-                       plan["rc"], plan["P"], "resident" if plan["resident"] else "streamed",
-                       ", uv global" if plan["global_uv"] else ""),
+                   plan="%s %d x %d" % (plan["path"], plan["P"], plan["cols"]),
                    model_equal=bool(torch.equal(got, sc.exp_chunk_model(
-                       Xd, Xd, I, J, K, KC, n_iter, w.TINY, plan=plan))))
-        row["ok"] = (launched == 1 and row["finite"] and row["zeros_equal"]
-                     and row["max_rel"] <= K8A_RTOL and row["model_equal"])
+                       Xd, Xd, I, J, K, KC, n_iter, w.TINY))))
+        row["ok"] = (launched == sc.exp_launches(plan, n_iter) and row["finite"]
+                     and row["zeros_equal"] and row["max_rel"] <= K8A_RTOL
+                     and row["model_equal"])
         rows.append(row)
 
     def log_case(label, A, B, C, eps, n_iter):
@@ -1308,12 +1343,9 @@ def _check_k8(torch, np):
         for n_iter in (1, 2, 300):
             exp_case("digits B %d" % B, Xd, I, J, eng._K, eng._KC, n_iter)
         if B in (1797, 8192):
-            for rc in sc.EXP_MAX_THREADS:
-                if rc != sc.exp_plan(B, 64)["rc"]:
-                    exp_case("digits B %d, rc %d" % (B, rc), Xd, I, J, eng._K, eng._KC, 300,
-                             rc)
-    for n, B in ((5, 256), (5, 8192), (100, 256), (100, 8192), (300, 256), (300, 8192),
-                 (2100, 4), (7200, 5)):
+            exp_case("digits B %d, streamed" % B, Xd, I, J, eng._K, eng._KC, 300, ("streamed",))
+    for n, B in ((5, 256), (5, 8192), (100, 256), (100, 8192), (144, 8192), (145, 256),
+                 (300, 256), (300, 8192), (784, 1000), (2100, 4), (7200, 5)):
         Xr, Cr = _k8_random(np, n, 2000, n)
         er = w.SinkhornExpEngine(Cr, device="cuda")
         IJ = torch.as_tensor(_k8_pairs(np, len(Xr), B, B + n), device=dev)
@@ -1321,10 +1353,9 @@ def _check_k8(torch, np):
         exp_case("random n %d B %d" % (n, B), Xrd, IJ[:, 0], IJ[:, 1], er._K, er._KC,
                  2 if n > 2048 else 20)
         if (n, B) == (5, 8192):
-            for rc in sc.EXP_MAX_THREADS:
-                if rc != sc.exp_plan(B, n)["rc"]:
-                    exp_case("random n %d B %d, rc %d" % (n, B, rc), Xrd, IJ[:, 0], IJ[:, 1],
-                             er._K, er._KC, 20, rc)
+            for cols in sc.STREAM_COLS:
+                exp_case("random n %d B %d, streamed %d" % (n, B, cols), Xrd, IJ[:, 0],
+                         IJ[:, 1], er._K, er._KC, 20, ("streamed", cols))
         del er, Xrd
     # the engine's dispatch: two chunks, the last of 808 pairs
     IJ = _k8_pairs(np, len(X), 9000, 9)
@@ -1373,13 +1404,16 @@ def _check_k8(torch, np):
 
 def _k8_timing(torch, np):
     """Phase 5's K8 rows: K8a on a full 8,192-pair chunk of the digits and
-    on a 1,797-pair anchor column at n_iter 300 (the wrapper's tile, and
-    each tile forced), K8b on a 4,096-pair chunk at n_iter 200: ms by
-    CUDA events beside the bound (K8a's FMA at ``FP64_FMA_PER_S``, K8b's
-    expf at ``EXPF_PER_S``, or the bytes at ``HBM_BYTES_PER_S`` if
-    larger) and its share, K8a's bound at the DFMA units' rate
-    (``bound_ms_dfma``), and the plain version's ms.  No one PyTorch call
-    computes the loop (library none)."""
+    on a 1,797-pair anchor column at n_iter 300 (the resident plan, and
+    the streamed one forced), and at large n (``K8A_LARGE``: 300 and 784
+    bins on 8,192 pairs at n_iter 20, 2,100 and 7,200 on 64 at n_iter 2,
+    random histograms and costs); K8b on a 4,096-pair chunk at n_iter
+    200: ms by CUDA events beside the bound (K8a's FMA at
+    ``FP64_FMA_PER_S``, K8b's expf at ``EXPF_PER_S``, or the bytes at
+    ``HBM_BYTES_PER_S`` if larger) and its share, and the plain version's
+    ms.  No one PyTorch call computes the loop; for K8a ``library_ms`` is
+    the plain version's float64 ``torch.mm`` (cuBLAS) alone, one product
+    of the same shapes timed and counted 2 n_iter + 2 times."""
     from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
     from annchor_tpu_torch.ops import sinkhorn_cuda as sc
     from annchor_tpu_torch.ops import wasserstein as w
@@ -1392,27 +1426,39 @@ def _k8_timing(torch, np):
     n, n_iter = Xd.shape[1], eng.n_iter
     IJ = torch.as_tensor(np.random.default_rng(5).integers(0, len(X), size=(8192, 2)),
                          device=dev)
-    shapes = {"K8a chunk": (IJ[:, 0], IJ[:, 1]),
-              "K8a column": (torch.tensor(1126, device=dev).expand(len(X)),
-                             torch.arange(len(X), device=dev))}
+    shapes = {"K8a chunk": (Xd, IJ[:, 0], IJ[:, 1], eng, n_iter),
+              "K8a column": (Xd, torch.tensor(1126, device=dev).expand(len(X)),
+                             torch.arange(len(X), device=dev), eng, n_iter)}
+    rng = np.random.default_rng(6)
+    for nr, B, it in K8A_LARGE:
+        Xr, Cr = _k8_random(np, nr, 200, nr)
+        er = w.SinkhornExpEngine(Cr, device="cuda")
+        IJr = torch.as_tensor(rng.integers(0, len(Xr), size=(B, 2)), device=dev)
+        shapes["K8a n %d B %d" % (nr, B)] = (er._table(Xr), IJr[:, 0], IJr[:, 1], er, it)
     rows = {}
-    for name, (I, J) in shapes.items():
-        B = int(I.shape[0])
-        args = (Xd, Xd, I, J, eng._K, eng._KC, n_iter)
-        fma = B * (2 * n_iter + 2) * n * n
+    for name, (Xs, I, J, e, it) in shapes.items():
+        B, nb = int(I.shape[0]), int(Xs.shape[1])
+        args = (Xs, Xs, I, J, e._K, e._KC, it)
+        plan = sc.exp_plan(B, nb)
+        fma = B * (2 * it + 2) * nb * nb
         ops_ms = fma / FP64_FMA_PER_S * 1e3
-        bytes_ms = (B * (2 * n * 4 + 2 * 8 + 4) + 2 * n * n * 8) / HBM_BYTES_PER_S * 1e3
+        # two histogram rows, two ids and a cost a pair; K and KC once
+        bytes_ms = (B * (2 * nb * 4 + 2 * 8 + 4) + 2 * nb * nb * 8) / HBM_BYTES_PER_S * 1e3
+        V = torch.rand((B, nb), dtype=torch.float64, device=dev)
         rows[name] = {
-            "pairs": B, "n": n, "n_iter": n_iter, "rc": sc.exp_plan(B, n)["rc"],
-            "ms": _time(torch, lambda: w.sinkhorn_exp_chunk(*args), 10),
+            "pairs": B, "n": nb, "n_iter": it, "plan": "%s %d x %d" % (
+                plan["path"], plan["P"], plan["cols"]),
+            "launches_per_call": sc.exp_launches(plan, it),
+            "ms": _time(torch, lambda: w.sinkhorn_exp_chunk(*args), 10 if B > 64 else 3),
             "plain_ms": _time(torch, lambda: w.sinkhorn_exp_chunk_plain(*args), 2),
-            "tiles_ms": {rc: _time(torch, lambda p=sc.exp_plan(B, n, rc): sc.sinkhorn_exp_cuda(
-                *args, w.TINY, _plan=p), 5) for rc in sc.EXP_MAX_THREADS},
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "bound_ms_dfma": max(fma / DFMA_PER_S * 1e3, bytes_ms),
-            "library_ms": None,
+            "library_ms": (2 * it + 2) * _time(torch, lambda: torch.mm(V, e._K), 5),
             **_k8_compare(torch, w.sinkhorn_exp_chunk(*args), w.sinkhorn_exp_chunk_plain(*args))}
+        if plan["path"] == "resident":
+            rows[name]["streamed_ms"] = _time(torch, lambda p=sc.exp_plan(B, nb, "streamed"):
+                                              sc.sinkhorn_exp_cuda(*args, w.TINY, _plan=p), 3)
+        del V
     leng = w.SinkhornEngine(M, device="cuda")
     Xu = torch.as_tensor(w.unit_mass(X), device=dev)
     A, Bh = Xu[IJ[:4096, 0]].contiguous(), Xu[IJ[:4096, 1]].contiguous()
@@ -1432,16 +1478,14 @@ def _k8_timing(torch, np):
         **_k8_compare(torch, w.sinkhorn_batch(*args), w.sinkhorn_batch_plain(*args))}
     for name, row in rows.items():
         row["bound_share"] = row["bound_ms"] / row["ms"]
-        plan = ("rc %d" % row["rc"]) if "rc" in row else row["plan"]
-        dfma = (", DFMA-unit bound %.4f ms, %.1f %% of it" % (
-            row["bound_ms_dfma"], 100 * row["bound_ms_dfma"] / row["ms"])
-            if "bound_ms_dfma" in row else "")
-        print("  %-10s %5d pairs, n_iter %d, %-8s %9.4f ms | bound %.4f ms (%s), %.1f %% of "
-              "it%s | plain %.3f ms | %s| library: none | max rel %.3g" % (
-                  name, row["pairs"], row["n_iter"], plan, row["ms"], row["bound_ms"],
-                  row["bound_by"], 100 * row["bound_share"], dfma, row["plain_ms"],
-                  "".join("rc %d %.4f ms, " % kv for kv in row["tiles_ms"].items())
-                  if "tiles_ms" in row else "", row["max_rel"]), flush=True)
+        print("  %-18s %5d pairs, n %4d, n_iter %3d, %-19s %9.4f ms | bound %.4f ms (%s), "
+              "%.1f %% of it | plain %.3f ms | %s%s| max rel %.3g" % (
+                  name, row["pairs"], row["n"], row["n_iter"], row["plan"], row["ms"],
+                  row["bound_ms"], row["bound_by"], 100 * row["bound_share"], row["plain_ms"],
+                  "library: none " if row.get("library_ms") is None else
+                  "its float64 torch.mm %.3f ms " % row["library_ms"],
+                  "| streamed forced %.4f ms " % row["streamed_ms"] if "streamed_ms" in row
+                  else "", row["max_rel"]), flush=True)
         tol = K8B_RTOL if name.startswith("K8b") else K8A_RTOL
         if row["max_rel"] > tol or not row["finite"]:
             raise SystemExit("%s disagrees with its plain version" % name)
@@ -1510,7 +1554,7 @@ def _device_profile(torch, fn, scope=None):
     starts, durs, spans, by_name = [], [], [], {}
     # kernel name fragments of the hand-written kernels
     tags = {"k1": "k1_", "k10": "k10_", "k4": "k4_tropical", "k9a": "k9a_band",
-            "k8a": "k8a_exp", "k8b": "k8b_log"}
+            "k8a": "k8a_", "k8b": "k8b_log"}
     own = {tag: [0.0, 0] for tag in tags}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cuda:
@@ -1818,7 +1862,7 @@ def _scale_path(torch, np, att, K1, report, big_X, X, y5, gt5):
           "recall %.4f (n_anchors %d, loc_thresh %d, niters %d, refine_frac %.2f)" % (
               wall, big._ij_dev[2], big.evals, budget, big_launches, big_modes, k9a_big,
               peak / 2**30, id_recall, d_recall, *report["scale100k_knobs"]), flush=True)
-    if not (k9a_big["bins"] and k9a_big["keep"]):
+    if not (k9a_big["hist"] and k9a_big["keep"]):
         raise SystemExit("the 100,000-string fit's band build did not launch K9a in both "
                          "modes: %s" % k9a_big)
     if big._dev is None or not big._dev.sparse or big._IJs is not None:
@@ -2183,7 +2227,7 @@ def _serve(torch, np, att, K1, report, X, ref, scale5k, big, big_X, out_dir):
           flush=True)
     if not (same_graph and same_pairs):
         raise SystemExit("(e) the loaded 100k index differs")
-    if not (load_k9a["bins"] and load_k9a["keep"]):
+    if not (load_k9a["hist"] and load_k9a["keep"]):
         raise SystemExit("(e) the pair rebuild did not launch K9a in both modes")
     rng = np.random.default_rng(11)
     src = rng.choice(len(big_X), 500, replace=False)
@@ -3083,7 +3127,7 @@ def main() -> int:
         json.dump(report, fh, indent=1)
     # K9a's figures: the 100k build's first band (phase 9(b))
     k9a_band = report["k9a_bands"]
-    k9a_bins, k9a_keep = k9a_band["K9a bins first"], k9a_band["K9a keep first"]
+    k9a_hist, k9a_keep = k9a_band["K9a hist first"], k9a_band["K9a keep first"]
     print(json.dumps({"kernels": [{
         "name": "levenshtein_myers (K1)",
         "route": "cuda",
@@ -3147,7 +3191,7 @@ def main() -> int:
         "source": "annchor_tpu_torch/csrc/band_linf.cu",
         "replaces": "annchor_tpu/ops/locality.py:550",
         "launches": sum(k9a_main.values()),
-        "launches_bins": k9a_main["bins"],
+        "launches_hist": k9a_main["hist"],
         "launches_keep": k9a_main["keep"],
         "launches_scale5k": sum(report["scale5k_k9a_modes"].values()),
         "launches_load": sum(report["serve"]["e"]["load_k9a_modes"].values()),
@@ -3156,13 +3200,16 @@ def main() -> int:
         "max_abs_err": max([k9a_err] + [r["max_abs_err"] for k, r in timing.items()
                                         if k.startswith("K9a")]
                            + [r["max_abs_err"] for r in k9a_band.values()]),
-        "shape": k9a_bins["shape"],
-        "ms": k9a_bins["ms"],
-        "plain_ms": k9a_bins["plain_ms"],
-        "bound_ms": k9a_bins["bound_ms"],
-        "bound_by": k9a_bins["bound_by"],
-        "bound_ms_dense": k9a_bins["bound_ms_dense"],
-        "library_ms": k9a_bins["library_ms"],
+        "shape": k9a_hist["shape"],
+        "ms": k9a_hist["ms"],
+        "plain_ms": k9a_hist["plain_ms"],
+        "bound_ms": k9a_hist["bound_ms"],
+        "bound_by": k9a_hist["bound_by"],
+        "bound_ms_dense": k9a_hist["bound_ms_dense"],
+        "library_ms": k9a_hist["library_ms"],
+        "thr_ms": k9a_hist["thr_ms"],
+        "thr_plain_ms": k9a_hist["thr_plain_ms"],
+        "ms_last": k9a_band["K9a hist last"]["ms"],
         "ms_keep": k9a_keep["ms"],
         "plain_ms_keep": k9a_keep["plain_ms"],
         "bound_ms_keep": k9a_keep["bound_ms"],
@@ -3179,20 +3226,25 @@ def main() -> int:
         "launches_check": k8_check_launches["exp"],
         "max_abs_err": max([r["max_abs_err"] for r in report["k8_check"]
                             if r["kernel"] == "K8a"]
-                           + [k8_timing[k]["max_abs_err"] for k in ("K8a chunk", "K8a column")]),
+                           + [r["max_abs_err"] for k, r in k8_timing.items()
+                              if k.startswith("K8a")]),
         "max_rel_err": max([r["max_rel"] for r in report["k8_check"] if r["kernel"] == "K8a"]
-                           + [k8_timing[k]["max_rel"] for k in ("K8a chunk", "K8a column")]),
+                           + [r["max_rel"] for k, r in k8_timing.items()
+                              if k.startswith("K8a")]),
         "shape": [k8_timing["K8a chunk"]["pairs"], 64, k8_timing["K8a chunk"]["n_iter"]],
         "ms": k8_timing["K8a chunk"]["ms"],
         "plain_ms": k8_timing["K8a chunk"]["plain_ms"],
         "bound_ms": k8_timing["K8a chunk"]["bound_ms"],
         "bound_by": k8_timing["K8a chunk"]["bound_by"],
-        "bound_ms_dfma": k8_timing["K8a chunk"]["bound_ms_dfma"],
-        "library_ms": None,
+        "library_ms": k8_timing["K8a chunk"]["library_ms"],
+        "library_call": "torch.mm float64 (cuBLAS), 2 n_iter + 2 products",
         "ms_column": k8_timing["K8a column"]["ms"],
         "plain_ms_column": k8_timing["K8a column"]["plain_ms"],
         "bound_ms_column": k8_timing["K8a column"]["bound_ms"],
-        "bound_ms_dfma_column": k8_timing["K8a column"]["bound_ms_dfma"],
+        "library_ms_column": k8_timing["K8a column"]["library_ms"],
+        "large_n": {k: {f: r[f] for f in ("n", "pairs", "n_iter", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}
+                    for k, r in k8_timing.items() if k.startswith("K8a n ")},
     }, {
         "name": "sinkhorn_log (K8b)",
         "route": "cuda",

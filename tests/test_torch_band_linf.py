@@ -1,11 +1,14 @@
 """K9a, the band build's linf score fused with its filter and epilogue,
-on the CPU: the plain versions that CPU tensors take (``_band_bins_sym``
-and ``_band_keep2_dense`` under "linf") held bit for bit against the JAX
-package's programs of the same names; the packed near-anchor bits
-against ``shared_anchor_counts``; a numpy model of the kernel's own
-arithmetic (popcount admission, one rounded product truncated, the
-threshold compare) against the JAX package; the dispatch and the
-wrapper's checks.  The kernel itself runs on the card:
+on the CPU: the plain versions that CPU tensors take (the bins of
+``_band_bins_sym_plain``, their per-row histogram ``_band_hist_sym`` and
+``_band_keep2_dense`` under "linf") held bit for bit against the JAX
+package's ``_band_bins_sym`` and ``_band_keep2_dense``; the thresholds
+from the histogram (``_band_thr_from_hist``, the card's pass 1) against
+the bisection of the bins (``_band_thr_from_bins``) of both packages;
+the packed near-anchor bits against ``shared_anchor_counts``; a numpy
+model of the kernel's own arithmetic (popcount admission, one rounded
+product truncated, the histogram, the threshold compare) against the JAX
+package; the dispatch and the wrapper's checks.  The kernel itself runs on the card:
 ``tests/test_torch_cuda.py`` (``test_k9a_*``) and ``chip_smoke.py``
 phase 2.
 
@@ -63,11 +66,24 @@ def _band(P, r0):
     return P["Sp"][r0:r1], P["D32p"][r0:r1], P["effp"][r0:r1]
 
 
-def _torch_bins(P, r0):
+def _torch_args(P, r0):
     Sb, Db, eb = _band(P, r0)
     t = torch.as_tensor
-    return tloc._band_bins_sym(t(P["D32p"]), t(P["Sp"]), t(Sb), t(Db), t(eb), t(P["effp"]),
-                               r0, P["nx"], t(P["inv_bin"]), NBINS, BLOCK).numpy()
+    return (t(P["D32p"]), t(P["Sp"]), t(Sb), t(Db), t(eb), t(P["effp"]), r0, P["nx"],
+            t(P["inv_bin"]), NBINS, BLOCK)
+
+
+def _torch_bins(P, r0):
+    return tloc._band_bins_sym_plain(*_torch_args(P, r0)).numpy()
+
+
+def _torch_hist(P, r0):
+    return tloc._band_hist_sym(*_torch_args(P, r0)).numpy()
+
+
+def _bincount_rows(bins):
+    """int32 (B, NBINS): per-row counts of the bins below the sentinel."""
+    return np.stack([np.bincount(r[r < NBINS], minlength=NBINS) for r in bins]).astype(np.int32)
 
 
 def _jax_bins(P, r0):
@@ -127,6 +143,87 @@ def test_band_passes_bit_equal_to_jax(na, zero_thr, pad):
     assert K9A.launches == before  # CPU tensors take the plain versions
 
 
+@pytest.mark.parametrize("na,zero_thr,pad", CASES, ids=IDS)
+def test_band_hist_is_bincount_of_jax_bins(na, zero_thr, pad):
+    """The hist mode's plain version (what a CPU tensor takes, and what
+    the card's kernel is held to) is the per-row bincount of the JAX
+    package's bins, on every band."""
+    P = _problem(na, zero_thr, pad, seed=na)
+    before = K9A.launches
+    for r0 in range(0, P["nxp"], BLOCK):
+        want = _jax_bins(P, r0)
+        if P["nx"] < P["nxp"] and (P["effp"][: P["nx"]] == 0).any():
+            want = want.copy()
+            want[:, P["nx"]:] = NBINS  # F6: the port masks the padding columns
+        got = _torch_hist(P, r0)
+        assert got.dtype == np.int32 and got.shape == (BLOCK, NBINS)
+        np.testing.assert_array_equal(got, _bincount_rows(want))
+    assert K9A.launches == before
+
+
+def _random_bins(rng, B, nbins, kind):
+    """Seeded int16 (B, 1,000) bins with the sentinel: random, every pair
+    in one bin, everything in the top bin, or rows with few candidates."""
+    if kind == "random":
+        bins = rng.integers(0, nbins + 1, (B, 1000))
+    elif kind == "one-bin":
+        bins = np.where(rng.random((B, 1000)) < 0.5, rng.integers(0, nbins, (B, 1)), nbins)
+    elif kind == "top":
+        bins = np.where(rng.random((B, 1000)) < 0.7, nbins - 1, nbins)
+    else:  # sparse: rows of 0-12 candidates, many below any cap
+        bins = np.full((B, 1000), nbins)
+        for r in range(B):
+            k = int(rng.integers(0, 13))
+            bins[r, rng.choice(1000, k, replace=False)] = rng.integers(0, nbins, k)
+    return bins.astype(np.int16)
+
+
+@pytest.mark.parametrize("nbins", [256, 8192])
+@pytest.mark.parametrize("kind", ["random", "one-bin", "top", "sparse"])
+def test_thr_from_hist_equals_bisection(nbins, kind):
+    """``_band_thr_from_hist`` on the per-row histogram of seeded bins,
+    bit for bit the port's and the JAX package's bisection of the bins:
+    caps 1, 5, 10 and 500, rows below the cap (+inf), every candidate in
+    one bin, the top bin."""
+    rng = np.random.default_rng(nbins + len(kind))
+    bins = _random_bins(rng, 64, nbins, kind)
+    H = torch.as_tensor(np.stack([np.bincount(r[r < nbins], minlength=nbins) for r in bins])
+                        .astype(np.int32))
+    bin_w = np.float32(0.37)
+    for cap in (1, 5, 10, 500):
+        got = tloc._band_thr_from_hist(H, cap, torch.tensor(bin_w)).numpy()
+        port = tloc._band_thr_from_bins(torch.as_tensor(bins), cap, torch.tensor(bin_w),
+                                        nbins).numpy()
+        jax = np.asarray(jloc._band_thr_from_bins(jnp.asarray(bins), cap, jnp.float32(bin_w),
+                                                  nbins))
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, port)
+        np.testing.assert_array_equal(got, jax)
+        if kind == "sparse":
+            assert np.isinf(got).any() and np.isfinite(got).any() == (cap <= 12)
+        if kind == "top" and cap <= 500:
+            np.testing.assert_array_equal(got, np.float32(nbins) * bin_w)
+
+
+@pytest.mark.parametrize("na", [5, 96])
+def test_band_thresholds_dispatch_equals_jax(na):
+    """``_band_thresholds``, pass 1 of the build, on CPU tensors (the
+    plain bins and their bisection) equals the JAX package's thresholds
+    of the same band, and equals the thresholds from the histogram."""
+    P = _problem(na, False, True, seed=na + 3)
+    bin_w = np.float32(1.0) / P["inv_bin"]
+    for r0 in range(0, P["nxp"], BLOCK):
+        args = _torch_args(P, r0)
+        for cap in (1, 4, 30):
+            got = tloc._band_thresholds(*args[:9], torch.tensor(bin_w), NBINS, cap, BLOCK)
+            H = tloc._band_hist_sym(*args)
+            np.testing.assert_array_equal(
+                got.numpy(), tloc._band_thr_from_hist(H, cap, torch.tensor(bin_w)).numpy())
+            jax = np.asarray(jloc._band_thr_from_bins(jnp.asarray(_jax_bins(P, r0)), cap,
+                                                      jnp.float32(bin_w), NBINS))
+            np.testing.assert_array_equal(got.numpy(), jax)
+
+
 @pytest.mark.parametrize("na", [1, 5, 32, 33, 48, 96])
 def test_packed_bits_count_shared_anchors(na):
     D = np.random.default_rng(na).random((257, na))
@@ -152,10 +249,11 @@ def _kernel_model(P, r0, mode):
     cols = np.arange(P["nxp"])[None, :]
     adm = (shared.astype(np.float32) >= np.minimum(eb[:, None], P["effp"][None, :])) & (
         cols < P["nx"])
-    if mode == "bins":
+    if mode in ("bins", "hist"):
         adm &= cols != rows
         b = np.clip(np.trunc(score * P["inv_bin"]).astype(np.int32), 0, NBINS - 1)
-        return np.where(adm, b, NBINS).astype(np.int16)
+        bins = np.where(adm, b, NBINS).astype(np.int16)
+        return bins if mode == "bins" else _bincount_rows(bins)
     adm &= cols > rows
     thr = P["thr"]
     return adm & (score <= np.maximum(thr[r0 : r0 + Db.shape[0], None], thr[None, :]))
@@ -167,6 +265,9 @@ def test_kernel_arithmetic_model_equals_jax(na):
     for r0 in range(0, P["nxp"], BLOCK):
         for mode, jax_fn in (("bins", _jax_bins), ("keep", _jax_keep)):
             _assert_as_jax(_kernel_model(P, r0, mode), jax_fn(P, r0), P, mode)
+        want = _jax_bins(P, r0).copy()
+        want[:, P["nx"]:] = NBINS  # F6: the port masks the padding columns
+        np.testing.assert_array_equal(_kernel_model(P, r0, "hist"), _bincount_rows(want))
 
 
 def test_wrapper_refuses_before_building():
@@ -181,13 +282,15 @@ def test_wrapper_refuses_before_building():
     inv = torch.tensor(1.0)
     before = K9A.launches
     with pytest.raises(ValueError, match="on a card"):
-        band_linf_cuda.band_bins(rows, e, cols, e, 0, 64, inv, NBINS)
+        band_linf_cuda.band_hist(rows, e, cols, e, 0, 64, inv, NBINS)
     with pytest.raises(ValueError, match="float32"):
-        band_linf_cuda.band_bins(rows, e.double(), cols, e, 0, 64, inv, NBINS)
+        band_linf_cuda.band_hist(rows, e.double(), cols, e, 0, 64, inv, NBINS)
+    with pytest.raises(ValueError, match="int16"):
+        band_linf_cuda.band_hist(rows, e, cols, e, 0, 64, inv, 1 << 15)
     with pytest.raises(ValueError, match="shape"):
         band_linf_cuda.band_keep(rows, e, e[:10], cols, e, e, 0, 64)
     with pytest.raises(ValueError, match="contiguous"):
-        band_linf_cuda.band_bins((rows[0], torch.zeros((64, 2), dtype=torch.int32)[:, :1]),
+        band_linf_cuda.band_hist((rows[0], torch.zeros((64, 2), dtype=torch.int32)[:, :1]),
                                  e, cols, e, 0, 64, inv, NBINS)
     with pytest.raises(ValueError, match="columns' operands"):
         band_linf_cuda.band_keep(rows, e, e, None, e, e, 0, 64)

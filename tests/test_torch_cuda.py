@@ -434,17 +434,21 @@ def _k9a_problem(na, dev, nx=300, nxp=384, zero_thr=True):
                 inv_bin=t(np.float32(256 / (2.0 * D.max() + 1e-6))), thr=t(thr))
 
 
-@pytest.mark.parametrize("na", [5, 32, 48, 96])
-@pytest.mark.parametrize("mode", ["bins", "keep"])
+@pytest.mark.parametrize("na", [5, 32, 48, 96, 160])
+@pytest.mark.parametrize("mode", ["hist", "keep"])
 def test_k9a_bit_equal_to_plain(cuda, na, mode):
     """Every 128-row band of 300 points padded to 384 (padding rows and
     columns, zero thresholds, the diagonal, +inf thresholds), then a
-    column count that is not a multiple of 4 (the unpacked stores)."""
+    column count that is not a multiple of 4 (the unpacked stores); in
+    hist mode the thresholds from the histogram equal the plain bins'
+    bisection.  At 160 anchors a point's bits take 5 words, past the
+    ones held in registers."""
     from annchor_tpu_torch.ops import band_linf_cuda, locality
     from annchor_tpu_torch.ops.band_linf_cuda import K9A
 
     P = _k9a_problem(na, cuda)
     D32p, Sp, effp, inv, thr = P["D32p"], P["Sp"], P["effp"], P["inv_bin"], P["thr"]
+    bin_w = 1.0 / inv
     for ncols in (384, 301):
         cols = band_linf_cuda.operands(D32p[:ncols], Sp[:ncols])
         for r0 in range(0, ncols, 128):
@@ -452,15 +456,49 @@ def test_k9a_bit_equal_to_plain(cuda, na, mode):
             args = (D32p[:ncols], Sp[:ncols], Sp[r0:r1], D32p[r0:r1], effp[r0:r1],
                     effp[:ncols])
             before = K9A.mode_launches[mode]
-            if mode == "bins":
-                got = locality._band_bins_sym(*args, r0, P["nx"], inv, 256, ncols, cols=cols)
-                want = locality._band_bins_sym_plain(*args, r0, P["nx"], inv, 256, ncols)
+            if mode == "hist":
+                got = locality._band_hist_sym(*args, r0, P["nx"], inv, 256, ncols, cols=cols)
+                want = locality._band_hist_sym_plain(*args, r0, P["nx"], inv, 256, ncols)
+                for cap in (1, 7, 40):
+                    bins = locality._band_bins_sym_plain(*args, r0, P["nx"], inv, 256, ncols)
+                    assert torch.equal(locality._band_thr_from_hist(got, cap, bin_w),
+                                       locality._band_thr_from_bins(bins, cap, bin_w, 256))
             else:
                 got = locality._band_keep2_dense(*args, thr, r0, P["nx"], ncols, cols=cols)[0]
                 want = locality._band_keep2_plain(*args, thr, r0, P["nx"], ncols)
             torch.cuda.synchronize()
             assert K9A.mode_launches[mode] == before + 1
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["hist", "keep"])
+@pytest.mark.parametrize("skip", ["none", "most"])
+def test_k9a_tile_skip(cuda, mode, skip):
+    """The tile admit test: with every effective threshold 0 every tile
+    holds an admitted pair (no tile skips its score); with thresholds
+    above any shared count except for points 64-127, only the tiles that
+    hold one of them as a row or a column score.  Both bit-equal to the
+    plain version."""
+    from annchor_tpu_torch.ops import band_linf_cuda, locality
+
+    P = _k9a_problem(96, cuda)
+    D32p, Sp, inv, thr = P["D32p"], P["Sp"], P["inv_bin"], P["thr"]
+    effp = torch.zeros_like(P["effp"]) if skip == "none" else torch.full_like(P["effp"], 99.0)
+    if skip == "most":
+        effp[64:128] = 2.0
+    effp[P["nx"]:] = float("inf")
+    cols = band_linf_cuda.operands(D32p, Sp)
+    for r0 in (0, 128, 256):
+        args = (D32p, Sp, Sp[r0:r0 + 128], D32p[r0:r0 + 128], effp[r0:r0 + 128], effp)
+        if mode == "hist":
+            got = locality._band_hist_sym(*args, r0, P["nx"], inv, 256, 384, cols=cols)
+            want = locality._band_hist_sym_plain(*args, r0, P["nx"], inv, 256, 384)
+        else:
+            got = locality._band_keep2_dense(*args, thr, r0, P["nx"], 384, cols=cols)[0]
+            want = locality._band_keep2_plain(*args, thr, r0, P["nx"], 384)
+        assert torch.equal(got, want)
+        if skip == "none" and mode == "hist":
+            assert int(got.sum()) > 0
 
 
 def test_k9a_call_does_not_sync(cuda):
@@ -470,17 +508,18 @@ def test_k9a_call_does_not_sync(cuda):
     D32p, Sp, effp = P["D32p"], P["Sp"], P["effp"]
     cols = band_linf_cuda.operands(D32p, Sp)
     args = (D32p, Sp, Sp[128:256], D32p[128:256], effp[128:256], effp)
-    want = locality._band_bins_sym(*args, 128, P["nx"], P["inv_bin"], 256, 384,
+    want = locality._band_hist_sym(*args, 128, P["nx"], P["inv_bin"], 256, 384,
                                    cols=cols)  # builds the kernel
+    bin_w = 1.0 / P["inv_bin"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        bins = locality._band_bins_sym(*args, 128, P["nx"], P["inv_bin"], 256, 384,
-                                       cols=cols)
+        thr = locality._band_thresholds(*args, 128, P["nx"], P["inv_bin"], bin_w, 256, 5, 384,
+                                        "linf", cols)
         keep = locality._band_keep2_dense(*args, P["thr"], 128, P["nx"], 384, cols=cols)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert torch.equal(bins, want)
+    assert torch.equal(thr, locality._band_thr_from_hist(want, 5, bin_w))
     assert torch.equal(keep[0], locality._band_keep2_plain(*args, P["thr"], 128, P["nx"], 384))
 
 
@@ -514,8 +553,9 @@ def _k8_ids(m, B, seed, dev):
 def test_k8a_matches_plain(cuda, n, B):
     """K8a against its plain version to rtol 2e-6 (cuBLAS sums the float64
     products in another order) and against its torch model bit for bit,
-    with all-zero rows, one-bin rows and self pairs; at n 300 K is read
-    from global memory; B 1,797 is an anchor column (one id expanded)."""
+    with all-zero rows, one-bin rows and self pairs; at n 300 the streamed
+    path (2 n_iter + 4 launches); B 1,797 is an anchor column (one id
+    expanded)."""
     from annchor_tpu_torch.ops import sinkhorn_cuda as sc
     from annchor_tpu_torch.ops import wasserstein as w
 
@@ -527,10 +567,12 @@ def test_k8a_matches_plain(cuda, n, B):
     else:
         I, J = _k8_ids(len(X), B, B, cuda)
     n_iter = 300 if n == 64 else 20
+    plan = sc.exp_plan(B, n)
+    assert plan["path"] == ("streamed" if n == 300 else "resident")
     before = sc.K8.mode_launches["exp"]
     got = w.sinkhorn_exp_chunk(Xd, Xd, I, J, eng._K, eng._KC, n_iter)
     torch.cuda.synchronize()
-    assert sc.K8.mode_launches["exp"] == before + 1
+    assert sc.K8.mode_launches["exp"] == before + sc.exp_launches(plan, n_iter)
     want = w.sinkhorn_exp_chunk_plain(Xd, Xd, I, J, eng._K, eng._KC, n_iter)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-6)
@@ -538,32 +580,34 @@ def test_k8a_matches_plain(cuda, n, B):
     assert torch.equal(got, model)
 
 
-@pytest.mark.parametrize("rc", [2, 4, 8])
-def test_k8a_forced_tile_matches_plain(cuda, rc):
-    """K8a in each tile at n 5 and 8,192 pairs (32 pairs a block): the
-    8-column tile has one thread a column block there, half as many
-    threads as pairs, and every pair's cost must still be written."""
+@pytest.mark.parametrize("forced", [("resident", None), ("streamed", 64), ("streamed", 32),
+                                    ("streamed", 16)])
+@pytest.mark.parametrize("n", [5, 64, 144])
+def test_k8a_forced_tile_matches_plain(cuda, forced, n):
+    """K8a on each forced plan (the resident block, or the streamed tiles
+    of 64, 32 and 16 columns) at 8,191 pairs, so the last block is part
+    padding (and the streamed tile's padding columns show below 64 bins):
+    against its plain version and its model."""
     from annchor_tpu_torch.ops import sinkhorn_cuda as sc
     from annchor_tpu_torch.ops import wasserstein as w
 
-    X, C = _k8_problem(5, 1797, 5)
+    X, C = _k8_problem(n, 1797, n)
     eng = w.SinkhornExpEngine(C, device=cuda)
     Xd = eng._table(X)
-    I, J = _k8_ids(len(X), 8192, 8192, cuda)
-    plan = sc.exp_plan(8192, 5, rc)
-    assert (plan["rc"], plan["P"]) == (rc, 32)
+    I, J = _k8_ids(len(X), 8191, 8191, cuda)
+    plan = sc.exp_plan(8191, n, *forced)
     got = sc.sinkhorn_exp_cuda(Xd, Xd, I, J, eng._K, eng._KC, 20, w.TINY, _plan=plan)
     want = w.sinkhorn_exp_chunk_plain(Xd, Xd, I, J, eng._K, eng._KC, 20)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-6)
-    assert torch.equal(got, sc.exp_chunk_model(Xd, Xd, I, J, eng._K, eng._KC, 20, w.TINY,
-                                               plan=plan))
+    assert torch.equal(got, sc.exp_chunk_model(Xd, Xd, I, J, eng._K, eng._KC, 20, w.TINY))
 
 
-@pytest.mark.parametrize("n,B", [(2100, 4), (7200, 5)])
+@pytest.mark.parametrize("n,B", [(145, 70), (784, 130), (2100, 4), (7200, 5)])
 def test_k8a_large_n_matches_plain(cuda, n, B):
-    """K8a above 2,048 bins (column passes) and above 7,136 (u and v in a
-    global workspace): against its plain version and its model."""
+    """K8a streamed: above the resident limit, at 28 x 28 images, and at
+    2,100 and 7,200 bins (K read from device memory by column tiles):
+    against its plain version and its model."""
     from annchor_tpu_torch.ops import sinkhorn_cuda as sc
     from annchor_tpu_torch.ops import wasserstein as w
 
@@ -572,7 +616,7 @@ def test_k8a_large_n_matches_plain(cuda, n, B):
     Xd = eng._table(X)
     I, J = _k8_ids(len(X), B, B, cuda)
     plan = sc.exp_plan(B, n)
-    assert plan["passes"] > 1 and plan["global_uv"] == (n > 7136)
+    assert plan["path"] == "streamed" and plan["npad"] % 64 == 0 and plan["Bp"] >= B
     got = w.sinkhorn_exp_chunk(Xd, Xd, I, J, eng._K, eng._KC, 2)
     want = w.sinkhorn_exp_chunk_plain(Xd, Xd, I, J, eng._K, eng._KC, 2)
     assert torch.isfinite(got).all()
@@ -626,8 +670,8 @@ def test_k8b_matches_plain(cuda, n, B):
 
 def test_k8_call_does_not_sync(cuda):
     """The hybrid's certify dispatch (two K8a launches: 8,192 + 808
-    pairs), the max-min anchors' column and a K8b call queue on the card
-    without a host sync."""
+    pairs), the max-min anchors' column, a streamed K8a call (300 bins)
+    and a K8b call queue on the card without a host sync."""
     from annchor_tpu_torch.ops import sinkhorn_cuda as sc
     from annchor_tpu_torch.ops import wasserstein as w
 
@@ -642,6 +686,11 @@ def test_k8_call_does_not_sync(cuda):
     I = torch.tensor(7, device=cuda).expand(len(X))  # a blocking copy: outside the check
     J = torch.arange(len(X), device=cuda)
     col = w.sinkhorn_exp_chunk(Xd, Xd, I, J, eng._K, eng._KC, 300)
+    Xr, Cr = _k8_problem(300, 64, 1)
+    er = w.SinkhornExpEngine(Cr, device=cuda)
+    Xrd = er._table(Xr)
+    Ir, Jr = _k8_ids(len(Xr), 100, 2, cuda)
+    big = w.sinkhorn_exp_chunk(Xrd, Xrd, Ir, Jr, er._K, er._KC, 3)
     torch.cuda.synchronize()
     before = dict(sc.K8.mode_launches)
     torch.cuda.set_sync_debug_mode("error")
@@ -649,8 +698,10 @@ def test_k8_call_does_not_sync(cuda):
         got, m = eng.dispatch(X, X, IJ)
         log_got = w.sinkhorn_batch(Xu, Xu.flip(0).contiguous(), Cd, 0.5, 20)
         col_got = w.sinkhorn_exp_chunk(Xd, Xd, I, J, eng._K, eng._KC, 300)
+        big_got = w.sinkhorn_exp_chunk(Xrd, Xrd, Ir, Jr, er._K, er._KC, 3)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert m == 9000
-    assert sc.K8.mode_launches == {"exp": before["exp"] + 3, "log": before["log"] + 1}
+    assert sc.K8.mode_launches == {"exp": before["exp"] + 3 + 10, "log": before["log"] + 1}
     assert torch.equal(got, want) and torch.equal(log_got, log_want) and torch.equal(col_got, col)
+    assert torch.equal(big_got, big)

@@ -2,10 +2,10 @@
 take (``sinkhorn_exp_chunk_plain``, ``sinkhorn_batch_plain``) held against
 the JAX package's ``_sinkhorn_exp_chunk`` and ``_sinkhorn_batch``; a torch
 model of K8a's own arithmetic (``sinkhorn_cuda.exp_chunk_model``: float64
-products summed over k in the kernel's order, one rounding, the clamp, a
-float32 division, the cost summed per thread and then over the threads)
-against the plain version; the launch plans; the dispatch and the
-wrapper's checks.  The kernels themselves run on the card:
+products summed over k in order, as the FP64 tensor cores' chained mma
+sums them, one rounding, the clamp, a float32 division, the cost's terms
+summed in order) against the plain version and the JAX package; the
+launch plans; the dispatch and the wrapper's checks.  The kernels themselves run on the card:
 ``tests/test_torch_cuda.py`` (``test_k8*``) and ``chip_smoke.py`` phase 2.
 
 Tolerances: rtol 2e-6, the bound ``tests/test_torch_wasserstein.py``
@@ -111,12 +111,10 @@ def test_k8a_model_matches_plain_on_digits(n_iter):
     digits at the scout's n_iter: within rtol 2e-6, and here bit for bit
     (the CPU's float64 products sum each entry's exact terms in order)."""
     want, args = _model_case(64, n_iter, 247, seed=3)
-    for rc in sc.EXP_MAX_THREADS:
-        plan = sc.exp_plan(256, 64, rc)
-        got = sc.exp_chunk_model(*args, tw.TINY, plan=plan)
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL)
-        share = float((got == want).double().mean())
-        assert share == 1.0, "bit-equal share %.4f" % share
+    got = sc.exp_chunk_model(*args, tw.TINY)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL)
+    share = float((got == want).double().mean())
+    assert share == 1.0, "bit-equal share %.4f" % share
 
 
 @pytest.mark.parametrize("n", [5, 100])
@@ -129,68 +127,95 @@ def test_k8a_model_matches_plain_on_random_costs(n):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL)
 
 
-def test_k8a_model_matches_plain_in_passes():
-    """Above 2,048 bins a thread takes its columns in passes: the model of
-    a two-pass plan (2,100 bins) against the plain version, with the zero
-    and one-bin rows.  Where u and v live (shared or global memory, above
-    7,136 bins) does not change the arithmetic; the card checks that
-    plan (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 2)."""
-    want, args = _model_case(2100, 1, 2, seed=21)
-    plan = sc.exp_plan(11, 2100)
-    assert (plan["passes"], plan["rc"], plan["global_uv"]) == (2, 8, False)
-    got = sc.exp_chunk_model(*args, tw.TINY, plan=plan)
-    assert np.isfinite(got.numpy()).all()
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL)
+@pytest.mark.parametrize("n,n_iter", [(64, 300), (5, 40), (100, 40)])
+def test_k8a_model_matches_jax(n, n_iter):
+    """The model against the JAX package's ``_sinkhorn_exp_chunk`` on the
+    digits and on random costs, to rtol 2e-6 (XLA:CPU sums each product
+    in float32, the model a float64 sum rounded once)."""
+    X, C = _problem(n, seed=n + 7)
+    IJ = _pairs(len(X), 120, seed=n + 7)
+    eng = tw.SinkhornExpEngine(C, n_iter=n_iter, device="cpu")
+    jeng = jw.SinkhornExpEngine(C, n_iter=n_iter)
+    want = np.asarray(jw._sinkhorn_exp_chunk(
+        jeng._table(X), jeng._table(X), IJ[:, 0].astype(np.int32), IJ[:, 1].astype(np.int32),
+        jeng._Kd, jeng._KCd, n_iter))
+    Xd = eng._table(X)
+    got = sc.exp_chunk_model(Xd, Xd, torch.as_tensor(IJ[:, 0]), torch.as_tensor(IJ[:, 1]),
+                             eng._K, eng._KC, n_iter, tw.TINY)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+
+
+def test_k8a_model_matches_plain_streamed():
+    """Above the resident limit the kernel runs the streamed path with
+    the same arithmetic: the model at 145 and 300 bins against the plain
+    version, with the zero and one-bin rows."""
+    for n in (145, 300):
+        want, args = _model_case(n, 3, 20, seed=n)
+        assert sc.exp_plan(29, n)["path"] == "streamed"
+        got = sc.exp_chunk_model(*args, tw.TINY)
+        assert np.isfinite(got.numpy()).all()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL)
 
 
 @pytest.mark.parametrize("B", [1, 256, 1797, 8192])
-@pytest.mark.parametrize("n", [64, 300])
+@pytest.mark.parametrize("n", [5, 64, 144])
 def test_exp_plan(B, n):
+    """Resident plans: 16 pairs a block, npad n rounded up to 16, a warp
+    per 8 columns; a 1,797-pair anchor column fills 113 blocks."""
     plan = sc.exp_plan(B, n)
-    assert (plan["B"], plan["n"], plan["passes"], plan["global_uv"]) == (B, n, 1, False)
-    assert plan["npad"] >= n and plan["npad"] % plan["rc"] == 0
-    assert plan["tx"] * plan["rc"] == plan["npad"]
-    assert plan["P"] >= 2 and plan["P"] % 2 == 0
-    assert plan["threads"] == plan["tx"] * plan["P"] // 2
-    assert 1 <= plan["threads"] <= sc.EXP_MAX_THREADS[plan["rc"]]
+    assert (plan["B"], plan["n"], plan["path"], plan["P"]) == (B, n, "resident", 16)
+    assert plan["cols"] == plan["npad"]
+    assert plan["npad"] % 16 == 0 and n <= plan["npad"] < n + 16
+    assert plan["threads"] == 32 * plan["npad"] // 8 <= 576
     assert plan["blocks"] * plan["P"] >= B > (plan["blocks"] - 1) * plan["P"]
-    assert plan["smem"] <= sc.SMEM_MAX
-    assert plan["resident"] == (n == 64)  # K of 300 bins is read from global memory
-    assert plan["rc"] == (4 if B >= sc.EXP_MEDIUM_MIN else 2)
+    assert plan["smem"] == 8 * (plan["npad"] + 4) * (plan["npad"] + 32) <= sc.SMEM_MAX
+    assert sc.exp_launches(plan, 300) == 1 and sc.exp_launches(sc.exp_plan(0, n), 300) == 0
     if B == 1797:
-        assert plan["blocks"] >= sc.SMS  # an anchor column spreads over every SM
+        assert plan["blocks"] == 113
     if (B, n) == (8192, 64):
-        assert (plan["rc"], plan["P"], plan["threads"], plan["blocks"]) == (4, 32, 256, 256)
-    for rc in sc.EXP_MAX_THREADS:
-        forced = sc.exp_plan(B, n, rc)
-        assert forced["rc"] == rc
-        assert forced["smem"] <= sc.SMEM_MAX
-        assert forced["threads"] <= sc.EXP_MAX_THREADS[rc]
+        assert (plan["npad"], plan["threads"], plan["blocks"]) == (64, 256, 512)
+    assert sc.exp_plan(B, n, "resident") == plan
 
 
-def test_exp_plan_any_n():
-    """Every n gets a launch that fits a block: the 8-column tile takes
-    over where a pair's columns would need too many threads (above 1,024
-    bins), column passes above 2,048, u and v in global memory above
-    7,136; no n raises."""
-    for n in (1, 2, 7, 8, 9, 63, 65, 112, 113, 1024, 1025, 2048, 2049, 4096, 4097, 7136,
-              7137, 10_000, 40_000):
-        for B in (1, 1797, 8192):
-            for rc in (None, *sc.EXP_MAX_THREADS):
-                plan = sc.exp_plan(B, n, rc)
-                assert plan["smem"] <= sc.SMEM_MAX
-                assert plan["threads"] <= sc.EXP_MAX_THREADS[plan["rc"]]
-                assert plan["npad"] == plan["tx"] * plan["rc"] * plan["passes"] >= n
-                assert plan["npad"] % 8 == 0 and plan["npad"] - n < 8 * plan["passes"]
-                assert plan["passes"] == 1 or plan["rc"] == 8
-                assert not (plan["resident"] and plan["global_uv"])
-                assert plan["blocks"] * plan["P"] >= B > (plan["blocks"] - 1) * plan["P"]
-    assert sc.exp_plan(1, 112)["resident"] and not sc.exp_plan(1, 113)["resident"]
-    assert sc.exp_plan(1, 1024)["rc"] == 2 and sc.exp_plan(1, 1025)["rc"] == 8
-    assert sc.exp_plan(1, 2048)["passes"] == 1 and sc.exp_plan(1, 2049)["passes"] == 2
-    assert not sc.exp_plan(1, 7136)["global_uv"] and sc.exp_plan(1, 7137)["global_uv"]
-    with pytest.raises(ValueError, match="rc must be one of"):
-        sc.exp_plan(1, 64, 16)
+@pytest.mark.parametrize("n", [1, 5, 64, 145, 300, 784, 2100, 7200, 14_401, 40_000])
+def test_exp_plan_streamed(n):
+    """Above 144 bins (or forced) the streamed plan: tiles of 64 pairs by
+    64, 32 or 16 columns over the pairs and the columns, both rounded up
+    to 64, 2 n_iter + 4 launches; the widest tile that gives every SM a
+    block; every n gets one and none raises."""
+    assert sc.exp_plan(1, n)["path"] == ("resident" if n <= 144 else "streamed")
+    for B in (1, 64, 65, 130, 1797, 8192):
+        plan = sc.exp_plan(B, n, "streamed")
+        assert plan["npad"] % 64 == 0 and n <= plan["npad"] < n + 64
+        assert plan["Bp"] % 64 == 0 and B <= plan["Bp"] < B + 64
+        assert plan["blocks"] == plan["npad"] // plan["cols"] * (plan["Bp"] // 64)
+        assert plan["threads"] == 128 and plan["smem"] <= 48 * 1024
+        assert sc.exp_launches(plan, 20) == 44
+        wider = [c for c in sc.STREAM_COLS if c > plan["cols"]]
+        assert plan["cols"] == 16 or plan["blocks"] >= sc.SMS
+        assert all(plan["npad"] // c * (plan["Bp"] // 64) < sc.SMS for c in wider)
+        for cols in sc.STREAM_COLS:
+            assert sc.exp_plan(B, n, "streamed", cols)["cols"] == cols
+
+
+def test_exp_plan_refuses():
+    # the cells timed by tools/time_k8.py: 64 pairs at 2,100 and 7,200
+    # bins, 8,192 at 300 and 784
+    assert sc.exp_plan(64, 2100)["cols"] == 16 and sc.exp_plan(64, 7200)["cols"] == 32
+    assert sc.exp_plan(8192, 300)["cols"] == 64 and sc.exp_plan(8192, 784)["cols"] == 64
+    assert sc.exp_plan(1, 144)["path"] == "resident"
+    assert sc.exp_plan(1, 145)["path"] == "streamed"
+    with pytest.raises(ValueError, match="path must be"):
+        sc.exp_plan(1, 64, "tiles")
+    with pytest.raises(ValueError, match="no resident plan"):
+        sc.exp_plan(1, 160, "resident")
+    with pytest.raises(ValueError, match="cols must be one of"):
+        sc.exp_plan(1, 300, "streamed", 8)
+    with pytest.raises(ValueError, match="n >= 1"):
+        sc.exp_plan(1, 0)
+    assert sc.exp_plan(64 * 65_535, 300)["Bp"] == 64 * 65_535
+    with pytest.raises(ValueError, match="at most 4194240 pairs"):
+        sc.exp_plan(64 * 65_535 + 1, 300)
 
 
 @pytest.mark.parametrize("B", [1, 256, 4096])

@@ -25,13 +25,16 @@ warm-up that builds K9a, and once more under ``torch.profiler``
 (``chip_smoke._device_profile``): it prints the build's wall, the card's
 busy time (the sum of its kernels' spans), its idle share of the
 unprofiled wall and the kernels that take the most device time, and one
-JSON line {"label", "card", "wall_s", "profile"}.
+JSON line {"label", "card", "wall_s", "m", "pairs_sha256", "profile"}:
+the hash of the pair list (its row and column ids as int32, in order)
+shows two versions' builds equal.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -136,7 +139,12 @@ def _profile_build(torch, att, make_strings, device_profile, card, label) -> int
               prof["k9a_kernels"]))
     for name, ms, n in prof["top"]:
         print("  %9.3f ms in %6d  %s" % (ms, n, name))
-    print(json.dumps({"label": label, "card": card, "wall_s": wall, "profile": prof}))
+    ij_i, ij_j, m = ann._ij_dev[:3]
+    digest = hashlib.sha256(ij_i.to(torch.int32).cpu().numpy().tobytes())
+    digest.update(ij_j.to(torch.int32).cpu().numpy().tobytes())
+    print("pair list: m %d, sha256 %s" % (m, digest.hexdigest()))
+    print(json.dumps({"label": label, "card": card, "wall_s": wall, "m": m,
+                      "pairs_sha256": digest.hexdigest(), "profile": prof}))
     return 0
 
 
