@@ -11,8 +11,8 @@
 // float64 `torch.mm` (cuBLAS) and 4 elementwise kernels a half step; the
 // wrapper is ops/sinkhorn_cuda.py.
 //
-// K8b (annchor_k8b_log), the log-domain loop of the `wasserstein_sinkhorn`
-// metric: n_iter times f = eps (log A - LSE_j(-C/eps + g/eps)),
+// K8b (annchor_k8b_resident, annchor_k8b_streamed), the log-domain loop of
+// the `wasserstein_sinkhorn` metric: n_iter times f = eps (log A - LSE_j(-C/eps + g/eps)),
 // g = eps (log B - LSE_i(-C/eps + f/eps)); out = sum_ij
 // exp(-C/eps + f/eps + g/eps) C_ij.  It replaces `_sinkhorn_batch`; its
 // plain version `sinkhorn_batch_plain` builds (B, n, n) temporaries for
@@ -38,8 +38,10 @@
 // a row max (taken as 0 where it is infinite), the sum of expf(x - max)
 // over the row in order, logf, the max added back, with the accurate expf
 // and logf and no contraction (the __f*_rn intrinsics); the closing sum
-// of exp(logP) C in float64.  Only the order of its float32 sums differs
-// from the plain version's.  No fast math, no flush to zero.
+// of exp(logP) C in float64, each row's terms over j in order, then the
+// rows in order.  Only the order of its float32 sums differs from the
+// plain version's; `log_batch_model` in ops/sinkhorn_cuda.py repeats these
+// operations in this order with torch.  No fast math, no flush to zero.
 //
 // What bounds it on the H100.  K8a: (2 n_iter + 2) n^2 FP64 FMA a pair.
 // The card's FP64 peak is its tensor cores' 128 FMA a clock per SM, 132 x
@@ -50,7 +52,11 @@
 // is read from device memory for every product (above the resident limit:
 // 415 MB a product at 7,200 bins).  K8b: (2 n_iter + 1) n^2 expf a pair,
 // one MUFU.EX2 each at 16 a clock per SM, 4.18e12 a second: 1.61 ms for a
-// 4,096-pair chunk at n_iter 200.
+// 4,096-pair chunk at n_iter 200.  Each element also costs ~12 more
+// instructions (two adds and a max, the accurate expf's FFMA/FADD/FMUL and
+// SHF, the running add), and an SM issues 128 a clock: the issue slots,
+// not the MUFU, are the tighter bound.  Above the resident limit the
+// bytes of C over the sweeps (two a half step, one for the cost) count too.
 //
 // The design of K8a.  Each half step is a matrix product [pairs x n] .
 // [n x n] whose B operand, K or K^T, every pair shares: the pairs are the
@@ -80,11 +86,32 @@
 //   launch sums each pair's terms in order.  The launch plan is
 //   ops/sinkhorn_cuda.exp_plan.
 //
-// K8b stages -C/eps in an (n, n + 1 | 1) float32 layout so a warp reading
-// a row or a column hits 32 banks; G threads (a multiple of 32) share a
-// pair, each owning outputs o = t, t + G, ...; f/eps and g/eps stay in
-// shared memory, or above 14,400 bins in a global workspace of the
-// block's own.  Its launch plan is ops/sinkhorn_cuda.log_plan.
+// The design of K8b.  A half step is an "LSE product" [pairs x n] (x) [n x
+// n]: each output is a max, then an in-order sum, over k of M(o, k) +
+// W(p, k), with M = -C/eps (the f update) or its transpose (the g update).
+// A thread holds a register tile of R pairs x C outputs (4 x 4, 4 x 2, 4 x
+// 1, or 1 x 1 where the pairs are too few to give the SMs enough threads;
+// resident plans stop at 4 x 2, whose 104 registers leave more warps),
+// their R C running maxima, then sums; each 4-k step reads C 16-byte
+// loads of -C/eps and R of the potentials, so each -C/eps value feeds R
+// pairs and each potential C outputs.  One copy of -C/eps serves both
+// updates: its 16-byte chunks are swizzled (chunk XOR a key of the row)
+// so that 4 rows read along k (the f update) and 4 rows read along o (the
+// g update, its transpose) both hit 8 distinct chunks in a quarter warp.
+// * Resident (to 224 bins, while -C/eps fits shared memory; the digits are
+//   64): one launch; a block runs P
+//   pairs through every iteration with -C/eps (swizzled, -inf past n),
+//   f/eps, g/eps and the log histograms in shared memory; the cost's
+//   float64 row sums go to the log histograms' place.
+// * Streamed (above): one launch a half step, each block a tile of PT
+//   pairs x 64 outputs, its two sweeps over k in slabs of 32: the slabs of
+//   C (scaled to -C/eps on use, -inf past n) and of the potentials,
+//   double-buffered through shared memory with cp.async, feed the whole
+//   pair tile.  f/eps and g/eps live in a (Bp, npad) float32 workspace; the
+//   cost's row sums in a float64 one, summed in order by a last launch.
+//   Where the pairs are few the pair tile shrinks, so that 2 pairs at
+//   14,401 bins still give 226 blocks.
+// The launch plan is ops/sinkhorn_cuda.log_plan.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -447,123 +474,457 @@ int streamed(const float* Xn, const float* Zn, const long long* I, long long sI,
 
 // ---------------------------------------------------------------- K8b ----
 
-// the row stride of -C/eps in shared memory: odd, so that a warp reading a
-// column (32 rows) or a row hits 32 banks
-__host__ __device__ inline int log_ldc(int n) { return n + 1 + (n & 1); }
+constexpr int kLogThreads = 256;  // threads a K8b block at most
+constexpr int kLogBN = 64;  // outputs of a streamed tile
+constexpr int kLogKS = 32;  // k of a streamed slab
+constexpr int kLogLdW = kLogKS + 4;  // [pair][k] stride of a slab of potentials
 
-// float32 slots of a block's f/eps, g/eps, log A and log B: (P, n) each
-__host__ __device__ inline size_t log_vec_floats(int n, int P) {
-  return 4 * static_cast<size_t>(P) * n;
+// The column of element (r, c) of a swizzled tile (rows of a multiple of
+// 32 floats): the 16-byte chunk c / 4 XOR a key of the row, (r / 4) % 8
+// where a thread takes 4 outputs (C 4), r % 8 where it takes one (C 1), so
+// that each read of load_m hits 8 distinct chunks in a quarter warp.
+template <int C>
+__device__ __forceinline__ int swz(int r, int c) {
+  const int key = C == 4 ? (r >> 2) & 7 : r & 7;
+  return (((c >> 2) ^ key) << 2) | (c & 3);
 }
 
-inline size_t log_smem(int n, int P, int G, bool resident, bool global_v) {
-  size_t f = resident ? static_cast<size_t>(n) * log_ldc(n) : 0;
-  f += global_v ? 0 : log_vec_floats(n, P);
-  f += f & 1;  // 8-byte alignment of the partial sums
-  return f * sizeof(float) + static_cast<size_t>(P) * G * sizeof(double);
-}
-
-template <bool kResident>
-__device__ __forceinline__ float negc(const float* Ns, const float* __restrict__ C, int n,
-                                      int ldc, int i, int j, float inv) {
-  return kResident ? Ns[i * ldc + j] : __fmul_rn(-__ldg(C + static_cast<size_t>(i) * n + j), inv);
-}
-
-// One potential (over eps) at output o: eps (logh - LSE_k x_k) / eps with
-// x_k = -C/eps[o][k] + other_k (kRow: the f update) or -C/eps[k][o] +
-// other_k (the g update), as PyTorch computes it.
-template <bool kResident, bool kRow>
-__device__ __forceinline__ float lse_update(const float* Ns, const float* __restrict__ C,
-                                            const float* other, float logh, int o, int n,
-                                            int ldc, float eps, float inv) {
-  float mx = -INFINITY;
-  for (int k = 0; k < n; ++k) {
-    const float x = __fadd_rn(kRow ? negc<kResident>(Ns, C, n, ldc, o, k, inv)
-                                   : negc<kResident>(Ns, C, n, ldc, k, o, inv),
-                              other[k]);
-    mx = fmaxf(mx, x);
+// The thread's -C values of a 4-k step: mv[i][kk] = M(ob + i, k0 + kk),
+// M(o, k) = T[o][k], or T[k][o] (kTrans), from a swizzled tile T of row
+// stride ld: C 16-byte loads along k, or 4 along o (kTrans, C 4), or 4
+// words (kTrans, C 1).
+template <int C, bool kTrans>
+__device__ __forceinline__ void load_m(float (&mv)[C][4], const float* T, int ld, int ob, int k0) {
+  if constexpr (!kTrans) {
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int r = ob + i;
+      const float4 v = *reinterpret_cast<const float4*>(T + r * ld + swz<C>(r, k0));
+      mv[i][0] = v.x, mv[i][1] = v.y, mv[i][2] = v.z, mv[i][3] = v.w;
+    }
+  } else if constexpr (C == 4) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int r = k0 + kk;
+      const float4 v = *reinterpret_cast<const float4*>(T + r * ld + swz<4>(r, ob));
+      mv[0][kk] = v.x, mv[1][kk] = v.y, mv[2][kk] = v.z, mv[3][kk] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mv[0][kk] = T[(k0 + kk) * ld + swz<1>(k0 + kk, ob)];
   }
-  if (isinf(mx)) mx = 0.0f;
-  float s = 0.0f;
-  for (int k = 0; k < n; ++k) {
-    const float x = __fadd_rn(kRow ? negc<kResident>(Ns, C, n, ldc, o, k, inv)
-                                   : negc<kResident>(Ns, C, n, ldc, k, o, inv),
-                              other[k]);
-    s = __fadd_rn(s, expf(__fsub_rn(x, mx)));
-  }
-  const float lse = __fadd_rn(logf(s), mx);
-  return __fmul_rn(__fmul_rn(eps, __fsub_rn(logh, lse)), inv);
 }
 
-// kGlobalV: f/eps, g/eps, log A and log B in the block's slice of the
-// global workspace ws, not in shared memory
-template <bool kResident, bool kGlobalV>
-__global__ void __launch_bounds__(256)
-k8b_log(const float* __restrict__ A, const float* __restrict__ Bh, const float* __restrict__ C,
-        int m, int n, int P, int G, float eps, float inv, int n_iter, float* ws,
-        float* __restrict__ out) {
+// The potentials of the thread's pairs pb .. pb + R - 1 at k0 .. k0 + 3,
+// from [pair][k] rows of stride ldw (a multiple of 4)
+template <int R>
+__device__ __forceinline__ void load_w(float (&wv)[R][4], const float* W, int ldw, int pb,
+                                       int k0) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const float4 v = *reinterpret_cast<const float4*>(W + (pb + j) * ldw + k0);
+    wv[j][0] = v.x, wv[j][1] = v.y, wv[j][2] = v.z, wv[j][3] = v.w;
+  }
+}
+
+// One 4-k step of an LSE's sweeps over the thread's R pairs x C outputs:
+// x = -C/eps + potential, then the running max (kSum false: acc is mx) or
+// the running sum of expf(x - max), each in k order (kSum)
+template <bool kSum, int C, int R>
+__device__ __forceinline__ void lse_step(float (&acc)[R][C], const float (&mx)[R][C],
+                                         const float (&mv)[C][4], const float (&wv)[R][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        const float x = __fadd_rn(mv[i][kk], wv[j][kk]);
+        acc[j][i] = kSum ? __fadd_rn(acc[j][i], expf(__fsub_rn(x, mx[j][i])))
+                         : fmaxf(acc[j][i], x);
+      }
+}
+
+// the row max as LSE uses it: 0 where it is infinite
+template <int C, int R>
+__device__ __forceinline__ void lse_fix(float (&mx)[R][C]) {
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < C; ++i) mx[j][i] = isinf(mx[j][i]) ? 0.0f : mx[j][i];
+}
+
+// the new potential over eps: eps (logh - (logf(s) + max)) * (1 / eps)
+__device__ __forceinline__ float lse_out(float s, float mx, float logh, float eps, float inv) {
+  return __fmul_rn(__fmul_rn(eps, __fsub_rn(logh, __fadd_rn(logf(s), mx))), inv);
+}
+
+// log(where(h > 0, h, 1)) + where(h > 0, 0, -1e9)
+__device__ __forceinline__ float log_hist(float h) { return h > 0.0f ? logf(h) : -1e9f; }
+
+// ------------------------------------------------------------ resident ----
+
+// Floats of shared memory of a resident K8b block: -C/eps (npad rows of
+// npad, swizzled, -inf past n), f/eps and g/eps ([P][npad + 4] each), log A
+// and log B ([P][npad] each; then the closing's float64 row sums, [P][npad])
+inline size_t log_res_floats(int npad, int P) {
+  return static_cast<size_t>(npad) * npad + 2 * static_cast<size_t>(P) * (npad + 4) +
+         2 * static_cast<size_t>(P) * npad;
+}
+
+// One half step of a resident block: Wout[p][o] = the potential from
+// LSE_k(M(o, k) + Win[p][k]) for the thread's tile, M = -C/eps (the f
+// update) or its transpose (kTrans: the g update), logh from LH
+template <int C, int R, bool kTrans>
+__device__ __forceinline__ void log_half(const float* Ns, int npad, const float* Win,
+                                         float* Wout, int ldw, const float* LH, int ob, int pb,
+                                         int n, float eps, float inv) {
+  float mx[R][C], s[R][C], mv[C][4], wv[R][4];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < C; ++i) mx[j][i] = -INFINITY, s[j][i] = 0.0f;
+  // k past n reads the -inf padding of -C/eps and 0 potentials: x = -inf
+#pragma unroll 2
+  for (int k0 = 0; k0 < n; k0 += 4) {
+    load_m<C, kTrans>(mv, Ns, npad, ob, k0);
+    load_w<R>(wv, Win, ldw, pb, k0);
+    lse_step<false>(mx, mx, mv, wv);
+  }
+  lse_fix(mx);
+#pragma unroll 2
+  for (int k0 = 0; k0 < n; k0 += 4) {
+    load_m<C, kTrans>(mv, Ns, npad, ob, k0);
+    load_w<R>(wv, Win, ldw, pb, k0);
+    lse_step<true>(s, mx, mv, wv);
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int o = ob + i;
+      if (o < n)
+        Wout[(pb + j) * ldw + o] =
+            lse_out(s[j][i], mx[j][i], LH[(pb + j) * npad + o], eps, inv);
+    }
+}
+
+// One block: P pairs through every iteration and the cost.  Thread t
+// takes pairs R (t / TO) .. + R - 1 and outputs C (t % TO) .. + C - 1, TO
+// = ceil(n / C).
+template <int C, int R>
+__global__ void __launch_bounds__(kLogThreads, 2)
+k8b_resident(const float* __restrict__ A, const float* __restrict__ Bh,
+             const float* __restrict__ Cm, int m, int n, int npad, int P, float eps, float inv,
+             int n_iter, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem4[];
-  const int ldc = log_ldc(n);
-  const size_t kf = kResident ? static_cast<size_t>(n) * ldc : 0;
+  const int ldw = npad + 4;
   float* Ns = smem4;
-  float* F = kGlobalV ? ws + blockIdx.x * log_vec_floats(n, P) : smem4 + kf;  // f / eps, [P][n]
-  float* Gp = F + static_cast<size_t>(P) * n;
-  float* LA = Gp + static_cast<size_t>(P) * n;
-  float* LB = LA + static_cast<size_t>(P) * n;
-  size_t off = kf + (kGlobalV ? 0 : log_vec_floats(n, P));
-  off += off & 1;
-  double* part = reinterpret_cast<double*>(smem4 + off);  // [P][G]
+  float* F = Ns + static_cast<size_t>(npad) * npad;  // f / eps, [P][ldw]
+  float* G = F + static_cast<size_t>(P) * ldw;  // g / eps
+  float* LA = G + static_cast<size_t>(P) * ldw;  // [P][npad]
+  float* LB = LA + static_cast<size_t>(P) * npad;
+  const int TO = (n + C - 1) / C;
   const int tid = threadIdx.x;
-  const int p = tid / G;
-  const int t = tid - p * G;
+  const int pb = tid / TO * R;
+  const int ob = tid % TO * C;
   const long long q0 = static_cast<long long>(blockIdx.x) * P;
 
-  if (kResident) {
-    for (int idx = tid; idx < n * n; idx += blockDim.x) {
-      const int r = idx / n;
-      Ns[r * ldc + idx - r * n] = __fmul_rn(-__ldg(C + idx), inv);
-    }
+  for (int idx = tid; idx < npad * npad; idx += blockDim.x) {
+    const int r = idx / npad;
+    const int c = idx - r * npad;
+    Ns[r * npad + swz<C>(r, c)] =
+        (r < n && c < n) ? __fmul_rn(-__ldg(Cm + static_cast<size_t>(r) * n + c), inv)
+                         : -INFINITY;
   }
-  for (int idx = tid; idx < P * n; idx += blockDim.x) {
-    const long long q = q0 + idx / n;
-    const int c = idx % n;
-    const float a = q < m ? __ldg(A + q * n + c) : 0.0f;
-    const float b = q < m ? __ldg(Bh + q * n + c) : 0.0f;
-    // log(where(A > 0, A, 1)) + where(A > 0, 0, -1e9)
-    LA[idx] = a > 0.0f ? logf(a) : -1e9f;
-    LB[idx] = b > 0.0f ? logf(b) : -1e9f;
-    F[idx] = 0.0f;
-    Gp[idx] = 0.0f;
+  for (int idx = tid; idx < 2 * P * ldw; idx += blockDim.x) F[idx] = 0.0f;  // F and G
+  for (int idx = tid; idx < P * npad; idx += blockDim.x) {
+    const int p = idx / npad;
+    const int c = idx - p * npad;
+    const long long q = q0 + p;
+    const bool in = q < m && c < n;
+    LA[idx] = log_hist(in ? __ldg(A + q * n + c) : 0.0f);
+    LB[idx] = log_hist(in ? __ldg(Bh + q * n + c) : 0.0f);
   }
   __syncthreads();
 
-  float* Fp = F + static_cast<size_t>(p) * n;
-  float* Gq = Gp + static_cast<size_t>(p) * n;
   for (int it = 0; it < n_iter; ++it) {
-    for (int o = t; o < n; o += G)
-      Fp[o] = lse_update<kResident, true>(Ns, C, Gq, LA[p * n + o], o, n, ldc, eps, inv);
+    log_half<C, R, false>(Ns, npad, G, F, ldw, LA, ob, pb, n, eps, inv);
     __syncthreads();
-    for (int o = t; o < n; o += G)
-      Gq[o] = lse_update<kResident, false>(Ns, C, Fp, LB[p * n + o], o, n, ldc, eps, inv);
+    log_half<C, R, true>(Ns, npad, F, G, ldw, LB, ob, pb, n, eps, inv);
     __syncthreads();
   }
 
-  // sum_ij exp((-C/eps + f/eps) + g/eps) C_ij, in float64
-  double s = 0.0;
-  for (int i = t; i < n; i += G) {
-    const float fi = Fp[i];
-    for (int j = 0; j < n; ++j) {
-      const float x = __fadd_rn(__fadd_rn(negc<kResident>(Ns, C, n, ldc, i, j, inv), fi), Gq[j]);
-      s += static_cast<double>(__fmul_rn(expf(x), __ldg(C + static_cast<size_t>(i) * n + j)));
+  // the cost: row sums over j in order of float64(expf((-C/eps + f/eps) +
+  // g/eps) C), one pair at a time, into the log histograms' place; then
+  // each pair's rows in order
+  double* Rs = reinterpret_cast<double*>(LA);  // [P][npad]
+#pragma unroll 1
+  for (int j = 0; j < R; ++j) {
+    double acc[C];
+    float fi[C], mv[C][4], wv[1][4];
+#pragma unroll
+    for (int i = 0; i < C; ++i) acc[i] = 0.0, fi[i] = F[(pb + j) * ldw + ob + i];
+    for (int k0 = 0; k0 < n; k0 += 4) {
+      load_m<C, false>(mv, Ns, npad, ob, k0);
+      load_w<1>(wv, G, ldw, pb + j, k0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          const int o = ob + i, k = k0 + kk;
+          const float c = (o < n && k < n) ? __ldg(Cm + static_cast<size_t>(o) * n + k) : 0.0f;
+          const float x = __fadd_rn(__fadd_rn(mv[i][kk], fi[i]), wv[0][kk]);
+          acc[i] = __dadd_rn(acc[i], static_cast<double>(__fmul_rn(expf(x), c)));
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      if (ob + i < n) Rs[(pb + j) * npad + ob + i] = acc[i];
+  }
+  __syncthreads();
+  for (int p = tid; p < P && q0 + p < m; p += blockDim.x) {
+    double t = 0.0;
+    for (int i = 0; i < n; ++i) t = __dadd_rn(t, Rs[p * npad + i]);
+    out[q0 + p] = __double2float_rn(t);
+  }
+}
+
+// ------------------------------------------------------------ streamed ----
+
+// 4 bytes (src_bytes 0 fills a zero) and 16 bytes of floats, cp.async
+__device__ __forceinline__ void cpf4(float* dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cpf16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// Queue the slab at k0 of a streamed tile's C values, swizzled: M(o, k) =
+// C[o][k] as [kLogBN rows o][kLogKS] (the f update and the cost), or C[k][o]
+// as [kLogKS rows k][kLogBN] (kTrans: the g update); 0 past n
+template <int C, bool kTrans>
+__device__ __forceinline__ void queue_c(float* Ms, const float* __restrict__ Cm, int n, int o0,
+                                        int k0) {
+  constexpr int kCols = kTrans ? kLogBN : kLogKS;
+  constexpr int kRows = kTrans ? kLogKS : kLogBN;
+  for (int idx = threadIdx.x; idx < kRows * kCols; idx += blockDim.x) {
+    const int r = idx / kCols;
+    const int c = idx % kCols;
+    const int gr = (kTrans ? k0 : o0) + r;
+    const int gc = (kTrans ? o0 : k0) + c;
+    const bool in = gr < n && gc < n;
+    cpf4(Ms + r * kCols + swz<C>(r, c), in ? Cm + static_cast<size_t>(gr) * n + gc : Cm,
+         in ? 4 : 0);
+  }
+}
+
+// Queue the slab at k0 of the tile's potentials: Ws[p][kk] = W[p0 + p][k0 + kk]
+__device__ __forceinline__ void queue_w(float* Ws, const float* W, int ldw, int p0, int PT,
+                                        int k0) {
+  for (int idx = threadIdx.x; idx < PT * (kLogKS / 4); idx += blockDim.x) {
+    const int p = idx / (kLogKS / 4);
+    const int c = 4 * (idx % (kLogKS / 4));
+    cpf16(Ws + p * kLogLdW + c, W + static_cast<size_t>(p0 + p) * ldw + k0 + c);
+  }
+}
+
+// C values of a slab step to -C/eps, -inf at the kleft-th k and past it
+template <int C>
+__device__ __forceinline__ void scale_m(float (&nv)[C][4], const float (&cv)[C][4], float inv,
+                                        int kleft) {
+#pragma unroll
+  for (int i = 0; i < C; ++i)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) nv[i][kk] = __fmul_rn(-cv[i][kk], inv);
+  if (kleft < 4) {
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk >= kleft) nv[i][kk] = -INFINITY;
+  }
+}
+
+// Shared memory bytes of a streamed block of PT pairs: two slabs of C
+// values and two of potentials
+inline size_t log_stream_smem(int PT) {
+  return sizeof(float) * (2 * kLogBN * kLogKS + 2 * static_cast<size_t>(PT) * kLogLdW);
+}
+
+// The streamed launches' shared loop: the nsweep sweeps over k of the
+// block's tile, slab by slab, the slabs of C values (queue_c) and of
+// Win's rows p0 .. p0 + PT - 1 double-buffered with cp.async; step(sweep,
+// M slab, W slab, k of the slab) consumes one.
+template <int C, bool kTrans, typename Step>
+__device__ __forceinline__ void stream_slabs(const float* Win, int ldw,
+                                             const float* __restrict__ Cm, int n, int o0,
+                                             int p0, int PT, int nsweep, Step step) {
+  extern __shared__ __align__(16) float smem4[];
+  float* Ms = smem4;  // [2][kLogBN * kLogKS]
+  float* Ws = smem4 + 2 * kLogBN * kLogKS;  // [2][PT][kLogLdW]
+  const int S = (n + kLogKS - 1) / kLogKS;
+  queue_c<C, kTrans>(Ms, Cm, n, o0, 0);
+  queue_w(Ws, Win, ldw, p0, PT, 0);
+  cp_commit();
+  for (int it = 0; it < nsweep * S; ++it) {
+    const int b = it & 1;
+    if (it + 1 < nsweep * S) {
+      const int k1 = (it + 1) % S * kLogKS;
+      queue_c<C, kTrans>(Ms + (b ^ 1) * kLogBN * kLogKS, Cm, n, o0, k1);
+      queue_w(Ws + (b ^ 1) * PT * kLogLdW, Win, ldw, p0, PT, k1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    step(it / S, Ms + b * kLogBN * kLogKS, Ws + b * PT * kLogLdW, it % S * kLogKS);
+    __syncthreads();
+  }
+}
+
+// One launch of a streamed half step, for the block's tile of PT pairs x
+// kLogBN outputs (PT = R blockDim.x / (kLogBN / C)): Wout[p][o] = the
+// potential from LSE_k(M(o, k) + Win[p][k]), M(o, k) = -C[o][k] / eps (f)
+// or -C[k][o] / eps (kTrans: g), logh from H[p][o] (0 past the batch); two
+// sweeps over the slabs, the max, then the sum.  Win, Wout: (Bp, ldw).
+template <int C, int R, bool kTrans>
+__global__ void __launch_bounds__(kLogThreads, 2)
+k8b_step(const float* Win, float* Wout, int ldw, const float* __restrict__ Cm,
+         const float* __restrict__ H, int m, int n, float eps, float inv) {
+  constexpr int TO = kLogBN / C;
+  const int PT = static_cast<int>(blockDim.x) / TO * R;
+  const int o0 = blockIdx.x * kLogBN;
+  const int p0 = blockIdx.y * PT;
+  const int pb = threadIdx.x / TO * R;
+  const int ob = threadIdx.x % TO * C;
+  float mx[R][C], s[R][C];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < C; ++i) mx[j][i] = -INFINITY, s[j][i] = 0.0f;
+  stream_slabs<C, kTrans>(Win, ldw, Cm, n, o0, p0, PT, 2,
+                          [&](int sweep, const float* Mb, const float* Wb, int k0) {
+    if (sweep == 1 && k0 == 0) lse_fix(mx);
+    float cv[C][4], nv[C][4], wv[R][4];
+#pragma unroll
+    for (int kk0 = 0; kk0 < kLogKS; kk0 += 4) {
+      if (k0 + kk0 >= n) break;
+      load_m<C, kTrans>(cv, Mb, kTrans ? kLogBN : kLogKS, ob, kk0);
+      scale_m<C>(nv, cv, inv, n - k0 - kk0);
+      load_w<R>(wv, Wb, kLogLdW, pb, kk0);
+      if (sweep == 0)
+        lse_step<false>(mx, mx, nv, wv);
+      else
+        lse_step<true>(s, mx, nv, wv);
+    }
+  });
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int p = p0 + pb + j;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int o = o0 + ob + i;
+      if (o < n) {
+        const float h = p < m ? __ldg(H + static_cast<size_t>(p) * n + o) : 0.0f;
+        Wout[static_cast<size_t>(p) * ldw + o] =
+            lse_out(s[j][i], mx[j][i], log_hist(h), eps, inv);
+      }
     }
   }
-  part[tid] = s;
-  __syncthreads();
-  if (t == 0 && q0 + p < m) {
-    double tot = 0.0;
-    for (int x = 0; x < G; ++x) tot += part[p * G + x];
-    out[q0 + p] = __double2float_rn(tot);
+}
+
+// The cost's row sums of a streamed tile: Rw[p][o] = the sum over k < n,
+// in order, of float64(expf((-C[o][k] / eps + F[p][o]) + G[p][k]) C[o][k])
+template <int C, int R>
+__global__ void __launch_bounds__(kLogThreads, 1)
+k8b_cost(const float* F, const float* G, int ldw, const float* __restrict__ Cm, int n,
+         float inv, double* Rw) {
+  constexpr int TO = kLogBN / C;
+  const int PT = static_cast<int>(blockDim.x) / TO * R;
+  const int o0 = blockIdx.x * kLogBN;
+  const int p0 = blockIdx.y * PT;
+  const int pb = threadIdx.x / TO * R;
+  const int ob = threadIdx.x % TO * C;
+  double acc[R][C];
+  float fi[R][C];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int o = o0 + ob + i;
+      acc[j][i] = 0.0;
+      fi[j][i] = o < n ? F[static_cast<size_t>(p0 + pb + j) * ldw + o] : 0.0f;
+    }
+  stream_slabs<C, false>(G, ldw, Cm, n, o0, p0, PT, 1,
+                         [&](int, const float* Mb, const float* Wb, int k0) {
+    float cv[C][4], nv[C][4], wv[R][4];
+#pragma unroll
+    for (int kk0 = 0; kk0 < kLogKS; kk0 += 4) {
+      if (k0 + kk0 >= n) break;
+      load_m<C, false>(cv, Mb, kLogKS, ob, kk0);
+      scale_m<C>(nv, cv, inv, n - k0 - kk0);
+      load_w<R>(wv, Wb, kLogLdW, pb, kk0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+#pragma unroll
+          for (int i = 0; i < C; ++i) {
+            const float x = __fadd_rn(__fadd_rn(nv[i][kk], fi[j][i]), wv[j][kk]);
+            acc[j][i] = __dadd_rn(acc[j][i], static_cast<double>(__fmul_rn(expf(x), cv[i][kk])));
+          }
+    }
+  });
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int o = o0 + ob + i;
+      if (o < n) Rw[static_cast<size_t>(p0 + pb + j) * ldw + o] = acc[j][i];
+    }
+}
+
+// out[p] = float32(the sum over o < n, in order, of Rw[p][o])
+__global__ void k8b_sum(const double* __restrict__ Rw, int ldw, int n, int m,
+                        float* __restrict__ out) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= m) return;
+  double s = 0.0;
+  for (int o = 0; o < n; ++o) s = __dadd_rn(s, Rw[static_cast<size_t>(p) * ldw + o]);
+  out[p] = __double2float_rn(s);
+}
+
+// The streamed launches of one call: F, G (Bp, npad) float32 zero in ws,
+// Rw (Bp, npad) float64; *launched counts each launch made.
+template <int C, int R>
+int log_streamed(const float* A, const float* Bh, const float* Cm, int m, int n, int npad,
+                 int Bp, int PT, float eps, float inv, int n_iter, float* ws, double* rw,
+                 float* out, int* launched, cudaStream_t st) {
+  float* F = ws;
+  float* G = ws + static_cast<size_t>(Bp) * npad;
+  const int threads = PT / R * (kLogBN / C);
+  const dim3 grid(npad / kLogBN, Bp / PT);
+  const size_t smem = log_stream_smem(PT);
+  cudaError_t code;
+  for (int it = 0; it < n_iter; ++it) {
+    k8b_step<C, R, false><<<grid, threads, smem, st>>>(G, F, npad, Cm, A, m, n, eps, inv);
+    if ((code = cudaGetLastError()) != cudaSuccess) return static_cast<int>(code);
+    ++*launched;
+    k8b_step<C, R, true><<<grid, threads, smem, st>>>(F, G, npad, Cm, Bh, m, n, eps, inv);
+    if ((code = cudaGetLastError()) != cudaSuccess) return static_cast<int>(code);
+    ++*launched;
   }
+  k8b_cost<C, R><<<grid, threads, smem, st>>>(F, G, npad, Cm, n, inv, rw);
+  if ((code = cudaGetLastError()) != cudaSuccess) return static_cast<int>(code);
+  ++*launched;
+  k8b_sum<<<(m + 127) / 128, 128, 0, st>>>(rw, npad, n, m, out);
+  if ((code = cudaGetLastError()) != cudaSuccess) return static_cast<int>(code);
+  ++*launched;
+  return 0;
 }
 
 }  // namespace
@@ -611,31 +972,55 @@ int annchor_k8a_streamed(const float* Xn, const float* Zn, const long long* I, l
   return fn(Xn, Zn, I, sI, J, sJ, K, KC, B, n, npad, Bp, n_iter, tiny, ws, out, st);
 }
 
-// A, Bh (m, n) float32 histograms; C (n, n) float32; out (m,) float32.  P,
-// G, resident and global_v from ops/sinkhorn_cuda.log_plan; inv =
-// float32(1 / eps); with global_v, ws holds the blocks' potentials and log
-// histograms, 4 P n float32 a block.
-int annchor_k8b_log(const float* A, const float* Bh, const float* C, int m, int n, int P,
-                    int G, int resident, int global_v, float eps, float inv, int n_iter,
-                    float* ws, float* out, void* stream) {
+// K8b, resident: A, Bh (m, n) float32 histograms; C (n, n) float32; out
+// (m,) float32; npad, P and the thread tile, tc outputs x tr pairs (4 x 2,
+// 4 x 1 or 1 x 1), from ops/sinkhorn_cuda.log_plan; inv = float32(1 /
+// eps).  One launch.
+int annchor_k8b_resident(const float* A, const float* Bh, const float* C, int m, int n,
+                         int npad, int P, int tc, int tr, float eps, float inv, int n_iter,
+                         float* out, void* stream) {
   if (m <= 0) return 0;
-  if (n < 1 || P < 1 || G < 1 || G % 32 != 0 || P * G > 256 || n_iter < 0 ||
-      (global_v && (resident || ws == nullptr)))
+  const int threads = P / tr * ((n + tc - 1) / tc);
+  const size_t smem = sizeof(float) * log_res_floats(npad, P);
+  if (n < 1 || npad < n || npad % 32 != 0 || P < tr || P % tr != 0 || n_iter < 0 ||
+      threads > kLogThreads || smem > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = log_smem(n, P, G, resident != 0, global_v != 0);
-  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (static_cast<long long>(m) + P - 1) / P;
-  // the potentials leave shared memory only above 14,400 bins, where -C/eps
-  // is read from global memory too
-  auto fn = global_v   ? k8b_log<false, true>
-            : resident ? k8b_log<true, false>
-                       : k8b_log<false, false>;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto fn = tc == 4 && tr == 2   ? k8b_resident<4, 2>
+            : tc == 4 && tr == 1 ? k8b_resident<4, 1>
+            : tc == 1 && tr == 1 ? k8b_resident<1, 1>
+                                 : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int code = allow_smem(fn, smem);
   if (code != 0) return code;
-  fn<<<static_cast<unsigned>(blocks), P * G, smem, st>>>(A, Bh, C, m, n, P, G, eps, inv, n_iter,
-                                                          ws, out);
+  const long long blocks = (static_cast<long long>(m) + P - 1) / P;
+  fn<<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      A, Bh, C, m, n, npad, P, eps, inv, n_iter, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K8b, streamed: arguments as annchor_k8b_resident, with npad (a multiple
+// of 64), Bp (a multiple of the tile's PT pairs, at least m) from log_plan;
+// ws, 2 Bp npad float32 zeros (f / eps, then g / eps); rw, Bp npad float64.
+// 2 n_iter + 2 launches: the half steps, the cost's row sums, their sums;
+// *launched is set to the launches made.
+int annchor_k8b_streamed(const float* A, const float* Bh, const float* C, int m, int n,
+                         int npad, int Bp, int PT, int tc, int tr, float eps, float inv,
+                         int n_iter, float* ws, double* rw, float* out, int* launched,
+                         void* stream) {
+  *launched = 0;
+  if (m <= 0) return 0;
+  if (n < 1 || npad < n || npad % kLogBN != 0 || PT < tr || PT % tr != 0 || Bp < m ||
+      Bp % PT != 0 || Bp / PT > 65535 || PT / tr * (kLogBN / tc) > kLogThreads || n_iter < 0 ||
+      ws == nullptr || rw == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto fn = tc == 4 && tr == 4   ? log_streamed<4, 4>
+            : tc == 4 && tr == 2 ? log_streamed<4, 2>
+            : tc == 4 && tr == 1 ? log_streamed<4, 1>
+            : tc == 1 && tr == 1 ? log_streamed<1, 1>
+                                 : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(A, Bh, C, m, n, npad, Bp, PT, eps, inv, n_iter, ws, rw, out, launched,
+            static_cast<cudaStream_t>(stream));
 }
 
 const char* annchor_error_string(int code) {

@@ -15,8 +15,9 @@ Both converge to the entropy-regularised transport cost, which is biased
 against exact EMD and can break the triangle inequality, so their fits
 take the non-metric path.
 
-On a card both loops run as K8, one hand-written CUDA launch per chunk
-(``ops/sinkhorn_cuda.py``): ``sinkhorn_exp_chunk`` and ``sinkhorn_batch``
+On a card both loops run as K8, hand-written CUDA, one launch per chunk
+while the matrix fits shared memory (``ops/sinkhorn_cuda.py``):
+``sinkhorn_exp_chunk`` and ``sinkhorn_batch``
 dispatch CUDA tensors to it and CPU tensors to their plain versions,
 ``sinkhorn_exp_chunk_plain`` and ``sinkhorn_batch_plain``.
 
@@ -106,7 +107,7 @@ def sinkhorn_maxmin(Xn, K64, KC64, first: int, na: int, n_iter: int):
 def sinkhorn_batch(A, B, C, eps: float, n_iter: int):
     """Batched log-domain Sinkhorn: A, B (m, n) float32 histograms (rows
     sum to 1, zeros allowed), C (n, n) float32 cost, eps the temperature.
-    Returns the (m,) transport costs <P, C>.  On a card one K8b launch
+    Returns the (m,) transport costs <P, C>.  On a card K8b
     (``sinkhorn_cuda.sinkhorn_log_cuda``), on the CPU the plain version."""
     if A.is_cuda:
         return sinkhorn_cuda.sinkhorn_log_cuda(A, B, C, eps, n_iter)

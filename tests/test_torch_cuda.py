@@ -625,47 +625,89 @@ def test_k8a_large_n_matches_plain(cuda, n, B):
 
 
 def test_k8b_large_n_matches_plain(cuda):
-    """K8b above 14,400 bins, where the potentials and log histograms of a
-    pair live in a global workspace."""
+    """K8b above 14,400 bins on 2 pairs: the streamed path, its pair tile
+    shrunk to the batch so the output tiles spread over the card; against
+    its plain version and its model."""
     from annchor_tpu_torch.ops import sinkhorn_cuda as sc
     from annchor_tpu_torch.ops import wasserstein as w
 
     n = 14_401
     X, C = _k8_problem(n, 32, n)
-    assert sc.log_plan(2, n)["global_v"]
+    plan = sc.log_plan(2, n)
+    assert plan["path"] == "streamed" and plan["blocks"] >= sc.SMS
     Xu = torch.as_tensor(w.unit_mass(X), device=cuda)
     I, J = _k8_ids(len(X), 2, 3, cuda)
     A, Bh = Xu[I].contiguous(), Xu[J].contiguous()
     Cd = torch.as_tensor(C, device=cuda)
     eps = float(np.float32(0.02 * C.max()))
+    before = sc.K8.mode_launches["log"]
     got = w.sinkhorn_batch(A, Bh, Cd, eps, 1)
+    torch.cuda.synchronize()
+    assert sc.K8.mode_launches["log"] == before + sc.log_launches(plan, 1)
     want = w.sinkhorn_batch_plain(A, Bh, Cd, eps, 1)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=K8B_RTOL)
+    assert torch.equal(got, sc.log_batch_model(A, Bh, Cd, eps, 1))
+
+
+def _k8b_case(n, B, seed, cuda):
+    from annchor_tpu_torch.ops import wasserstein as w
+
+    X, C = _k8_problem(n, 1797, seed)
+    Xu = torch.as_tensor(w.unit_mass(X), device=cuda)
+    I, J = _k8_ids(len(X), B, seed, cuda)
+    return (Xu[I].contiguous(), Xu[J].contiguous(), torch.as_tensor(C, device=cuda),
+            float(np.float32(0.02 * C.max())))
 
 
 @pytest.mark.parametrize("B", [1, 256, 4096])
-@pytest.mark.parametrize("n", [5, 64, 100, 300])
+@pytest.mark.parametrize("n", [5, 64, 100, 224, 300, 784])
 def test_k8b_matches_plain(cuda, n, B):
     """K8b against its plain version on the card, both float32: only the
-    order of the sums differs."""
+    order of the sums differs; and against its torch model bit for bit.
+    Resident to 224 bins (one launch), streamed at 300 and 784 (28 x 28
+    images; 2 n_iter + 2 launches)."""
     from annchor_tpu_torch.ops import sinkhorn_cuda as sc
     from annchor_tpu_torch.ops import wasserstein as w
 
-    X, C = _k8_problem(n, 1797, n + B + 1)
-    Xu = torch.as_tensor(w.unit_mass(X), device=cuda)
-    I, J = _k8_ids(len(X), B, B + 1, cuda)
-    A, Bh = Xu[I].contiguous(), Xu[J].contiguous()
-    Cd = torch.as_tensor(C, device=cuda)
-    eps = float(np.float32(0.02 * C.max()))
+    A, Bh, Cd, eps = _k8b_case(n, B, n + B + 1, cuda)
     n_iter = 200 if n == 64 else 30
+    plan = sc.log_plan(B, n)
+    assert plan["path"] == ("streamed" if n > sc.LOG_RES_MAX_BINS else "resident")
     before = sc.K8.mode_launches["log"]
     got = w.sinkhorn_batch(A, Bh, Cd, eps, n_iter)
     torch.cuda.synchronize()
-    assert sc.K8.mode_launches["log"] == before + 1
+    assert sc.K8.mode_launches["log"] == before + sc.log_launches(plan, n_iter)
     want = w.sinkhorn_batch_plain(A, Bh, Cd, eps, n_iter)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=K8B_RTOL)
+    del want
+    assert torch.equal(got, sc.log_batch_model(A, Bh, Cd, eps, n_iter))
+
+
+@pytest.mark.parametrize("path,tile", [("resident", (4, 2)), ("resident", (4, 1)),
+                                       ("resident", (1, 1)), ("streamed", (4, 4)),
+                                       ("streamed", (4, 2)), ("streamed", (4, 1)),
+                                       ("streamed", (1, 1))])
+@pytest.mark.parametrize("n", [5, 64, 101])
+def test_k8b_forced_tile_matches_plain(cuda, path, tile, n):
+    """K8b in each thread tile on each path, forced, at 1,001 pairs (the
+    last block part padding) and at 5, 64 and 101 bins (outputs and k past
+    n in the last group, step and slab): against its plain version and
+    its model."""
+    from annchor_tpu_torch.ops import sinkhorn_cuda as sc
+    from annchor_tpu_torch.ops import wasserstein as w
+
+    A, Bh, Cd, eps = _k8b_case(n, 1001, n, cuda)
+    plan = sc.log_plan(1001, n, path, tile)
+    before = sc.K8.mode_launches["log"]
+    got = sc.sinkhorn_log_cuda(A, Bh, Cd, eps, 20, _plan=plan)
+    torch.cuda.synchronize()
+    assert sc.K8.mode_launches["log"] == before + sc.log_launches(plan, 20)
+    want = w.sinkhorn_batch_plain(A, Bh, Cd, eps, 20)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=K8B_RTOL)
+    assert torch.equal(got, sc.log_batch_model(A, Bh, Cd, eps, 20))
 
 
 def test_k8_call_does_not_sync(cuda):

@@ -30,6 +30,9 @@ from annchor_tpu_torch.ops.sinkhorn_cuda import K8
 torch.set_num_threads(2)
 
 RTOL = 2e-6
+# K8b's float32 sums in another order than the plain version's, and its
+# float64 closing sum: the card's tolerance (tests/test_torch_cuda.py)
+K8B_RTOL = 1e-5
 
 
 def _problem(n, seed, m=200):
@@ -218,23 +221,123 @@ def test_exp_plan_refuses():
         sc.exp_plan(64 * 65_535 + 1, 300)
 
 
-@pytest.mark.parametrize("B", [1, 256, 4096])
-@pytest.mark.parametrize("n", [5, 64, 300])
+@pytest.mark.parametrize("B", [1, 2, 256, 4096])
+@pytest.mark.parametrize("n", [5, 64, 192, 224, 300, 784, 14_401])
 def test_log_plan(B, n):
+    """K8b's plan: resident up to 224 bins (npad n rounded up to 32, one
+    launch), streamed beyond (tiles of P pairs by 64 outputs, npad n
+    rounded up to 64, the workspace's rows Bp to P); the largest thread
+    tile that still gives LOG_MIN_LANES threads (resident: not 4 x 4); at
+    most 256 threads a block; resident: no block size in range loads the
+    busiest SM less; streamed: no SM without a block where the pairs
+    allow it; the shared memory fits."""
     plan = sc.log_plan(B, n)
-    assert plan["G"] % 32 == 0 and plan["G"] >= min(n, 256)
-    assert plan["threads"] == plan["G"] * plan["P"] <= sc.LOG_THREADS
-    assert plan["blocks"] * plan["P"] >= B
-    assert plan["smem"] <= sc.SMEM_MAX
-    assert plan["resident"] == (n < 300) and not plan["global_v"]
-    if B == 4096:
-        assert plan["blocks"] >= 2 * sc.SMS
-    # -C/eps leaves shared memory above 237 bins, the potentials above 14,400
-    assert sc.log_plan(B, 237)["resident"] and not sc.log_plan(B, 238)["resident"]
-    for top, global_v in ((14_400, False), (14_401, True), (40_000, True)):
-        plan = sc.log_plan(B, top)
-        assert plan["smem"] <= sc.SMEM_MAX and plan["global_v"] == global_v
-        assert plan["P"] == 1 and not plan["resident"]
+    c, r = plan["C"], plan["R"]
+    assert (c, r) in sc.LOG_TILES and plan["P"] % r == 0
+    tiles = sc.LOG_TILES if plan["path"] == "streamed" else sc.LOG_TILES[1:]
+    first = next((t for t in tiles if -(-B // t[1]) * -(-n // t[0]) >= sc.LOG_MIN_LANES),
+                 (1, 1))
+    assert (c, r) == first
+    assert 0 < plan["threads"] <= sc.LOG_THREADS and plan["smem"] <= sc.SMEM_MAX
+    if n <= sc.LOG_RES_MAX_BINS:
+        assert plan["path"] == "resident" and plan["Bp"] == 0
+        assert plan["npad"] % 32 == 0 and n <= plan["npad"] < n + 32
+        TO = -(-n // c)
+        assert plan["threads"] == plan["P"] // r * TO >= 32
+        assert plan["blocks"] * plan["P"] >= B > (plan["blocks"] - 1) * plan["P"]
+        assert plan["smem"] == 4 * (plan["npad"] ** 2 + 2 * plan["P"] * (2 * plan["npad"] + 4))
+        cost = sc._res_cost(B, plan["P"], plan["threads"], plan["smem"])
+        for tp in range(-(-32 // TO), sc.LOG_THREADS // TO + 1):
+            smem = sc._log_res_smem(plan["npad"], tp * r)
+            assert smem > sc.SMEM_MAX or sc._res_cost(B, tp * r, tp * TO, smem) >= cost
+    else:
+        assert plan["path"] == "streamed"
+        assert plan["npad"] % 64 == 0 and n <= plan["npad"] < n + 64
+        assert plan["Bp"] % plan["P"] == 0 and B <= plan["Bp"] < B + plan["P"]
+        assert plan["threads"] == plan["P"] // r * 64 // c
+        assert plan["blocks"] == plan["npad"] // 64 * (plan["Bp"] // plan["P"])
+        assert plan["blocks"] >= sc.SMS or plan["P"] == r
+        assert plan["P"] <= max(r, B)  # no pair tile wider than the batch
+    if (B, n) == (4096, 64):  # the digits' chunk
+        assert (c, r, plan["P"], plan["blocks"]) == (4, 2, 16, 256)
+    if (B, n) == (2, 14_401):  # 2 pairs still spread over the card
+        assert (c, r, plan["P"], plan["blocks"]) == (1, 1, 2, 226)
+    forcible = sc.log_plans(B, n)
+    assert forcible == ([("resident", t) for t in sc.LOG_RES_TILES]
+                        if n <= sc.LOG_RES_MAX_BINS else []) + [
+        ("streamed", t) for t in sc.LOG_TILES]
+    for path, tile in forcible:
+        forced = sc.log_plan(B, n, path, tile)
+        assert (forced["path"], forced["C"], forced["R"]) == (path, *tile)
+        assert forced["threads"] <= sc.LOG_THREADS and forced["smem"] <= sc.SMEM_MAX
+
+
+def test_log_launches():
+    """One launch resident, 2 n_iter + 2 streamed (the half steps, the
+    cost's row sums, their sums), none for no pairs; the plan refuses a
+    wrong path, tile or size."""
+    assert sc.log_launches(sc.log_plan(4096, 64), 200) == 1
+    assert sc.log_launches(sc.log_plan(4096, 64, "streamed"), 200) == 402
+    assert sc.log_launches(sc.log_plan(2, 14_401), 1) == 4
+    assert sc.log_launches(sc.log_plan(8192, 784), 0) == 2
+    assert sc.log_launches(sc.log_plan(0, 784), 20) == 0
+    assert sc.log_launches(sc.log_plan(0, 64), 20) == 0
+    assert sc.log_plan(1, 224)["path"] == "resident"
+    assert sc.log_plan(1, 225)["path"] == "streamed"
+    with pytest.raises(ValueError, match="path must be"):
+        sc.log_plan(1, 64, "global")
+    assert sc.log_plan(4096, 224)["npad"] == 224
+    with pytest.raises(ValueError, match="no resident plan"):
+        sc.log_plan(1, 225, "resident")
+    with pytest.raises(ValueError, match="tile must be one of"):
+        sc.log_plan(1, 64, None, (2, 2))
+    with pytest.raises(ValueError, match="tile must be one of"):
+        sc.log_plan(1, 64, "resident", (4, 4))
+    with pytest.raises(ValueError, match="n >= 1"):
+        sc.log_plan(1, 0)
+    assert sc.log_plan(64 * 65_535, 300)["Bp"] == 64 * 65_535
+    with pytest.raises(ValueError, match="at most 4194240 pairs"):
+        sc.log_plan(64 * 65_535 + 1, 300)
+
+
+def _log_case(n, count, seed):
+    X, C = _problem(n, seed=seed)
+    IJ = _pairs(len(X), count, seed=seed)
+    Xn = tw.unit_mass(X)
+    # a power of two near 0.02 max C: the plain version's x / eps on the
+    # CPU (a division) is then the kernel's x * (1 / eps) (the card's), which
+    # the potentials of an all-zero histogram (-1e9 / eps, where a float32
+    # ulp is hundreds) would otherwise tell apart
+    eps = float(2.0 ** np.round(np.log2(0.02 * C.max())))
+    return (torch.from_numpy(Xn[IJ[:, 0]]), torch.from_numpy(Xn[IJ[:, 1]]),
+            torch.from_numpy(C), eps)
+
+
+@pytest.mark.parametrize("n,n_iter", [(64, 0), (64, 1), (64, 2), (64, 200), (5, 30),
+                                      (100, 30), (300, 3)])
+def test_k8b_model_matches_plain(n, n_iter):
+    """K8b's arithmetic, in its order (``log_batch_model``), against the
+    plain version on the digits at the metric's n_iter and on random
+    asymmetric costs (the orientation of -C/eps and its transpose shows),
+    with the zero and one-bin rows and self pairs: within K8B_RTOL, the
+    bound the card holds the kernel to (only the order of the float32 sums
+    and the float64 closing sum differ)."""
+    A, B, C, eps = _log_case(n, 60, seed=n + n_iter)
+    want = tw.sinkhorn_batch_plain(A, B, C, eps, n_iter)
+    got = sc.log_batch_model(A, B, C, eps, n_iter)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    # an all-zero histogram against a non-zero one costs inf in both
+    np.testing.assert_array_equal(np.isfinite(got.numpy()), np.isfinite(want.numpy()))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=K8B_RTOL)
+
+
+def test_k8b_model_matches_jax():
+    """The model against the JAX package's ``_sinkhorn_batch`` on the
+    digits at n_iter 60, to K8B_RTOL."""
+    A, B, C, eps = _log_case(64, 40, seed=9)
+    want = np.asarray(jw._sinkhorn_batch(A.numpy(), B.numpy(), C.numpy(), np.float32(eps), 60))
+    got = sc.log_batch_model(A, B, C, eps, 60)
+    np.testing.assert_allclose(got.numpy(), want, rtol=K8B_RTOL)
 
 
 def test_engines_take_the_plain_versions_on_the_cpu():
