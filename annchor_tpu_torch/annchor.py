@@ -30,13 +30,14 @@ fit is ROADMAP Queue 1 item 14.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
 import numpy as np
 import torch
 
-from annchor_tpu_torch import parallel
+from annchor_tpu_torch import parallel, trace
 from annchor_tpu_torch._backend import resolve_device, synchronize
 from annchor_tpu_torch.error_predictors import SimpleStratifiedErrorRegression
 from annchor_tpu_torch.metrics import (
@@ -173,135 +174,137 @@ class Annchor:
         device="cuda",
         uniforms=None,
     ):
-        self.X = X
-        self.nx = len(X)
-        self.N = (self.nx * (self.nx - 1)) // 2
-        self.device = resolve_device(device)
-        self.uniforms = uniforms
+        with trace.span("construct"):
+            self.X = X
+            self.nx = len(X)
+            self.N = (self.nx * (self.nx - 1)) // 2
+            self.device = resolve_device(device)
+            self.uniforms = uniforms
 
-        scale = self.nx > DENSE_MAX_NX
-        if n_anchors is None:
-            n_anchors = (
-                max(48, int(round(0.3 * self.nx**0.5 / 16.0)) * 16) if scale else 20
+            scale = self.nx > DENSE_MAX_NX
+            if n_anchors is None:
+                n_anchors = (
+                    max(48, int(round(0.3 * self.nx**0.5 / 16.0)) * 16) if scale else 20
+                )
+            locality = 5 if locality is None else locality
+            if loc_thresh is None:
+                loc_thresh = 3 if scale else 1
+            if niters is None:
+                niters = 4 if scale else 2
+            if refine_frac is None:
+                refine_frac = 0.05 if scale else 0.0
+
+            self.metric = get_function_from_input(func, func_kwargs, self.device)
+            self.f = self.metric.scalar
+            self.evals = 0
+
+            self.n_anchors = n_anchors
+            # deduplicated anchor-pair count used in the work budget
+            # (reference annchor.py:126)
+            self.na = int(
+                np.sum([self.nx - j for j in range(1, self.n_anchors + 1)])
             )
-        locality = 5 if locality is None else locality
-        if loc_thresh is None:
-            loc_thresh = 3 if scale else 1
-        if niters is None:
-            niters = 4 if scale else 2
-        if refine_frac is None:
-            refine_frac = 0.05 if scale else 0.0
+            self.n_neighbors = n_neighbors
+            self.p_work = p_work
+            self.n_samples = n_samples
 
-        self.metric = get_function_from_input(func, func_kwargs, self.device)
-        self.f = self.metric.scalar
-        self.evals = 0
+            if self.p_work > 1:
+                print("Warning: p_work should not exceed 1.  Setting it to 1.")
+                self.p_work = 1.0
+            min_p_work = (2 * (self.na + self.n_samples) + 1) / self.N
+            min_p_work = 1 if min_p_work > 1 else min_p_work
+            if self.p_work < min_p_work:
+                print("Warning: Too many anchors/samples for specified p_work.")
+                print("Increasing p_work to %5.3f." % min_p_work)
+                self.p_work = min_p_work
+            if self.p_work > 0.75:
+                print("Warning: High Value of p_work.")
+                print(
+                    "Think about decreasing n_anchors or n_samples,"
+                    + " or using BruteForce."
+                )
 
-        self.n_anchors = n_anchors
-        # deduplicated anchor-pair count used in the work budget
-        # (reference annchor.py:126)
-        self.na = int(
-            np.sum([self.nx - j for j in range(1, self.n_anchors + 1)])
-        )
-        self.n_neighbors = n_neighbors
-        self.p_work = p_work
-        self.n_samples = n_samples
-
-        if self.p_work > 1:
-            print("Warning: p_work should not exceed 1.  Setting it to 1.")
-            self.p_work = 1.0
-        min_p_work = (2 * (self.na + self.n_samples) + 1) / self.N
-        min_p_work = 1 if min_p_work > 1 else min_p_work
-        if self.p_work < min_p_work:
-            print("Warning: Too many anchors/samples for specified p_work.")
-            print("Increasing p_work to %5.3f." % min_p_work)
-            self.p_work = min_p_work
-        if self.p_work > 0.75:
-            print("Warning: High Value of p_work.")
-            print(
-                "Think about decreasing n_anchors or n_samples,"
-                + " or using BruteForce."
+            self.anchor_picker = anchor_picker or MaxMinAnchorPicker()
+            self.sampler = sampler or SimpleStratifiedSampler()
+            self.regression = regression or SimpleStratifiedLinearRegression()
+            self.error_predictor = (
+                error_predictor or SimpleStratifiedErrorRegression()
             )
 
-        self.anchor_picker = anchor_picker or MaxMinAnchorPicker()
-        self.sampler = sampler or SimpleStratifiedSampler()
-        self.regression = regression or SimpleStratifiedLinearRegression()
-        self.error_predictor = (
-            error_predictor or SimpleStratifiedErrorRegression()
-        )
-
-        self.random_seed = random_seed
-        self.verbose = verbose
-        self.locality = locality
-        self.loc_thresh = loc_thresh
-        self.loc_min = 10 * self.n_neighbors if loc_min is None else loc_min
-        self.loc_min = int(np.clip(self.loc_min, 0, self.nx - 1))
-        self.is_metric = bool(is_metric) and self.metric.is_metric
-        self.niters = niters
-        self.lookahead = lookahead
-        self.refine_frac = float(np.clip(refine_frac, 0.0, 0.9))
-        self.refine_rounds = int(refine_rounds)
-        self.pair_cap = None if pair_cap is None else int(pair_cap)
-        self.pair_cap_factor = (
-            None if pair_cap_factor is None else float(pair_cap_factor)
-        )
-        self.max_resident_pairs = (
-            None if max_resident_pairs is None else int(max_resident_pairs)
-        )
-        self.trace_dir = trace_dir
-
-        self._features = None
-        self._RefineApprox = None
-        self._ncm = None
-        self._P_idx = None
-        self._IJs = None
-        self._ij_dev = None  # device pair list (ij_i, ij_j, m), scale path
-        self._locality_info = None  # the scale path's build and admitted total
-        self._S_raw = self._sid_raw = self._loc_eff_raw = None
-        self._dev = None  # device-resident state (ops.device_pipeline)
-        self._dev_eval = None  # device-id metric eval (fused pipeline)
-        self.thresh = None  # host pipeline's per-point thresholds
-        self.neighbor_graph = None
-
-        self.backend = backend
-        if backend is not None and self.metric.batch is not None:
-            print(
-                "Warning: backend=%r is ignored for metric %r — it has "
-                "a batched engine (backend selects the worker pool for "
-                "arbitrary Python metrics only)." % (backend, self.metric.name)
+            self.random_seed = random_seed
+            self.verbose = verbose
+            self.locality = locality
+            self.loc_thresh = loc_thresh
+            self.loc_min = 10 * self.n_neighbors if loc_min is None else loc_min
+            self.loc_min = int(np.clip(self.loc_min, 0, self.nx - 1))
+            self.is_metric = bool(is_metric) and self.metric.is_metric
+            self.niters = niters
+            self.lookahead = lookahead
+            self.refine_frac = float(np.clip(refine_frac, 0.0, 0.9))
+            self.refine_rounds = int(refine_rounds)
+            self.pair_cap = None if pair_cap is None else int(pair_cap)
+            self.pair_cap_factor = (
+                None if pair_cap_factor is None else float(pair_cap_factor)
             )
-        if get_exact_ijs is None:
-            self.get_exact_ijs = make_get_exact_ijs(
-                self.metric, verbose=self.verbose, backend=backend
+            self.max_resident_pairs = (
+                None if max_resident_pairs is None else int(max_resident_pairs)
             )
-        else:
-            self.get_exact_ijs = get_exact_ijs
+            self.trace_dir = trace_dir
 
-        # scout/certify hybrid: when the metric ships a cheap approximate
-        # engine, exploration runs on it and only the reported graph is
-        # evaluated with the exact metric (``_certify``).  A user-supplied
-        # evaluator always wins.
-        self.scout_evals = 0
-        self.certify_pad = 8
-        self.certify_expand_rounds = 2  # scout-screened expansion in _certify
-        self.certify_expand_cap = None  # None -> 32 * nx
-        self._scouting = False
-        scout = getattr(self.metric, "scout", None)
-        if scout is not None and getattr(self.get_exact_ijs, "_annchor_default", False):
-            self._exact_eval = self.get_exact_ijs
+            self._features = None
+            self._RefineApprox = None
+            self._ncm = None
+            self._P_idx = None
+            self._IJs = None
+            self._ij_dev = None  # device pair list (ij_i, ij_j, m), scale path
+            self._locality_info = None  # the scale path's build and admitted total
+            self._S_raw = self._sid_raw = self._loc_eff_raw = None
+            self._dev = None  # device-resident state (ops.device_pipeline)
+            self._dev_eval = None  # device-id metric eval (fused pipeline)
+            self.thresh = None  # host pipeline's per-point thresholds
+            self.neighbor_graph = None
 
-            def scout_eval(f, X, IJ):
-                return scout(X, X, np.asarray(IJ))
+            self.backend = backend
+            if backend is not None and self.metric.batch is not None:
+                print(
+                    "Warning: backend=%r is ignored for metric %r — it has "
+                    "a batched engine (backend selects the worker pool for "
+                    "arbitrary Python metrics only)." % (backend, self.metric.name)
+                )
+            if get_exact_ijs is None:
+                self.get_exact_ijs = make_get_exact_ijs(
+                    self.metric, verbose=self.verbose, backend=backend
+                )
+            else:
+                self.get_exact_ijs = get_exact_ijs
 
-            scout_eval._annchor_default = True
-            self.get_exact_ijs = scout_eval
-            self._scouting = True
-            # entropic values carry an O(eps) bias that can break the
-            # triangle inequality: the non-metric path (reference
-            # annchor.py:73-76)
-            self.is_metric = False
+            # scout/certify hybrid: when the metric ships a cheap approximate
+            # engine, exploration runs on it and only the reported graph is
+            # evaluated with the exact metric (``_certify``).  A user-supplied
+            # evaluator always wins.
+            self.scout_evals = 0
+            self.certify_pad = 8
+            self.certify_expand_rounds = 2  # scout-screened expansion in _certify
+            self.certify_expand_cap = None  # None -> 32 * nx
+            self._scouting = False
+            scout = getattr(self.metric, "scout", None)
+            if scout is not None and getattr(self.get_exact_ijs, "_annchor_default", False):
+                self._exact_eval = self.get_exact_ijs
 
-        test_parallelisation(self.get_exact_ijs, self.f, self.X, self.nx, s=20)
-        self.get_exact_query_ijs = None
+                def scout_eval(f, X, IJ):
+                    return scout(X, X, np.asarray(IJ))
+
+                scout_eval._annchor_default = True
+                self.get_exact_ijs = scout_eval
+                self._scouting = True
+                # entropic values carry an O(eps) bias that can break the
+                # triangle inequality: the non-metric path (reference
+                # annchor.py:73-76)
+                self.is_metric = False
+
+            with trace.span("construct.smoke"):
+                test_parallelisation(self.get_exact_ijs, self.f, self.X, self.nx, s=20)
+            self.get_exact_query_ijs = None
 
     # -- device-resident state & lazy host mirrors -------------------------
     #
@@ -874,79 +877,92 @@ class Annchor:
         those whose scout value could beat a row's exact kth distance,
         with the admission margin calibrated from the scout-vs-exact
         residuals of the pass-1 edges."""
-        nx, nsel = ngi.shape
-        kk = self.n_neighbors - 1
+        with trace.span("certify") as certify:
+            nx, nsel = ngi.shape
+            kk = self.n_neighbors - 1
 
-        rows = np.repeat(np.arange(nx, dtype=np.int64), nsel)
-        cols = ngi.reshape(-1).astype(np.int64)
-        valid = (cols >= 0) & (cols != rows)
-        key = (np.minimum(rows, cols) * nx + np.maximum(rows, cols))[valid]
-        uniq = np.unique(key)
-        IJ = np.stack([uniq // nx, uniq % nx], axis=1)
-        # queue the scout values of the same edges first, run the host's
-        # exact batch while the device computes them, then download once
-        scout_dev = None
-        scout = self.metric.scout
-        if hasattr(scout, "dispatch"):
-            scout_dev, _ = scout.dispatch(self.X, self.X, IJ)
-        exact = self._exact_pairs(IJ)
-        if scout_dev is not None:
-            scout_d = scout_dev.cpu().numpy().astype(np.float64)
-            self.scout_evals += IJ.shape[0]
-        else:
-            scout_d = self._eval_pairs(IJ)
-        lo = float(np.quantile(exact - scout_d, 0.001)) - 1e-3
+            def exact_of(IJ):
+                with trace.span("certify.exact", pairs=IJ.shape[0]):
+                    return self._exact_pairs(IJ)
 
-        seen = uniq
-        pool_keys = uniq
-        pool_vals = exact
+            def scout_of(IJ):
+                with trace.span("certify.scout", pairs=IJ.shape[0]):
+                    return self._eval_pairs(IJ)
 
-        def row_topk():
-            a = pool_keys // nx
-            b = pool_keys % nx
-            pr = np.concatenate([a, b])
-            pc = np.concatenate([b, a])
-            pv = np.concatenate([pool_vals, pool_vals])
-            order = np.lexsort((pv, pr))
-            pr_s = pr[order]
-            starts = np.searchsorted(pr_s, np.arange(nx))
-            rank = np.arange(pr_s.shape[0]) - starts[pr_s]
-            sel = rank < kk
-            gi = np.full((nx, kk), -1, dtype=np.int64)
-            gd = np.full((nx, kk), np.inf)
-            gi[pr_s[sel], rank[sel]] = pc[order][sel]
-            gd[pr_s[sel], rank[sel]] = pv[order][sel]
-            return gi, gd
+            rows = np.repeat(np.arange(nx, dtype=np.int64), nsel)
+            cols = ngi.reshape(-1).astype(np.int64)
+            valid = (cols >= 0) & (cols != rows)
+            key = (np.minimum(rows, cols) * nx + np.maximum(rows, cols))[valid]
+            uniq = np.unique(key)
+            IJ = np.stack([uniq // nx, uniq % nx], axis=1)
+            # queue the scout values of the same edges first, run the host's
+            # exact batch while the device computes them, then download once
+            scout_dev = None
+            scout = self.metric.scout
+            if hasattr(scout, "dispatch"):
+                scout_dev, _ = scout.dispatch(self.X, self.X, IJ)
+            exact = exact_of(IJ)
+            if scout_dev is not None:
+                with trace.span("certify.scout_wait", pairs=IJ.shape[0]):
+                    scout_d = scout_dev.cpu().numpy().astype(np.float64)
+                self.scout_evals += IJ.shape[0]
+            else:
+                scout_d = scout_of(IJ)
+            lo = float(np.quantile(exact - scout_d, 0.001)) - 1e-3
 
-        cap = self.certify_expand_cap
-        if cap is None:
-            cap = 32 * nx
-        for _ in range(self.certify_expand_rounds):
-            gi, gd = row_topk()
-            kth = gd[:, -1]
-            vi, vj = np.nonzero(gi >= 0)
-            j = gi[vi, vj]
-            ri = np.repeat(vi, kk)
-            ci = gi[j].reshape(-1)
-            ok = (ci >= 0) & (ci != ri)
-            ek = np.minimum(ri, ci) * nx + np.maximum(ri, ci)
-            new = np.setdiff1d(np.unique(ek[ok]), seen, assume_unique=True)
-            if new.size == 0:
-                break
-            a = new // nx
-            b = new % nx
-            sdn = self._eval_pairs(np.stack([a, b], axis=1))
-            margin = sdn + lo - np.maximum(kth[a], kth[b])
-            admit = np.flatnonzero(margin <= 0.0)
-            if admit.size > cap:
-                admit = admit[np.argpartition(margin[admit], cap)[:cap]]
-            seen = np.union1d(seen, new)
-            if admit.size == 0:
-                continue
-            ex = self._exact_pairs(np.stack([a[admit], b[admit]], axis=1))
-            pool_keys = np.concatenate([pool_keys, new[admit]])
-            pool_vals = np.concatenate([pool_vals, ex])
-        return row_topk()
+            seen = uniq
+            pool_keys = uniq
+            pool_vals = exact
+
+            def row_topk():
+                a = pool_keys // nx
+                b = pool_keys % nx
+                pr = np.concatenate([a, b])
+                pc = np.concatenate([b, a])
+                pv = np.concatenate([pool_vals, pool_vals])
+                order = np.lexsort((pv, pr))
+                pr_s = pr[order]
+                starts = np.searchsorted(pr_s, np.arange(nx))
+                rank = np.arange(pr_s.shape[0]) - starts[pr_s]
+                sel = rank < kk
+                gi = np.full((nx, kk), -1, dtype=np.int64)
+                gd = np.full((nx, kk), np.inf)
+                gi[pr_s[sel], rank[sel]] = pc[order][sel]
+                gd[pr_s[sel], rank[sel]] = pv[order][sel]
+                return gi, gd
+
+            cap = self.certify_expand_cap
+            if cap is None:
+                cap = 32 * nx
+            rounds = 0
+            for _ in range(self.certify_expand_rounds):
+                gi, gd = row_topk()
+                kth = gd[:, -1]
+                vi, vj = np.nonzero(gi >= 0)
+                j = gi[vi, vj]
+                ri = np.repeat(vi, kk)
+                ci = gi[j].reshape(-1)
+                ok = (ci >= 0) & (ci != ri)
+                ek = np.minimum(ri, ci) * nx + np.maximum(ri, ci)
+                new = np.setdiff1d(np.unique(ek[ok]), seen, assume_unique=True)
+                if new.size == 0:
+                    break
+                rounds += 1
+                a = new // nx
+                b = new % nx
+                sdn = scout_of(np.stack([a, b], axis=1))
+                margin = sdn + lo - np.maximum(kth[a], kth[b])
+                admit = np.flatnonzero(margin <= 0.0)
+                if admit.size > cap:
+                    admit = admit[np.argpartition(margin[admit], cap)[:cap]]
+                seen = np.union1d(seen, new)
+                if admit.size == 0:
+                    continue
+                ex = exact_of(np.stack([a[admit], b[admit]], axis=1))
+                pool_keys = np.concatenate([pool_keys, new[admit]])
+                pool_vals = np.concatenate([pool_vals, ex])
+            certify.count(rounds=rounds)
+            return row_topk()
 
     def get_ann(self):
         """Assemble the k-NN graph, self-prepended
@@ -989,17 +1005,21 @@ class Annchor:
         With verbose=True prints the reference's stage-timer table
         (reference annchor.py:538-543) with the per-stage metric-call
         count; every stage ends in a device synchronisation, so the
-        times are the device's.  With trace_dir set, the whole fit runs
-        under ``torch.profiler`` and its trace is written there."""
-        if self.trace_dir is None:
-            return self._fit_impl()
-        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+        times are the device's.  While a ``torch.profiler`` records, the
+        fit and each stage are spans (``trace.py``: ``fit``,
+        ``fit.<stage>``), which do not synchronise.  With trace_dir set,
+        the whole fit runs under ``torch.profiler`` and its trace,
+        spans included, is written there."""
+        prof = contextlib.nullcontext()
+        if self.trace_dir is not None:
+            from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities,
-                     on_trace_ready=tensorboard_trace_handler(self.trace_dir)):
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities,
+                           on_trace_ready=tensorboard_trace_handler(self.trace_dir))
+        with prof, trace.span("fit"):
             return self._fit_impl()
 
     def _fit_impl(self):
@@ -1014,12 +1034,21 @@ class Annchor:
                 % (item, now - start, now - origin, d_evals)
             )
 
-        def stage(name, fn, origin):
+        @contextlib.contextmanager
+        def stage(name, **counts):
+            """A stage's span ``fit.<name>``, with the evaluations it spent
+            as counts; with verbose, its row of the stage table, timed to a
+            synchronise of the device outside the span."""
             start = time.time()
-            fn()
-            if self.verbose:
-                synchronize(self.device)
-                timeit(name, origin, start)
+            evals, scout_evals = self.evals, self.scout_evals
+            try:
+                with trace.span("fit." + name, **counts) as sp:
+                    yield
+                    sp.count(evals=self.evals - evals, scout_evals=self.scout_evals - scout_evals)
+            finally:
+                if self.verbose:
+                    synchronize(self.device)
+                    timeit(name, origin, start)
 
         origin = time.time()
         for name, fn in [
@@ -1029,49 +1058,45 @@ class Annchor:
         ]:
             if self.verbose:
                 print(f"computing {name}...")
-            stage(name, fn, origin)
+            with stage(name):
+                fn()
 
         niters = self.niters
         for it in range(niters):
-            start = time.time()
-            try:
-                self.get_sample()
-            except NothingToSample as err:
-                if it == 0 and self._evaluate_remaining():
+            with stage("get_sample", it=it):
+                try:
+                    self.get_sample()
+                except NothingToSample as err:
+                    if it == 0 and self._evaluate_remaining():
+                        break
+                    if it == 0:
+                        raise ValueError(
+                            "Sampler raised NothingToSample on first iteration."
+                        ) from err
+                    print(
+                        "Warning: main loop terminated early with nothing "
+                        + "left to sample."
+                    )
                     break
-                if it == 0:
-                    raise ValueError(
-                        "Sampler raised NothingToSample on first iteration."
-                    ) from err
-                print(
-                    "Warning: main loop terminated early with nothing "
-                    + "left to sample."
-                )
-                break
-            finally:
-                if self.verbose:
-                    synchronize(self.device)
-                    timeit("get_sample", origin, start)
 
-            stage("fit_predict_regression", self.fit_predict_regression, origin)
-            stage("fit_predict_errors", self.fit_predict_errors, origin)
-            stage(
-                "select_refine_candidate_pairs",
-                lambda: self.select_refine_candidate_pairs(w=1 / niters, it=it),
-                origin,
-            )
+            with stage("fit_predict_regression", it=it):
+                self.fit_predict_regression()
+            with stage("fit_predict_errors", it=it):
+                self.fit_predict_errors()
+            with stage("select_refine_candidate_pairs", it=it):
+                self.select_refine_candidate_pairs(w=1 / niters, it=it)
             if it < niters - 1:
-                stage("update_anchor_points", self.update_anchor_points, origin)
+                with stage("update_anchor_points", it=it):
+                    self.update_anchor_points()
 
-        stage("finalise_bounds", self.finalise_bounds, origin)
-        stage("get_ann", self.get_ann, origin)
+        with stage("finalise_bounds"):
+            self.finalise_bounds()
+        with stage("get_ann"):
+            self.get_ann()
         if self.refine_frac > 0 and not self._scouting:
             # the held-back share of p_work goes to graph expansion
-            stage(
-                "refine_neighbor_graph",
-                lambda: self.refine_neighbor_graph(rounds=self.refine_rounds),
-                origin,
-            )
+            with stage("refine_neighbor_graph"):
+                self.refine_neighbor_graph(rounds=self.refine_rounds)
 
     def refine_neighbor_graph(self, rounds=2, budget=None):
         """Post-fit graph-expansion refinement (``refine.py``): certify

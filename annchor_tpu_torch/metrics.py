@@ -40,7 +40,7 @@ import threading
 import numpy as np
 import torch
 
-from annchor_tpu_torch import native, parallel
+from annchor_tpu_torch import native, parallel, trace
 from annchor_tpu_torch._backend import resolve_device
 from annchor_tpu_torch.ops import levenshtein as _lev_ops
 from annchor_tpu_torch.ops.levenshtein_myers import (
@@ -308,7 +308,8 @@ class _LevenshteinEngine:
         hit = self._cache.get(key)
         if hit is not None and hit[0] is X:
             return hit[1]
-        enc = MyersEncoding.from_codes(*_encode_codes(X), self.device)
+        with trace.span("engine.encode", strings=len(X)):
+            enc = MyersEncoding.from_codes(*_encode_codes(X), self.device)
         self._cache = {key: (X, enc)}  # hold one dataset at a time
         return enc
 
@@ -322,9 +323,10 @@ class _LevenshteinEngine:
         )
 
     def _pairs(self, enc, I, J):
-        I = torch.as_tensor(np.asarray(I, dtype=np.int64), device=self.device)
-        J = torch.as_tensor(np.asarray(J, dtype=np.int64), device=self.device)
-        return self._eval(enc, I, J).cpu().numpy()
+        with trace.span("engine.levenshtein", pairs=len(I)):
+            I = torch.as_tensor(np.asarray(I, dtype=np.int64), device=self.device)
+            J = torch.as_tensor(np.asarray(J, dtype=np.int64), device=self.device)
+            return self._eval(enc, I, J).cpu().numpy()
 
     def batch_dev_ready(self, X):
         return True
@@ -351,9 +353,10 @@ class _LevenshteinEngine:
         if held is not None and held[0] is X and held[1] is Z:
             enc = held[2]
         else:
-            enc = MyersEncoding.from_codes(
-                *_encode_codes(list(X) + list(Z)), self.device
-            )
+            with trace.span("engine.encode", strings=len(X) + len(Z)):
+                enc = MyersEncoding.from_codes(
+                    *_encode_codes(list(X) + list(Z)), self.device
+                )
             if self._holds:
                 self._pair_enc = (X, Z, enc)
         return self._pairs(enc, IJ[:, 0], IJ[:, 1] + len(X)).astype(
@@ -378,9 +381,10 @@ class _EMDEngine:
         IJ = np.asarray(IJ, dtype=np.int64)
         if IJ.shape[0] == 0:
             return np.zeros(0, dtype=np.float64)
-        X = np.ascontiguousarray(X, dtype=np.float64)
-        Zc = X if Z is X else np.ascontiguousarray(Z, dtype=np.float64)
-        return native.emd_batch(X, Zc, self.cost_matrix, IJ[:, 0], IJ[:, 1])
+        with trace.span("engine.emd", pairs=IJ.shape[0]):
+            X = np.ascontiguousarray(X, dtype=np.float64)
+            Zc = X if Z is X else np.ascontiguousarray(Z, dtype=np.float64)
+            return native.emd_batch(X, Zc, self.cost_matrix, IJ[:, 0], IJ[:, 1])
 
 
 def _make_emd_scalar(cost_matrix):

@@ -16,7 +16,6 @@ import os
 import platform
 import subprocess
 import threading
-import time
 
 import numpy as np
 
@@ -46,11 +45,9 @@ def _cpu_model() -> str:
 
 
 class _Library:
-    """The EMD library, built at first use; ``build_s`` is the seconds
-    the build took in this process (0 when a cached library was loaded)."""
+    """The EMD library, built at first use."""
 
     def __init__(self):
-        self.build_s = 0.0
         self._lib = None
         self._lock = threading.Lock()
 
@@ -65,7 +62,6 @@ class _Library:
         os.makedirs(os.path.dirname(out), exist_ok=True)
         tmp = "%s.%d.tmp" % (out, os.getpid())
         cmd = ["g++", *GXX_FLAGS, "-o", tmp, _SRC]
-        t0 = time.perf_counter()
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
         except FileNotFoundError as err:
@@ -75,7 +71,6 @@ class _Library:
             raise RuntimeError("building the EMD solver failed (%s):\n%s"
                                % (" ".join(cmd), proc.stdout + proc.stderr))
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-        self.build_s = time.perf_counter() - t0
 
     def lib(self) -> ctypes.CDLL:
         with self._lock:

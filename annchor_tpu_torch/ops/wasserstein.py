@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from annchor_tpu_torch import trace
 from annchor_tpu_torch._backend import resolve_device
 from annchor_tpu_torch.ops import sinkhorn_cuda
 
@@ -68,8 +69,8 @@ def sinkhorn_exp_chunk(Xn, Zn, I, J, K64, KC64, n_iter: int):
     with unit row mass; I, J: int64 ids; K64 = exp(-C/eps) and KC64 = K * C
     as float64 tensors of float32 values.  On a card one K8a launch
     (``sinkhorn_cuda.sinkhorn_exp_cuda``), on the CPU the plain version."""
-    # a named range for profiler traces (chip_smoke.py sums its kernels)
-    with torch.profiler.record_function("sinkhorn_exp_chunk"):
+    # a span, named as chip_smoke.py reads it
+    with trace.span("sinkhorn_exp_chunk", pairs=I.shape[0]):
         if Xn.is_cuda:
             return sinkhorn_cuda.sinkhorn_exp_cuda(Xn, Zn, I, J, K64, KC64, n_iter, TINY)
         return sinkhorn_exp_chunk_plain(Xn, Zn, I, J, K64, KC64, n_iter)
@@ -224,10 +225,11 @@ class SinkhornExpEngine:
                             _ids(IJ[:, 1], self.device)), m
 
     def __call__(self, X, Z, IJ):
-        dev, m = self.dispatch(X, Z, IJ)
-        if m == 0:
-            return np.zeros(0, dtype=np.float64)
-        return dev.cpu().numpy().astype(np.float64)
+        with trace.span("engine.sinkhorn", pairs=len(IJ)):
+            dev, m = self.dispatch(X, Z, IJ)
+            if m == 0:
+                return np.zeros(0, dtype=np.float64)
+            return dev.cpu().numpy().astype(np.float64)
 
 
 class SinkhornEngine:

@@ -29,6 +29,7 @@ import contextlib
 
 import numpy as np
 
+from annchor_tpu_torch import trace
 from annchor_tpu_torch.ops import pairs as pair_ops
 from annchor_tpu_torch.ops.features import bounds_and_dad
 from annchor_tpu_torch.ops.locality import query_candidates
@@ -447,64 +448,81 @@ def query_(ann, Q, nn=15, p_work=0.3, get_exact_query_ijs=None,
     distances per query row.  ``loc_thresh``/``locality`` override the
     fitted filter knobs for the query-side candidates only (the eval
     budget stays p_work)."""
-    if get_exact_query_ijs is not None:
-        ann.get_exact_query_ijs = get_exact_query_ijs
-    geq = ann._get_exact_query_ijs_for(ann.f)
+    with trace.span("query", queries=len(Q)):
+        if get_exact_query_ijs is not None:
+            ann.get_exact_query_ijs = get_exact_query_ijs
+        geq = ann._get_exact_query_ijs_for(ann.f)
 
-    # scout/certify hybrid: exploration through the scout, exact
-    # certification of the reported rows
-    scouting = getattr(ann, "_scouting", False) and get_exact_query_ijs is None
-    if scouting:
-        scout_eng = ann.metric.scout
+        # scout/certify hybrid: exploration through the scout, exact
+        # certification of the reported rows
+        scouting = getattr(ann, "_scouting", False) and get_exact_query_ijs is None
+        if scouting:
+            scout_eng = ann.metric.scout
 
-        def eval_geq(f, Xa, Z, IJ):
-            return scout_eng(Xa, Z, np.asarray(IJ))
+            def eval_geq(f, Xa, Z, IJ):
+                return scout_eng(Xa, Z, np.asarray(IJ))
 
-    else:
-        eval_geq = geq
-    with _held_encoding(ann):
-        # the anchor columns use the fit's engine: the fitted D and
-        # regression carry the scout's bias, and consistent features beat
-        # exact but inconsistent ones
-        QD = get_query_anchor_dists(ann, Q, eval_geq)
-        check = query_candidates(
-            ann._S_raw, QD,
-            ann.locality if locality is None else locality,
-            ann.loc_thresh if loc_thresh is None else loc_thresh,
-            device=ann.device,
-        )
-        IJs, P_idx, P_cnt, Qfeatures, Qncm = get_query_features(ann, Q, QD, check)
+        else:
+            eval_geq = geq
+        asked = 0  # pairs the walk asks of the evaluator
 
-        Qpred = ann.regression.predict(Qfeatures, ann.feature_names)
-        if ann.is_metric:
-            ilb = ann.feature_names.index("lower bound")
-            iub = ann.feature_names.index("upper bound")
-            Qpred = np.clip(Qpred, Qfeatures[:, ilb], Qfeatures[:, iub])
-        Qerrors = ann.error_predictor.predict(Qfeatures, ann.feature_names)
+        def walk_geq(f, Xa, Z, IJ):
+            nonlocal asked
+            asked += len(IJ)
+            return eval_geq(f, Xa, Z, IJ)
 
-        IJ_all, RA_all, ncm_all = select_refine_candidate_query_pairs(
-            ann, IJs, Q, P_idx, P_cnt, Qpred.copy(), Qncm, Qerrors, p_work, nn,
-            eval_geq, seed_frac=seed_frac, expand_rounds=expand_rounds,
-        )
-    if IJ_all.shape[0] != IJs.shape[0]:
-        # the graph walk found pairs outside the locality candidates
-        P_idx, _ = pair_ops.build_point_index_single(IJ_all[:, 1], len(Q), ann.device)
+        with _held_encoding(ann):
+            # the anchor columns use the fit's engine: the fitted D and
+            # regression carry the scout's bias, and consistent features beat
+            # exact but inconsistent ones
+            with trace.span("query.anchors"):
+                QD = get_query_anchor_dists(ann, Q, eval_geq)
+            with trace.span("query.candidates"):
+                check = query_candidates(
+                    ann._S_raw, QD,
+                    ann.locality if locality is None else locality,
+                    ann.loc_thresh if loc_thresh is None else loc_thresh,
+                    device=ann.device,
+                )
+            with trace.span("query.features"):
+                IJs, P_idx, P_cnt, Qfeatures, Qncm = get_query_features(ann, Q, QD, check)
 
-    # reference quirk: the query graph carries nn + 1 columns
-    # (reference query_functions.py:210 calls get_nn with nn + 1)
-    nout = nn + 1
-    nsel = nout + (ann.certify_pad if scouting else 0)
-    ngi, ngd, _ = pair_ops.knn_from_pairs(RA_all, IJ_all, P_idx, ncm_all, nsel,
-                                          ann.device)
-    if not scouting:
-        return ngi, ngd
-    nq = len(Q)
-    rows = np.repeat(np.arange(nq, dtype=np.int64), nsel)
-    dbs = ngi.reshape(-1)
-    valid = dbs >= 0
-    IJq = np.stack([dbs[valid], rows[valid]], axis=1)
-    dists = np.full(nq * nsel, np.inf)
-    dists[valid] = np.asarray(geq(ann.f, ann.X, Q, IJq), dtype=np.float64)
-    dists = dists.reshape(nq, nsel)
-    order = np.argsort(dists, axis=1, kind="stable")[:, :nout]
-    return np.take_along_axis(ngi, order, axis=1), np.take_along_axis(dists, order, axis=1)
+            with trace.span("query.predict"):
+                Qpred = ann.regression.predict(Qfeatures, ann.feature_names)
+                if ann.is_metric:
+                    ilb = ann.feature_names.index("lower bound")
+                    iub = ann.feature_names.index("upper bound")
+                    Qpred = np.clip(Qpred, Qfeatures[:, ilb], Qfeatures[:, iub])
+                Qerrors = ann.error_predictor.predict(Qfeatures, ann.feature_names)
+
+            with trace.span("query.walk") as walk:
+                IJ_all, RA_all, ncm_all = select_refine_candidate_query_pairs(
+                    ann, IJs, Q, P_idx, P_cnt, Qpred.copy(), Qncm, Qerrors, p_work, nn,
+                    walk_geq, seed_frac=seed_frac, expand_rounds=expand_rounds,
+                )
+                walk.count(pairs=asked)
+        with trace.span("query.graph"):
+            if IJ_all.shape[0] != IJs.shape[0]:
+                # the graph walk found pairs outside the locality candidates
+                P_idx, _ = pair_ops.build_point_index_single(IJ_all[:, 1], len(Q), ann.device)
+
+            # reference quirk: the query graph carries nn + 1 columns
+            # (reference query_functions.py:210 calls get_nn with nn + 1)
+            nout = nn + 1
+            nsel = nout + (ann.certify_pad if scouting else 0)
+            ngi, ngd, _ = pair_ops.knn_from_pairs(RA_all, IJ_all, P_idx, ncm_all, nsel,
+                                                  ann.device)
+        if not scouting:
+            return ngi, ngd
+        with trace.span("query.certify") as certify:
+            nq = len(Q)
+            rows = np.repeat(np.arange(nq, dtype=np.int64), nsel)
+            dbs = ngi.reshape(-1)
+            valid = dbs >= 0
+            IJq = np.stack([dbs[valid], rows[valid]], axis=1)
+            certify.count(pairs=IJq.shape[0])
+            dists = np.full(nq * nsel, np.inf)
+            dists[valid] = np.asarray(geq(ann.f, ann.X, Q, IJq), dtype=np.float64)
+            dists = dists.reshape(nq, nsel)
+            order = np.argsort(dists, axis=1, kind="stable")[:, :nout]
+            return np.take_along_axis(ngi, order, axis=1), np.take_along_axis(dists, order, axis=1)

@@ -6,6 +6,7 @@ same anchors and candidate pairs, spend the same number of metric
 evaluations and report the same k-NN graph as the JAX fit.
 """
 
+import json
 import os
 
 import numpy as np
@@ -525,7 +526,12 @@ def test_trace_dir_writes_a_trace(tmp_path):
     traced.fit()
     plain = att.Annchor(list(X), "levenshtein", device="cpu", **kw)
     plain.fit()
-    assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path / "port"))
+    written = [f for f in os.listdir(tmp_path / "port") if f.endswith(".pt.trace.json")]
+    assert written
+    with open(tmp_path / "port" / written[0]) as fh:
+        events = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    # the program's spans ride on the profiler's trace
+    assert {"fit", "fit.get_anchors", "fit.get_ann"} <= events
     assert traced.evals == plain.evals
     for a, b in zip(traced.neighbor_graph, plain.neighbor_graph):
         np.testing.assert_array_equal(a, b)

@@ -1,0 +1,297 @@
+"""The port's span recorder (``annchor_tpu_torch.trace``) on the CPU: off
+without a profiler, nesting, request ids, self time and the profiler's
+clock under one; the spans of a strings fit, a digits hybrid fit and
+their queries; the verbose stage table beside the stage spans; and the
+benchmark's per-layer metrics that read the spans."""
+
+import collections
+import contextlib
+import io
+import time
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import annchor_tpu_torch as att
+from annchor_tpu_torch import trace
+from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix, make_strings
+
+FIT_STAGES = ("get_anchors", "get_locality", "get_features", "get_sample",
+              "fit_predict_regression", "fit_predict_errors",
+              "select_refine_candidate_pairs", "update_anchor_points",
+              "finalise_bounds", "get_ann")
+QUERY_CHILDREN = ("query.anchors", "query.candidates", "query.features", "query.predict",
+                  "query.walk", "query.graph")
+STRINGS_KW = dict(n_anchors=8, n_neighbors=6, n_samples=300, p_work=0.3, device="cpu")
+DIGITS_KW = dict(n_anchors=8, n_neighbors=6, n_samples=400, p_work=0.3, device="cpu")
+
+
+@pytest.fixture(autouse=True)
+def _empty_list():
+    trace.reset()
+    yield
+    trace.reset()
+
+
+def _profiled():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _strings():
+    X, _ = make_strings(n=150, length=30, seed=4)
+    return list(X[:120]), list(X[120:])
+
+
+def _digits():
+    X, _ = digit_images()
+    return X[:120], X[120:150], {"cost_matrix": grid_cost_matrix(), "scout": "sinkhorn",
+                                 "n_iter": 30}
+
+
+def _run(make, queries, nn=5):
+    """Construct, fit and query under the profiler: (index, spans)."""
+    trace.reset()
+    with _profiled():
+        ann = make()
+        ann.fit()
+        ann.query(queries, nn=nn, p_work=0.3)
+    return ann, trace.spans()
+
+
+@pytest.fixture(scope="module")
+def strings_run():
+    X, Q = _strings()
+    return _run(lambda: att.Annchor(X, "levenshtein", **STRINGS_KW), Q)
+
+
+@pytest.fixture(scope="module")
+def digits_run():
+    X, Q, fk = _digits()
+    return _run(lambda: att.Annchor(X, "wasserstein", func_kwargs=fk, **DIGITS_KW), Q)
+
+
+def _children(recs, parent):
+    return [r for r in recs if r.parent == parent.index]
+
+
+def test_no_profiler_records_nothing_and_enters_no_range(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("record_function entered with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    X, Q = _strings()
+    ann = att.Annchor(X, "levenshtein", **STRINGS_KW)
+    ann.fit()
+    ann.query(Q, nn=5, p_work=0.3)
+    Xd, Qd, fk = _digits()
+    ann = att.Annchor(Xd, "wasserstein", func_kwargs=fk, **DIGITS_KW)
+    ann.fit()
+    ann.query(Qd, nn=5, p_work=0.3)
+    assert trace.spans() == []
+
+
+def test_spans_nest_with_parents_requests_and_counts():
+    with _profiled():
+        with trace.span("fit") as fit:
+            with trace.span("fit.get_ann", it=1) as stage:
+                with trace.span("engine.emd", pairs=3):
+                    pass
+                stage.count(evals=3)
+            fit.count(rounds=2)
+        with trace.span("query"):
+            with trace.span("query.walk"):
+                pass
+        with trace.span("engine.encode"):
+            pass
+    recs = trace.spans()
+    assert [r.name for r in recs] == ["fit", "fit.get_ann", "engine.emd", "query",
+                                      "query.walk", "engine.encode"]
+    fit, stage, emd, query, walk, loose = recs
+    assert (fit.parent, stage.parent, emd.parent) == (None, fit.index, stage.index)
+    assert (query.parent, walk.parent, loose.parent) == (None, query.index, None)
+    assert fit.request == stage.request == emd.request
+    assert query.request == walk.request != fit.request
+    assert loose.request is None
+    assert stage.counts == {"it": 1, "evals": 3} and emd.counts == {"pairs": 3}
+    assert fit.counts == {"rounds": 2}
+    assert all(r.start_ns <= r.end_ns for r in recs)
+    assert fit.start_ns <= stage.start_ns <= emd.start_ns <= emd.end_ns <= stage.end_ns
+
+
+def test_self_ns_takes_out_what_children_cover():
+    def rec(i, name, a, b, parent):
+        r = trace.Span(i, name, a, parent, 1, {})
+        r.end_ns = b
+        return r
+
+    # children overlap each other and run past the parent's end
+    recs = [rec(0, "certify", 0, 100, None), rec(1, "certify.exact", 10, 30, 0),
+            rec(2, "certify.exact", 20, 40, 0), rec(3, "certify.scout", 90, 120, 0),
+            rec(4, "engine.emd", 12, 18, 1)]
+    open_span = trace.Span(5, "certify.scout", 50, 0, 1, {})
+    assert trace.self_ns(recs + [open_span]) == [60, 14, 20, 30, 6, None]
+
+
+def test_span_ends_lie_within_a_millisecond_of_the_profilers_events():
+    with _profiled() as prof:
+        with trace.span("warm"):
+            pass
+        with trace.span("query"):
+            with trace.span("query.walk"):
+                torch.ones(4096).sum()
+                time.sleep(0.003)
+            with trace.span("query.graph"):
+                time.sleep(0.002)
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()
+              if e.name() in ("query", "query.walk", "query.graph")}
+    recs = [r for r in trace.spans() if r.name != "warm"]
+    assert len(recs) == 3 and set(events) == {r.name for r in recs}
+    for r in recs:
+        e = events[r.name]
+        assert abs(e.start_ns() - r.start_ns) < 1_000_000, r
+        assert abs(e.start_ns() + e.duration_ns() - r.end_ns) < 1_000_000, r
+
+
+def test_the_list_keeps_the_newest_spans(monkeypatch):
+    monkeypatch.setattr(trace, "_records", collections.deque(maxlen=4))
+    with _profiled():
+        for i in range(6):
+            with trace.span("engine.emd", pairs=i):
+                pass
+    assert [r.counts["pairs"] for r in trace.spans()] == [2, 3, 4, 5]
+
+
+def test_strings_fit_records_construct_encoding_and_every_stage(strings_run):
+    ann, recs = strings_run
+    names = [r.name for r in recs]
+    construct = recs[names.index("construct")]
+    smoke = recs[names.index("construct.smoke")]
+    assert smoke.parent == construct.index
+    encodes = [r for r in recs if r.name == "engine.encode"]
+    assert encodes[0].request == construct.request and encodes[0].counts["strings"] == 120
+    fit = recs[names.index("fit")]
+    stages = _children(recs, fit)
+    assert {r.name for r in stages} == {"fit." + s for s in FIT_STAGES}
+    assert all(r.request == fit.request for r in stages)
+    assert sum(r.counts["evals"] for r in stages) == ann.evals
+    loop = [r for r in stages if "it" in r.counts]
+    assert {r.name[4:] for r in loop} == {"get_sample", "fit_predict_regression",
+                                          "fit_predict_errors",
+                                          "select_refine_candidate_pairs",
+                                          "update_anchor_points"}
+
+
+def test_hybrid_fit_records_certify_and_its_children(digits_run):
+    ann, recs = digits_run
+    fit = next(r for r in recs if r.name == "fit")
+    in_fit = [r for r in recs if r.request == fit.request]
+    get_ann = next(r for r in in_fit if r.name == "fit.get_ann")
+    certify = next(r for r in in_fit if r.name == "certify")
+    assert certify.parent == get_ann.index and certify.counts["rounds"] >= 1
+    kids = collections.Counter(r.name for r in _children(recs, certify))
+    assert kids["certify.exact"] >= 2 and kids["certify.scout"] >= 1
+    assert kids["certify.scout_wait"] == 1  # pass 1 downloads the scout values once
+    emd = sum(r.counts["pairs"] for r in in_fit if r.name == "engine.emd")
+    exact = sum(r.counts["pairs"] for r in in_fit if r.name == "certify.exact")
+    assert emd == exact == get_ann.counts["evals"] > 0
+    assert get_ann.counts["scout_evals"] > 0
+    assert sum(r.counts["pairs"] for r in in_fit if r.name == "sinkhorn_exp_chunk") > 0
+
+
+@pytest.mark.parametrize("which", ["strings", "digits"])
+def test_query_children_cover_the_call(which, strings_run, digits_run):
+    _, recs = strings_run if which == "strings" else digits_run
+    query = next(r for r in recs if r.name == "query")
+    kids = _children(recs, query)
+    want = QUERY_CHILDREN + (("query.certify",) if which == "digits" else ())
+    assert [r.name for r in kids] == list(want)
+    walk = kids[4]
+    assert walk.counts["pairs"] > 0
+    engine = "engine.levenshtein" if which == "strings" else "engine.sinkhorn"
+    assert sum(r.counts["pairs"] for r in _children(recs, walk) if r.name == engine) \
+        == walk.counts["pairs"]
+    covered = sum(r.end_ns - r.start_ns for r in kids)
+    assert covered >= 0.9 * (query.end_ns - query.start_ns)
+    if which == "digits":
+        cert = kids[-1]
+        assert [r.name for r in _children(recs, cert)] == ["engine.emd"]
+        assert _children(recs, cert)[0].counts["pairs"] == cert.counts["pairs"] > 0
+
+
+def test_verbose_table_rows_follow_the_stage_spans():
+    from knnbench.tracing import _STAGE_ROW
+
+    X, _ = _strings()
+    ann = att.Annchor(X, "levenshtein", verbose=True, **STRINGS_KW)
+    out = io.StringIO()
+    with _profiled(), contextlib.redirect_stdout(out):
+        ann.fit()
+    rows = [m.group(1) for m in map(_STAGE_ROW.match, out.getvalue().splitlines()) if m]
+    stages = [r.name for r in trace.spans() if r.name.startswith("fit.")]
+    assert rows == [s[4:] for s in stages] and set(rows) == set(FIT_STAGES)
+    for line in out.getvalue().splitlines():
+        if _STAGE_ROW.match(line):
+            name, rest = line.split(":", 1)
+            assert len(name) == 40 and name.strip() in FIT_STAGES
+            t, total, evals = rest.split("|")
+            assert len(t) == 8 and len(total) == 9 and evals.endswith(" evals")
+
+
+def _synthetic(kind):
+    """Spans of known lengths (ms) of a window of two fits or two query calls."""
+    recs = []
+
+    def add(name, a, b, parent=None, **counts):
+        r = trace.Span(len(recs), name, a * 1_000_000, parent, 1, counts)
+        r.end_ns = b * 1_000_000
+        recs.append(r)
+        return r.index
+
+    for base in (0, 1000):
+        if kind == "fit":
+            c = add("construct", base, base + 40)
+            add("engine.encode", base + 5, base + 35, c)
+            f = add("fit", base + 50, base + 800)
+            add("fit.select_refine_candidate_pairs", base + 100, base + 110, f)
+            add("fit.select_refine_candidate_pairs", base + 200, base + 230, f)
+            g = add("fit.get_ann", base + 300, base + 700, f)
+            cert = add("certify", base + 310, base + 690, g)
+            x = add("certify.exact", base + 320, base + 420, cert)
+            add("engine.emd", base + 322, base + 418, x)
+            add("certify.scout_wait", base + 430, base + 450, cert)
+            add("certify.scout", base + 500, base + 560, cert)
+        else:
+            q = add("query", base, base + 500)
+            a = add("query.anchors", base, base + 50, q)
+            add("engine.encode", base + 1, base + 21, a)
+            w = add("query.walk", base + 100, base + 400, q)
+            add("engine.encode", base + 110, base + 150, w)
+            add("engine.levenshtein", base + 200, base + 260, w)
+            c = add("query.certify", base + 420, base + 490, q)
+            add("engine.emd", base + 425, base + 485, c)
+    return recs
+
+
+@pytest.mark.parametrize("name,want", [
+    ("encode_s.fit", 0.030),
+    ("select_s.fit", 0.040),
+    ("ann_s.fit", 0.400),
+    ("certify_self_s.fit", 0.380 - 0.100 - 0.020 - 0.060),
+    ("emd_s.fit", 0.096),
+    ("encode_s.query", 0.020 + 0.040),
+    ("walk_self_s.query", 0.300 - 0.040 - 0.060),
+    ("emd_s.query", 0.060),
+])
+def test_layer_metrics_read_the_spans(name, want, monkeypatch):
+    from knnbench import harness
+
+    mod = harness.Bench().module("layer_metrics", name)
+    assert mod.read({}) is None  # nothing recorded
+    kind = name.rsplit(".", 1)[1]
+    monkeypatch.setattr(trace, "_records", collections.deque(_synthetic(kind)))
+    assert mod.read({}) == pytest.approx(want, rel=1e-12)
+    # the other kind's window holds no root of this kind
+    other = "query" if kind == "fit" else "fit"
+    monkeypatch.setattr(trace, "_records", collections.deque(_synthetic(other)))
+    assert mod.read({}) is None
