@@ -39,12 +39,16 @@ from annchor_tpu_torch.ops.device_pipeline import (
 )
 
 __all__ = [
+    "lexsort_stable",
     "build_point_index",
     "build_point_index_single",
     "point_gather",
     "kth_smallest_per_point",
+    "kth_smallest_per_point_dev",
     "guarantee_nmin",
+    "guarantee_nmin_dev",
     "empirical_cdf_probs",
+    "empirical_cdf_probs_dev",
     "knn_from_pairs",
     "row_smallest_k",
 ]
@@ -62,6 +66,26 @@ def _index(P_idx, device):
 
 def _dtype_for(P):
     return torch.float64 if P.numel() < SMALL_MAX_ENTRIES else torch.float32
+
+
+def lexsort_stable(keys):
+    """``np.lexsort(keys)`` on tensors of one device: the indices that
+    sort by the last key, then the one before it, and so on, ties kept
+    in input order.  One stable sort a key, least significant first.
+
+    Float keys are compared as numpy compares them (ROADMAP H7): -0.0
+    and +0.0 are equal, and every NaN sorts last.  A radix sort, which
+    the card's stable sort is, orders the bits, so each float key has
+    its zeros made +0.0 and its NaNs the positive NaN first."""
+    order = None
+    for key in keys:
+        if key.is_floating_point():
+            key = key.masked_fill(key == 0, 0.0).masked_fill(key.isnan(), float("nan"))
+        if order is None:
+            order = torch.sort(key, stable=True).indices
+        else:
+            order = order[torch.sort(key[order], stable=True).indices]
+    return order
 
 
 def build_point_index(IJs, nx: int, device="cpu"):
@@ -125,13 +149,19 @@ def _kth_smallest(RA, P, k: int):
     return torch.kthvalue(vals, kk + 1, dim=1).values
 
 
+def kth_smallest_per_point_dev(RA, P, k: int):
+    """``kth_smallest_per_point`` on tensors: RA (m,) float on P's
+    device, P the int64 incidence matrix.  Returns float64 (nx,) there."""
+    return _kth_smallest(RA.to(_dtype_for(P)), P, k).double()
+
+
 def kth_smallest_per_point(RA, P_idx, k: int, device="cpu"):
     """thresh[i] = (k+1)-th smallest RefineApprox among i's pairs
     (reference annchor.py:399-404 uses np.partition(..., nn)[nn]).
     Returns np.float64 (nx,)."""
     P = _index(P_idx, device)
     RA_t = torch.as_tensor(np.asarray(RA), dtype=_dtype_for(P), device=device)
-    return _kth_smallest(RA_t, P, k).cpu().numpy().astype(np.float64)
+    return kth_smallest_per_point_dev(RA_t, P, k).cpu().numpy()
 
 
 def _guarantee_marks(RA, ncm, P, nmin: int):
@@ -158,13 +188,16 @@ def guarantee_nmin(RA, ncm, P_idx, P_cnt, nmin: int, device="cpu"):
     tie order of forced pairs.  Returns the updated RA (np.float64
     copy)."""
     P = _index(P_idx, device)
-    RA = np.asarray(RA, dtype=np.float64)
-    RA_t = torch.as_tensor(RA, dtype=_dtype_for(P), device=device)
+    RA_t = torch.as_tensor(np.asarray(RA, dtype=np.float64), device=device)
     ncm_t = torch.as_tensor(np.asarray(ncm, dtype=bool), device=device)
-    marks = _guarantee_marks(RA_t, ncm_t, P, int(nmin)).cpu().numpy()
-    out = RA.copy()
-    out[marks] = -1.0
-    return out
+    return guarantee_nmin_dev(RA_t, ncm_t, P, nmin).cpu().numpy()
+
+
+def guarantee_nmin_dev(RA, ncm, P, nmin: int):
+    """``guarantee_nmin`` on tensors: RA float64 (m,) and ncm bool (m,)
+    on P's device.  Returns the updated float64 RA there (a new tensor)."""
+    marks = _guarantee_marks(RA.to(_dtype_for(P)), ncm, P, int(nmin))
+    return RA.masked_fill(marks, -1.0)
 
 
 def empirical_cdf_probs(p, labels, errs_by_label, device="cpu"):
@@ -176,15 +209,26 @@ def empirical_cdf_probs(p, labels, errs_by_label, device="cpu"):
     label -> sorted residual array.  Returns np.float64 (m,)."""
     p = torch.as_tensor(np.asarray(p, dtype=np.float64), device=device)
     labels = torch.as_tensor(np.asarray(labels), device=device)
-    prob = torch.zeros(p.shape[0], dtype=torch.float64, device=device)
-    for label, errs in errs_by_label.items():
-        if not len(errs):
-            continue
-        mask = labels == label
-        e = torch.as_tensor(np.asarray(errs, dtype=np.float64), device=device)
+    return empirical_cdf_probs_dev(p, labels, errs_by_label).cpu().numpy()
+
+
+def empirical_cdf_probs_dev(p, labels, errs_by_label):
+    """``empirical_cdf_probs`` on tensors: p float64 (m,) and labels (m,)
+    on one device.  The residuals go up in one copy.  Returns float64
+    (m,) there."""
+    errs = [(label, np.asarray(e, dtype=np.float64))
+            for label, e in errs_by_label.items() if len(e)]
+    prob = torch.zeros(p.shape[0], dtype=torch.float64, device=p.device)
+    if not errs:
+        return prob
+    flat = torch.as_tensor(np.concatenate([e for _, e in errs]), device=p.device)
+    at = 0
+    for label, e in errs:
         # side "left", as np.searchsorted's default
-        prob[mask] = torch.searchsorted(e, p[mask]).double() / len(errs)
-    return prob.cpu().numpy()
+        cdf = torch.searchsorted(flat[at:at + len(e)], p).double() / len(e)
+        prob = torch.where(labels == label, cdf, prob)
+        at += len(e)
+    return prob
 
 
 def _knn_select(RA32, ncm, P, nn: int, m: int):

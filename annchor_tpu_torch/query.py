@@ -10,8 +10,9 @@ Each candidate pair is (database index, query index), indexed by its
 query in the padded incidence layout of the fit path.  The per-pair
 passes run on ``ann.device`` through the port's helpers (candidate
 counts, features, incidence, thresholds, probabilities, graph
-assembly); the budget walk and the legacy profile match stay host
-numpy, as in the JAX package, so their tie orders are its own.  Every
+assembly), and so does the budget walk, whose stable device sorts give
+the JAX package's lexsort orders; the legacy profile match stays host
+numpy, as in the JAX package, so its tie orders are its own.  Every
 metric call goes through ``ann._get_exact_query_ijs_for(ann.f)``: for
 the Levenshtein metric on a card, the hand-written pair kernel on the
 joint encoding of the database and the queries, which one call of
@@ -28,6 +29,7 @@ from __future__ import annotations
 import contextlib
 
 import numpy as np
+import torch
 
 from annchor_tpu_torch import trace
 from annchor_tpu_torch.ops import pairs as pair_ops
@@ -85,33 +87,54 @@ def get_query_features(ann, Q, QD, check):
     return IJs, P_idx, P_cnt, Qfeatures, Qncm
 
 
-def _per_query_topk(eq, ed, nq: int, k: int):
-    """Per-query head of the evaluated pair lists: (order, rank), where
-    order sorts by (query, distance) and rank is each entry's position
-    within its query; entries with rank < k are the query's current k
-    best evaluated pairs."""
-    order = np.lexsort((ed, eq))
-    eq_s = eq[order]
-    starts = np.searchsorted(eq_s, np.arange(nq))
-    rank = np.arange(eq_s.shape[0]) - starts[eq_s]
-    return order, rank
+class _Host:
+    """The walk's reads from the device.  ``numpy`` fetches tensors in
+    one download; ``reads`` counts the downloads (the ``syncs`` count
+    of the ``query.walk`` span)."""
+
+    def __init__(self):
+        self.reads = 0
+
+    def numpy(self, *tensors):
+        """int64, bool and float64 tensors as numpy arrays, carried down
+        together as int64 words (a float64 by its bits)."""
+        self.reads += 1
+        words = [t.view(torch.int64) if t.dtype == torch.float64 else t.to(torch.int64)
+                 for t in tensors]
+        flat = torch.cat([w.reshape(-1) for w in words]).cpu().numpy()
+        out, at = [], 0
+        for t in tensors:
+            a = flat[at:at + t.numel()].reshape(tuple(t.shape))
+            at += t.numel()
+            if t.dtype == torch.float64:
+                a = a.view(np.float64)
+            elif t.dtype == torch.bool:
+                a = a.astype(bool)
+            out.append(a)
+        return out
 
 
 def _kth_evaluated(aq, ad, nq: int, nn: int):
     """Per query, its nn-th smallest evaluated distance (+inf while it
-    has fewer than nn evaluations), with the (order, rank) of
-    ``_per_query_topk``."""
-    o, rank = _per_query_topk(aq, ad, nq, nn)
-    cnt = np.bincount(aq, minlength=nq)
-    kth = np.full(nq, np.inf)
-    last = o[rank == np.minimum(nn - 1, cnt[aq[o]] - 1)]
-    kth[aq[last]] = np.where(cnt[aq[last]] >= nn, ad[last], np.inf)
+    has fewer than nn evaluations), with (order, rank): order sorts the
+    evaluated pairs by (query, distance) and rank is each sorted entry's
+    position within its query, so entries with rank < nn are the query's
+    nn best evaluated pairs."""
+    dev = aq.device
+    o = pair_ops.lexsort_stable((ad, aq))
+    eq_s = aq[o]
+    bounds = torch.searchsorted(eq_s, torch.arange(nq + 1, device=dev))
+    starts, cnt = bounds[:-1], bounds[1:] - bounds[:-1]
+    rank = torch.arange(eq_s.shape[0], device=dev) - starts[eq_s]
+    ad_s = torch.cat([ad[o], ad.new_full((1,), np.inf)])
+    kth_at = ad_s[(starts + nn - 1).clamp(max=eq_s.shape[0])]
+    kth = torch.where(cnt >= nn, kth_at, np.inf)
     return o, rank, kth
 
 
 def select_refine_candidate_query_pairs(
     ann, IJs, Q, P_idx, P_cnt, QRA, Qncm, Qerrors, p_work, nn, geq,
-    seed_frac: float = 0.5, expand_rounds: int = 3,
+    seed_frac: float = 0.5, expand_rounds: int = 3, span=None,
 ):
     """Graph-guided refinement with the query work budget: (1) seed with
     the error-model ranking on ``seed_frac`` of the budget (the
@@ -122,50 +145,73 @@ def select_refine_candidate_query_pairs(
     candidates ranked by the error model against the now-exact per-query
     thresholds.
 
-    Returns (IJ_all, RA_all, ncm_all): the candidate pairs plus the
-    graph-walk pairs outside the locality candidate set."""
+    The walk's state lives on ``ann.device``: its inputs go up once, and
+    every sort, set and select step runs there, each ``np.lexsort`` of
+    the JAX package as ``pair_ops.lexsort_stable`` with the same order.
+    Each metric call downloads its pairs (numpy, in the JAX package's
+    order) and uploads its distances; the result comes down in one
+    download at the end.  ``span`` (a ``trace.span``) gets the counts
+    ``rounds`` (expansion rounds that asked the metric) and ``syncs``
+    (the walk's downloads).
+
+    Returns (IJ_all, RA_all, ncm_all) as numpy: the candidate pairs plus
+    the graph-walk pairs outside the locality candidate set."""
     nq = len(Q)
     nx = ann.nx
     dev = ann.device
     nbf = nq * nx
     na = ann.n_anchors * nq
     budget = max(0, int(p_work * nbf - na) + 1)
+    host = _Host()
+    errs = ann.error_predictor.errs
 
-    keys_c = IJs[:, 1].astype(np.int64) * nx + IJs[:, 0]
-    korder = np.argsort(keys_c, kind="stable")
-    keys_sorted = keys_c[korder]
+    def evaluate(IJ):
+        """The metric on the (db, query) pairs IJ (one download, one
+        upload): float64 distances on the device."""
+        (IJ_np,) = host.numpy(IJ)
+        d = np.asarray(geq(ann.f, ann.X, Q, IJ_np), dtype=np.float64)
+        return torch.as_tensor(d, device=dev)
+
+    def nonzero(mask):
+        # one wait for the count, then an index every array can share
+        return torch.nonzero(mask).squeeze(1)
+
+    IJ = torch.as_tensor(np.asarray(IJs, dtype=np.int64).reshape(-1, 2), device=dev)
+    P = torch.as_tensor(np.asarray(P_idx), device=dev).to(torch.int64)
+    RA0 = torch.as_tensor(np.asarray(QRA, dtype=np.float64), device=dev)
+    ncm = torch.tensor(np.asarray(Qncm, dtype=bool), device=dev)
+    Qerr = torch.as_tensor(np.asarray(Qerrors), device=dev)
+
+    keys_c = IJ[:, 1] * nx + IJ[:, 0]
+    keys_sorted, korder = torch.sort(keys_c, stable=True)
+    # one slot past the end, which no key (>= 0) matches
+    keys_pad = torch.cat([keys_sorted, keys_sorted.new_full((1,), -1)])
+    korder_pad = torch.cat([korder, korder.new_full((1,), -1)])
 
     def cand_lookup(keys):
         """Candidate row ids of pair keys (-1 when absent)."""
-        pos = np.searchsorted(keys_sorted, keys)
-        pos = np.clip(pos, 0, keys_sorted.shape[0] - 1)
-        hit = keys_sorted[pos] == keys
-        return np.where(hit, korder[pos], -1)
+        pos = torch.searchsorted(keys_sorted, keys)
+        return torch.where(keys_pad[pos] == keys, korder_pad[pos], -1)
 
     # ---- seed: the error-model ranking ------------------------------
-    thresh = np.asarray(
-        pair_ops.kth_smallest_per_point(QRA, P_idx, nn, dev), dtype=np.float64
-    )
-    QRAg = pair_ops.guarantee_nmin(QRA, Qncm, P_idx, P_cnt, 3 * nn // 2, dev)
-    p = (thresh[IJs[:, 1]] - QRAg)[Qncm]
-    prob = pair_ops.empirical_cdf_probs(
-        p, Qerrors[Qncm], ann.error_predictor.errs, dev
-    )
-    n_seed = min(int(budget * seed_frac), prob.shape[0])
+    thresh = pair_ops.kth_smallest_per_point_dev(RA0, P, nn)
+    QRA = pair_ops.guarantee_nmin_dev(RA0, ncm, P, 3 * nn // 2)
+    rows = nonzero(ncm)
+    p = thresh[IJ[rows, 1]] - QRA[rows]
+    prob = pair_ops.empirical_cdf_probs_dev(p, Qerr[rows], errs)
+    n_seed = min(int(budget * seed_frac), rows.shape[0])
     # the empirical CDF saturates at 0 and 1: the raw margin breaks
     # those ties deterministically
-    order = np.lexsort((-p, -prob))[:n_seed]
-    mapback = np.flatnonzero(Qncm)[order]
-    exact = np.asarray(geq(ann.f, ann.X, Q, IJs[mapback]), dtype=np.float64)
-    QRA = QRAg
+    mapback = rows[pair_ops.lexsort_stable((-p, -prob))[:n_seed]]
+    exact = evaluate(IJ[mapback])
     QRA[mapback] = exact
-    Qncm[mapback] = False
-    spent = mapback.shape[0]
+    ncm[mapback] = False
+    spent = n_seed
 
-    eq = [IJs[mapback, 1].astype(np.int64)]
-    edb = [IJs[mapback, 0].astype(np.int64)]
+    eq = [IJ[mapback, 1]]
+    edb = [IJ[mapback, 0]]
     ed = [exact]
-    visited = np.sort(keys_c[mapback])
+    visited = torch.sort(keys_c[mapback]).values
 
     # ---- expansion: walk the fitted k-NN graph ----------------------
     # Each round proposes (q, l) for every graph neighbour l of the
@@ -176,115 +222,120 @@ def select_refine_candidate_query_pairs(
     # is symmetrised: each point's in-neighbours (up to one row width,
     # nearest first) are appended to its row, so the walk crosses edges
     # in both directions.
-    G = np.asarray(ann.neighbor_graph[0])
-    GD = np.asarray(ann.neighbor_graph[1])
-    deg0 = G.shape[1]
-    src_e = np.repeat(np.arange(G.shape[0], dtype=np.int64), deg0)
-    dst_e = G.reshape(-1).astype(np.int64)
+    G = torch.as_tensor(np.asarray(ann.neighbor_graph[0]), device=dev).to(torch.int64)
+    GD = torch.as_tensor(np.asarray(ann.neighbor_graph[1]), device=dev).to(torch.float64)
+    ng, deg0 = G.shape
+    src_e = torch.arange(ng, device=dev)[:, None].expand(ng, deg0).reshape(-1)
+    dst_e = G.reshape(-1)
     d_e = GD.reshape(-1)
-    oke = (dst_e >= 0) & (dst_e != src_e) & np.isfinite(d_e)
-    order_e = np.lexsort((d_e[oke], dst_e[oke]))
-    dst_s = dst_e[oke][order_e]
-    starts_e = np.searchsorted(dst_s, np.arange(G.shape[0]))
-    rank_e = np.arange(dst_s.shape[0]) - starts_e[dst_s]
-    keep_e = rank_e < deg0
-    Grev = np.full((G.shape[0], deg0), -1, dtype=G.dtype)
-    GrevD = np.full((G.shape[0], deg0), np.inf)
-    Grev[dst_s[keep_e], rank_e[keep_e]] = src_e[oke][order_e][keep_e]
-    GrevD[dst_s[keep_e], rank_e[keep_e]] = d_e[oke][order_e][keep_e]
-    G = np.concatenate([G, Grev], axis=1)
-    GD = np.concatenate([GD, GrevD], axis=1)
+    oke = nonzero((dst_e >= 0) & (dst_e != src_e) & torch.isfinite(d_e))
+    src_e, dst_e, d_e = src_e[oke], dst_e[oke], d_e[oke]
+    order_e = pair_ops.lexsort_stable((d_e, dst_e))
+    src_s, dst_s, d_s = src_e[order_e], dst_e[order_e], d_e[order_e]
+    starts_e = torch.searchsorted(dst_s, torch.arange(ng, device=dev))
+    rank_e = torch.arange(dst_s.shape[0], device=dev) - starts_e[dst_s]
+    keep_e = nonzero(rank_e < deg0)
+    Grev = torch.full((ng, deg0), -1, dtype=torch.int64, device=dev)
+    GrevD = torch.full((ng, deg0), np.inf, dtype=torch.float64, device=dev)
+    Grev[dst_s[keep_e], rank_e[keep_e]] = src_s[keep_e]
+    GrevD[dst_s[keep_e], rank_e[keep_e]] = d_s[keep_e]
+    G = torch.cat([G, Grev], dim=1)
+    GD = torch.cat([GD, GrevD], dim=1)
+    deg = G.shape[1]
+    rounds = 0
     for r in range(expand_rounds):
         left = budget - spent
         if left <= 0:
             break
         share = left if r == expand_rounds - 1 else max(1, left // (expand_rounds - r))
-        aq = np.concatenate(eq)
-        adb = np.concatenate(edb)
-        ad = np.concatenate(ed)
+        aq = torch.cat(eq)
+        adb = torch.cat(edb)
+        ad = torch.cat(ed)
         o, rank, kth = _kth_evaluated(aq, ad, nq, nn)
         head = o[rank < nn]
         src_q = aq[head]
         src_db = adb[head]
         src_d = ad[head]
-        deg = G.shape[1]
-        cand_q = np.repeat(src_q, deg)
-        cand_db = G[src_db].reshape(-1).astype(np.int64)
+        cand_q = src_q[:, None].expand(-1, deg).reshape(-1)
+        cand_db = G[src_db].reshape(-1)
         d_jl = GD[src_db].reshape(-1)
-        d_qj = np.repeat(src_d, deg)
-        ok = (cand_db >= 0) & np.isfinite(d_jl)
-        lb = np.abs(d_qj - d_jl)
+        d_qj = src_d[:, None].expand(-1, deg).reshape(-1)
+        ok = (cand_db >= 0) & torch.isfinite(d_jl)
+        lb = torch.abs(d_qj - d_jl)
         ub = d_qj + d_jl
-        adm = ok & (lb < kth[cand_q])
+        adm = nonzero(ok & (lb < kth[cand_q]))
         keys = cand_q[adm] * nx + cand_db[adm]
         ubk = ub[adm]
         # best-ub-wins dedupe, then drop already-evaluated pairs
-        ordk = np.lexsort((ubk, keys))
+        ordk = pair_ops.lexsort_stable((ubk, keys))
         keys, ubk = keys[ordk], ubk[ordk]
-        fresh = np.ones(keys.shape[0], dtype=bool)
+        fresh = torch.ones_like(keys, dtype=torch.bool)
         fresh[1:] = keys[1:] != keys[:-1]
+        if visited.numel():
+            pos = torch.searchsorted(visited, keys).clamp_(0, visited.shape[0] - 1)
+            fresh &= visited[pos] != keys
+        fresh = nonzero(fresh)
         keys, ubk = keys[fresh], ubk[fresh]
-        if visited.size:
-            pos = np.clip(np.searchsorted(visited, keys), 0, visited.shape[0] - 1)
-            unseen = visited[pos] != keys
-            keys, ubk = keys[unseen], ubk[unseen]
-        if keys.size == 0:
+        if keys.numel() == 0:
             break
-        if keys.size > share:
+        if keys.numel() > share:
             # per-query fair share: priority (rank within the query's
             # ub-ordered slate, then ub)
             qb = keys // nx
-            oq = np.lexsort((ubk, qb))
+            oq = pair_ops.lexsort_stable((ubk, qb))
             qb_s = qb[oq]
-            qstarts = np.searchsorted(qb_s, np.arange(nq))
-            wrank = np.arange(qb_s.shape[0]) - qstarts[qb_s]
-            pick = oq[np.lexsort((ubk[oq], wrank))[:share]]
+            qstarts = torch.searchsorted(qb_s, torch.arange(nq, device=dev))
+            wrank = torch.arange(qb_s.shape[0], device=dev) - qstarts[qb_s]
+            pick = oq[pair_ops.lexsort_stable((ubk[oq], wrank))[:share]]
             keys = keys[pick]
-        new = np.sort(keys)
-        cq = (new // nx).astype(np.int64)
-        cdb = (new % nx).astype(np.int64)
-        d = np.asarray(geq(ann.f, ann.X, Q, np.stack([cdb, cq], axis=1)), dtype=np.float64)
+        new = torch.sort(keys).values
+        cq = new // nx
+        cdb = new % nx
+        d = evaluate(torch.stack([cdb, cq], dim=1))
+        rounds += 1
         eq.append(cq)
         edb.append(cdb)
         ed.append(d)
-        visited = np.sort(np.concatenate([visited, new]))
+        visited = torch.sort(torch.cat([visited, new])).values
         spent += new.shape[0]
         # walk pairs already in the candidate set become computed
         crow = cand_lookup(new)
-        hit = crow >= 0
+        hit = nonzero(crow >= 0)
         QRA[crow[hit]] = d[hit]
-        Qncm[crow[hit]] = False
+        ncm[crow[hit]] = False
 
     # ---- fill: the leftover budget back on the error model ----------
     left = budget - spent
-    rem = np.flatnonzero(Qncm)
-    if left > 0 and rem.size:
-        _, _, kth = _kth_evaluated(np.concatenate(eq), np.concatenate(ed), nq, nn)
-        pm = kth[IJs[rem, 1]] - QRA[rem]
-        pr = pair_ops.empirical_cdf_probs(pm, Qerrors[rem], ann.error_predictor.errs, dev)
-        sel = rem[np.lexsort((-pm, -pr))[:left]]
-        d = np.asarray(geq(ann.f, ann.X, Q, IJs[sel]), dtype=np.float64)
+    rem = nonzero(ncm)
+    if left > 0 and rem.numel():
+        _, _, kth = _kth_evaluated(torch.cat(eq), torch.cat(ed), nq, nn)
+        pm = kth[IJ[rem, 1]] - QRA[rem]
+        pr = pair_ops.empirical_cdf_probs_dev(pm, Qerr[rem], errs)
+        sel = rem[pair_ops.lexsort_stable((-pm, -pr))[:left]]
+        d = evaluate(IJ[sel])
         QRA[sel] = d
-        Qncm[sel] = False
-        eq.append(IJs[sel, 1].astype(np.int64))
-        edb.append(IJs[sel, 0].astype(np.int64))
+        ncm[sel] = False
+        eq.append(IJ[sel, 1])
+        edb.append(IJ[sel, 0])
         ed.append(d)
 
     # ---- union: candidates + walk pairs outside the filter ----------
-    aq = np.concatenate(eq)
-    adb = np.concatenate(edb)
-    ad = np.concatenate(ed)
+    aq = torch.cat(eq)
+    adb = torch.cat(edb)
+    ad = torch.cat(ed)
     akeys = aq * nx + adb
-    extra = cand_lookup(akeys) < 0
-    if not extra.any():
-        return IJs, QRA, Qncm
-    _, ex_first = np.unique(akeys[extra], return_index=True)
-    ex_q = aq[extra][ex_first]
-    ex_db = adb[extra][ex_first]
-    ex_d = ad[extra][ex_first]
+    extra = nonzero(cand_lookup(akeys) < 0)
+    # the extras once each, in key order (np.unique's first occurrences)
+    ek = torch.sort(akeys[extra], stable=True)
+    first = torch.ones_like(ek.values, dtype=torch.bool)
+    first[1:] = ek.values[1:] != ek.values[:-1]
+    ex = extra[ek.indices[first]]
+    RA, ncm_h, ex_db, ex_q, ex_d = host.numpy(QRA, ncm, adb[ex], aq[ex], ad[ex])
+    if span is not None:
+        span.count(rounds=rounds, syncs=host.reads)
     IJ_all = np.concatenate([IJs, np.stack([ex_db, ex_q], axis=1)], axis=0)
-    RA_all = np.concatenate([QRA, ex_d])
-    ncm_all = np.concatenate([Qncm, np.zeros(ex_q.shape[0], dtype=bool)])
+    RA_all = np.concatenate([RA, ex_d])
+    ncm_all = np.concatenate([ncm_h, np.zeros(ex_q.shape[0], dtype=bool)])
     return IJ_all, RA_all, ncm_all
 
 
@@ -497,8 +548,8 @@ def query_(ann, Q, nn=15, p_work=0.3, get_exact_query_ijs=None,
 
             with trace.span("query.walk") as walk:
                 IJ_all, RA_all, ncm_all = select_refine_candidate_query_pairs(
-                    ann, IJs, Q, P_idx, P_cnt, Qpred.copy(), Qncm, Qerrors, p_work, nn,
-                    walk_geq, seed_frac=seed_frac, expand_rounds=expand_rounds,
+                    ann, IJs, Q, P_idx, P_cnt, Qpred, Qncm, Qerrors, p_work, nn,
+                    walk_geq, seed_frac=seed_frac, expand_rounds=expand_rounds, span=walk,
                 )
                 walk.count(pairs=asked)
         with trace.span("query.graph"):

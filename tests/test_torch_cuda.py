@@ -747,3 +747,74 @@ def test_k8_call_does_not_sync(cuda):
     assert sc.K8.mode_launches == {"exp": before["exp"] + 3 + 10, "log": before["log"] + 1}
     assert torch.equal(got, want) and torch.equal(log_got, log_want) and torch.equal(col_got, col)
     assert torch.equal(big_got, big)
+
+
+def test_lexsort_stable_on_card_matches_numpy(cuda):
+    """The card's stable sort is a radix sort on the keys' bits: the
+    helper still gives np.lexsort's order with -0.0 and +0.0 mixed, NaN
+    of either sign, +-inf and int64 keys above 2**31 (ROADMAP H7)."""
+    from annchor_tpu_torch.ops.pairs import lexsort_stable
+
+    rng = np.random.default_rng(9)
+    n = 100_000
+    pool = np.array([-0.0, 0.0, -np.inf, np.inf, np.nan, np.copysign(np.nan, -1.0), 1.5])
+    f = rng.choice(pool, size=n)
+    g = rng.integers(-2, 3, size=n) * 0.0 + rng.integers(0, 2, size=n)
+    i = rng.integers(0, 5, size=n) * (1 << 40) + rng.integers(0, 3, size=n)
+    for cols in ([f], [g, f], [f, i], [g, f, i], [i, g]):
+        got = lexsort_stable([torch.as_tensor(c, device=cuda) for c in cols])
+        np.testing.assert_array_equal(got.cpu().numpy(), np.lexsort(cols))
+
+
+@pytest.mark.parametrize("case", ["predicted", "integer", "zero_margins"])
+def test_query_walk_on_card_equals_cpu(cuda, case):
+    """The query walk with its state on the card against the same walk on
+    the CPU (held to the JAX package's numpy walk by the CPU tests): the
+    same metric calls, pair for pair, and bit-equal results; at most two
+    downloads a metric call, plus two."""
+    import copy
+
+    from annchor_tpu_torch import metrics, query
+    from annchor_tpu_torch.ops.locality import query_candidates
+
+    X, _ = make_strings(n=400, length=60, seed=7)
+    X = list(X)
+    ann = Annchor(X[:300], "levenshtein", n_anchors=12, n_neighbors=10, n_samples=800,
+                  p_work=0.3, device="cpu")
+    ann.fit()
+    on_card = copy.copy(ann)
+    on_card.device = cuda
+    Q = X[300:]
+    geq = metrics.make_get_exact_query_ijs(ann.metric)
+    QD = query.get_query_anchor_dists(ann, Q, geq)
+    check = query_candidates(ann._S_raw, QD, ann.locality, ann.loc_thresh, device="cpu")
+    IJs, P_idx, P_cnt, F, Qncm = query.get_query_features(ann, Q, QD, check)
+    QRA = ann.regression.predict(F, ann.feature_names)
+    if case == "integer":
+        QRA = np.round(QRA)
+    elif case == "zero_margins":
+        QRA = np.where(np.random.default_rng(5).random(QRA.shape[0]) < 0.5, -0.0, 0.0)
+    Qerrors = ann.error_predictor.predict(F, ann.feature_names)
+
+    class Counts:
+        def count(self, **kw):
+            self.__dict__.update(kw)
+
+    outs, calls, counts = [], [], Counts()
+    for index, span in ((ann, None), (on_card, counts)):
+        log = []
+
+        def run(f, Xa, Z, IJ, log=log):
+            log.append(np.array(IJ))
+            return geq(f, Xa, Z, IJ)
+
+        outs.append(query.select_refine_candidate_query_pairs(
+            index, IJs.copy(), Q, P_idx, P_cnt, QRA.copy(), Qncm.copy(), Qerrors, 0.3, 15,
+            run, span=span))
+        calls.append(log)
+    for got, want in zip(outs[1], outs[0]):
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert len(calls[1]) == len(calls[0]) > 1
+    for got, want in zip(calls[1], calls[0]):
+        np.testing.assert_array_equal(got, want)
+    assert counts.syncs <= 2 * len(calls[1]) + 2

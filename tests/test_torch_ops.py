@@ -206,3 +206,33 @@ def test_tighten_bounds_bit_equal(state, max_cols):
     assert (lb_new >= lb_old).all() and (ub_new <= ub_old).all()
     assert (lb_new <= d[pending]).all() and (ub_new >= d[pending]).all()
     assert (ub_new < ub_old).any()
+
+
+def _lexsort_keys(seed, n=6000):
+    """Keys with np.lexsort's hard cases: floats among -0.0, +0.0,
+    -inf, +inf, NaN of either sign and a few values in long runs, and
+    int64 keys above 2**31 in long runs."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([-0.0, 0.0, -np.inf, np.inf, np.nan, np.copysign(np.nan, -1.0),
+                     1.5, -2.0])
+    return {
+        "f": rng.choice(pool, size=n),
+        "g": rng.integers(-2, 3, size=n) * 0.0 + rng.integers(0, 2, size=n),
+        "i": rng.integers(0, 5, size=n) * (1 << 40) + rng.integers(0, 3, size=n),
+        "j": rng.integers(0, 3, size=n) - (1 << 33),
+    }
+
+
+LEXSORT_KEYS = ["f", "i", "fi", "if", "gf", "fgi", "jgf", "ij"]
+
+
+@pytest.mark.parametrize("names", LEXSORT_KEYS)
+def test_lexsort_stable_matches_numpy(names):
+    """``lexsort_stable`` gives np.lexsort's order, ties in input order,
+    -0.0 equal to +0.0 and every NaN last (ROADMAP H7)."""
+    keys = _lexsort_keys(len(names))
+    cols = [keys[c] for c in names]
+    got = pairs.lexsort_stable([torch.as_tensor(c) for c in cols])
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.lexsort(cols))
+

@@ -128,6 +128,103 @@ def test_cross_loaded_query_matches_jax(indexes, nn, p_work):
     assert calls == calls_ref and sum(calls) > 0
 
 
+class _Counts:
+    """Stands in for a ``trace.span``: keeps the counts it is given."""
+
+    def count(self, **kw):
+        self.__dict__.update(kw)
+
+
+def _recording(geq, calls):
+    """The evaluator ``geq``, recording the pairs of every call."""
+
+    def run(f, X, Z, IJ):
+        calls.append(np.array(IJ))
+        return geq(f, X, Z, IJ)
+
+    return run
+
+
+def _walk_inputs(port, Q, case):
+    """The walk's inputs for ``Q`` on the loaded index, as ``query_``
+    builds them, bent to the case: (IJs, P_idx, P_cnt, QRA, Qncm,
+    Qerrors)."""
+    geq = tmetrics.make_get_exact_query_ijs(port.metric)
+    QD = tquery.get_query_anchor_dists(port, Q, geq)
+    db_ids, q_ids = tloc.query_candidates(port.S, QD, port.locality, port.loc_thresh,
+                                          device="cpu")
+    if case == "few_candidates":
+        # queries 0 and 1 keep 3 candidates each (< nn: +inf thresholds)
+        keep = (q_ids > 1) | (np.arange(q_ids.shape[0]) - np.searchsorted(q_ids, q_ids) < 3)
+        db_ids, q_ids = db_ids[keep], q_ids[keep]
+    IJs, P_idx, P_cnt, F, Qncm = tquery.get_query_features(port, Q, QD, (db_ids, q_ids))
+    QRA = port.regression.predict(F, port.feature_names)
+    if case == "integer":
+        QRA = np.round(QRA)
+    elif case == "zero_margins":
+        # every estimate a zero of either sign: every seed margin is
+        # +0.0 or -0.0, which a sort on the bits would tell apart
+        QRA = np.where(np.random.default_rng(5).random(QRA.shape[0]) < 0.5, -0.0, 0.0)
+    Qerrors = port.error_predictor.predict(F, port.feature_names)
+    return IJs, P_idx, P_cnt, QRA, Qncm, Qerrors
+
+
+# (nn, p_work, seed_frac, expand_rounds, inputs, branch of the fair share)
+WALK_CASES = {
+    "integer": (8, 0.3, 0.5, 3, "integer", None),
+    "zero_margins": (8, 0.3, 0.5, 3, "zero_margins", None),
+    "few_candidates": (8, 0.3, 0.5, 3, "few_candidates", None),
+    "seed_spends_budget": (8, 0.3, 1.0, 3, "integer", None),
+    "share_cut": (5, 0.05, 0.5, 3, "integer", "cut"),
+    "share_all": (8, 0.6, 0.5, 1, "predicted", "all"),
+    "one_round_zero_margins": (8, 0.3, 0.5, 1, "zero_margins", None),
+}
+
+
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_walk_matches_jax_with_ties(indexes, case):
+    """The port's walk on the device tensors against the JAX package's
+    numpy walk, same inputs and metric: bit-equal pairs, estimates and
+    flags, and the same metric calls, pair for pair."""
+    X, ref, port = indexes
+    nn, p_work, seed_frac, rounds, inputs, branch = WALK_CASES[case]
+    Q = _mutate(X[:40], 0.1, 3) + _mutate(X[200:210], 0.3, 4)
+    args = _walk_inputs(port, Q, inputs)
+    geq = tmetrics.make_get_exact_query_ijs(port.metric)
+    outs, calls, counts = [], [], _Counts()
+    for mod, ann, span in ((jquery, ref, None), (tquery, port, counts)):
+        IJs, P_idx, P_cnt, QRA, Qncm, Qerrors = (a.copy() for a in args)
+        calls.append([])
+        kw = dict(seed_frac=seed_frac, expand_rounds=rounds)
+        if span is not None:
+            kw["span"] = span
+        outs.append(mod.select_refine_candidate_query_pairs(
+            ann, IJs, Q, P_idx, P_cnt, QRA, Qncm, Qerrors, p_work, nn,
+            _recording(geq, calls[-1]), **kw))
+    for got, want in zip(outs[1], outs[0]):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+    assert len(calls[1]) == len(calls[0])
+    for got, want in zip(calls[1], calls[0]):
+        np.testing.assert_array_equal(got, want)
+    # the case reaches what it names
+    sizes = [c.shape[0] for c in calls[0]]
+    assert counts.rounds <= rounds and counts.syncs <= 2 * len(sizes) + 2
+    if case == "seed_spends_budget":
+        assert counts.rounds == 0 and len(sizes) == 1
+    if case == "few_candidates":
+        assert np.bincount(args[0][:, 1], minlength=len(Q))[:2].tolist() == [3, 3]
+    if branch is not None:
+        budget = int(p_work * len(Q) * port.nx - port.n_anchors * len(Q)) + 1
+        spent, hits = sizes[0], []
+        for r, size in enumerate(sizes[1:1 + counts.rounds]):
+            left = budget - spent
+            share = left if r == rounds - 1 else max(1, left // (rounds - r))
+            hits.append(size == share)
+            spent += size
+        assert (any(hits) if branch == "cut" else not all(hits)) and counts.rounds > 0
+
+
 def test_cross_loaded_legacy_query_matches_jax(indexes):
     X, ref, port = indexes
     Q = _mutate(X[100:130], 0.1, 5)

@@ -219,6 +219,20 @@ def test_query_children_cover_the_call(which, strings_run, digits_run):
         assert _children(recs, cert)[0].counts["pairs"] == cert.counts["pairs"] > 0
 
 
+@pytest.mark.parametrize("which", ["strings", "digits"])
+def test_walk_counts_rounds_and_syncs(which, strings_run, digits_run):
+    """``query.walk`` counts its expansion rounds and its downloads: at
+    most two a metric call, plus two, so the walk stays on the device."""
+    _, recs = strings_run if which == "strings" else digits_run
+    engine = "engine.levenshtein" if which == "strings" else "engine.sinkhorn"
+    walks = [r for r in recs if r.name == "query.walk"]
+    assert walks
+    for walk in walks:
+        calls = sum(r.name == engine for r in _children(recs, walk))
+        assert 0 <= walk.counts["rounds"] <= 3 and calls >= 1 + walk.counts["rounds"]
+        assert 1 <= walk.counts["syncs"] <= 2 * calls + 2
+
+
 def test_verbose_table_rows_follow_the_stage_spans():
     from knnbench.tracing import _STAGE_ROW
 
