@@ -495,7 +495,10 @@ class Annchor:
         derived cap when more than ``max_resident_pairs`` pairs
         (``ANNCHOR_TPU_MAX_RESIDENT_PAIRS``, default 10^8) are admitted.
         ``_locality_info`` records the build taken and the admitted
-        total."""
+        total.  The builds are the spans ``locality.admit`` (counts
+        ``blocks``, ``admitted``, ``m``, ``switched``) and
+        ``locality.budgeted`` (``m``), inside the admit span when it hands
+        over."""
         env_cap = os.environ.get("ANNCHOR_TPU_PAIR_CAP")
         cap = int(env_cap) if env_cap is not None else (self.pair_cap or 0)
         auto_cap = self._derived_pair_cap()
@@ -506,16 +509,21 @@ class Annchor:
                 max_res = int(env_res)
             else:
                 max_res = 10**8 if self.max_resident_pairs is None else self.max_resident_pairs
-            built = candidate_pairs_device(
-                self.D, self.locality, self.loc_thresh, self.loc_min,
-                verbose=self.verbose, max_resident=max_res, budget_cap=auto_cap,
-                device=self.device, info=info,
-            )
+            with trace.device_span("locality.admit", (self.device,)) as sp:
+                built = candidate_pairs_device(
+                    self.D, self.locality, self.loc_thresh, self.loc_min,
+                    verbose=self.verbose, max_resident=max_res, budget_cap=auto_cap,
+                    device=self.device, info=info,
+                )
+                sp.count(admitted=info["admitted"], m=built[2],
+                         switched=int(info["build"] == "budgeted"))
         else:
-            built = candidate_pairs_device_budgeted(
-                self.D, self.locality, self.loc_thresh, self.loc_min,
-                cap if cap > 0 else auto_cap, verbose=self.verbose, device=self.device,
-            )
+            with trace.device_span("locality.budgeted", (self.device,)) as sp:
+                built = candidate_pairs_device_budgeted(
+                    self.D, self.locality, self.loc_thresh, self.loc_min,
+                    cap if cap > 0 else auto_cap, verbose=self.verbose, device=self.device,
+                )
+                sp.count(m=built[2])
         ij_i, ij_j, m, self.sid, self.S, self.loc_eff, self.P_cnt = built
         self._IJs = None
         self._ij_dev = (ij_i, ij_j, m)
@@ -864,7 +872,9 @@ class Annchor:
 
     def _certify(self, ngi, ngd):
         """Exact re-evaluation of the scout-built candidate graph, then
-        scout-screened graph expansion (the JAX package's host numpy).
+        scout-screened graph expansion (the JAX package's host numpy,
+        whose set operations and row ranking run here on ``self.device``:
+        the same sorted keys and stable orders).
 
         Pass 1: the scout selected ``k-1+certify_pad`` candidates per
         point; the exact metric scores the deduplicated candidate edges
@@ -910,23 +920,27 @@ class Annchor:
                 scout_d = scout_of(IJ)
             lo = float(np.quantile(exact - scout_d, 0.001)) - 1e-3
 
-            seen = uniq
+            dev = self.device
+            seen = torch.as_tensor(uniq, device=dev)  # sorted, as np.union1d keeps it
             pool_keys = uniq
             pool_vals = exact
 
             def row_topk():
-                a = pool_keys // nx
-                b = pool_keys % nx
-                pr = np.concatenate([a, b])
-                pc = np.concatenate([b, a])
-                pv = np.concatenate([pool_vals, pool_vals])
-                order = np.lexsort((pv, pr))
+                """Each row's exact top kk of the pool, (gi, gd) on dev."""
+                keys = torch.as_tensor(pool_keys, device=dev)
+                vals = torch.as_tensor(pool_vals, device=dev)
+                a = keys // nx
+                b = keys % nx
+                pr = torch.cat([a, b])
+                pc = torch.cat([b, a])
+                pv = torch.cat([vals, vals])
+                order = pair_ops.lexsort_stable((pv, pr))
                 pr_s = pr[order]
-                starts = np.searchsorted(pr_s, np.arange(nx))
-                rank = np.arange(pr_s.shape[0]) - starts[pr_s]
+                starts = torch.searchsorted(pr_s, torch.arange(nx, device=dev))
+                rank = torch.arange(pr_s.shape[0], device=dev) - starts[pr_s]
                 sel = rank < kk
-                gi = np.full((nx, kk), -1, dtype=np.int64)
-                gd = np.full((nx, kk), np.inf)
+                gi = torch.full((nx, kk), -1, dtype=torch.int64, device=dev)
+                gd = torch.full((nx, kk), float("inf"), dtype=torch.float64, device=dev)
                 gi[pr_s[sel], rank[sel]] = pc[order][sel]
                 gd[pr_s[sel], rank[sel]] = pv[order][sel]
                 return gi, gd
@@ -937,17 +951,21 @@ class Annchor:
             rounds = 0
             for _ in range(self.certify_expand_rounds):
                 gi, gd = row_topk()
-                kth = gd[:, -1]
-                vi, vj = np.nonzero(gi >= 0)
+                kth = gd[:, -1].cpu().numpy()
+                vi, vj = torch.nonzero(gi >= 0, as_tuple=True)
                 j = gi[vi, vj]
-                ri = np.repeat(vi, kk)
+                ri = vi.repeat_interleave(kk)
                 ci = gi[j].reshape(-1)
                 ok = (ci >= 0) & (ci != ri)
-                ek = np.minimum(ri, ci) * nx + np.maximum(ri, ci)
-                new = np.setdiff1d(np.unique(ek[ok]), seen, assume_unique=True)
-                if new.size == 0:
+                ek = torch.minimum(ri, ci) * nx + torch.maximum(ri, ci)
+                found = torch.unique(ek[ok])  # sorted, as np.unique
+                # np.setdiff1d(found, seen, assume_unique=True)
+                found = found[~torch.isin(found, seen, assume_unique=True)]
+                if found.numel() == 0:
                     break
                 rounds += 1
+                seen = torch.sort(torch.cat([seen, found])).values  # np.union1d
+                new = found.cpu().numpy()
                 a = new // nx
                 b = new % nx
                 sdn = scout_of(np.stack([a, b], axis=1))
@@ -955,14 +973,14 @@ class Annchor:
                 admit = np.flatnonzero(margin <= 0.0)
                 if admit.size > cap:
                     admit = admit[np.argpartition(margin[admit], cap)[:cap]]
-                seen = np.union1d(seen, new)
                 if admit.size == 0:
                     continue
                 ex = exact_of(np.stack([a[admit], b[admit]], axis=1))
                 pool_keys = np.concatenate([pool_keys, new[admit]])
                 pool_vals = np.concatenate([pool_vals, ex])
             certify.count(rounds=rounds)
-            return row_topk()
+            gi, gd = row_topk()
+            return gi.cpu().numpy(), gd.cpu().numpy()
 
     def get_ann(self):
         """Assemble the k-NN graph, self-prepended

@@ -38,7 +38,7 @@ import os
 import numpy as np
 import torch
 
-from annchor_tpu_torch import parallel
+from annchor_tpu_torch import parallel, trace
 from annchor_tpu_torch.ops import tropical_cuda
 from annchor_tpu_torch.ops.bounds_update import _build_E
 from annchor_tpu_torch.ops.features import bounds_dad_dev
@@ -545,6 +545,7 @@ def tighten_cols(ij_i, ij_j, RA, ncm, lb, ub, thresh, ncol: int, cmax: int,
     nx = thresh.shape[0]
     col_chunk, ncol_pad = column_chunks(ncol, nx, col_chunk)
     cols, ids = tighten_cols_prep(ij_i, ij_j, ncm, lb, thresh, ncol, ncol_pad, cmax)
+    trace.count(pairs=int(ids.shape[0]))
     lb = lb.clone()
     ub = ub.clone()
     for c0 in range(0, ncol_pad, col_chunk):
@@ -1211,23 +1212,30 @@ class DeviceFitState:
         """Tropical tighten of every pending pair up to
         MAX_FULL_MATRIX_NX points; above it the column-subsampled
         tighten of the contender pairs, which needs the thresholds of a
-        selection."""
-        nx = self.ann.nx
-        args = (self.ij_i, self.ij_j, self.RA, self.ncm, self.lb, self.ub)
-        if nx <= MAX_FULL_MATRIX_NX:
-            run = tighten_full if self.shard is None else self.shard.tighten_full
-            self.lb, self.ub = run(*args, nx)
-            return
-        if self.thresh is None:
-            return
-        ncol, cmax = min(self.TIGHTEN_NCOL, nx), int(min(self.TIGHTEN_CMAX, self.m))
-        if self.shard is not None:
-            self.lb, self.ub = self.shard.tighten_cols(*args, self.thresh, ncol, cmax)
-        else:
-            self.lb, self.ub = tighten_cols(
-                *args, self.thresh, ncol, cmax,
-                P_idx=None if self._pidx_capped else self.P_idx_d,
-            )
+        selection.  The span ``pipeline.tighten`` (a ``device_span``:
+        synchronised while a profiler records) counts the ``pairs`` whose
+        bounds it recomputes (all m with K4, the contenders with the
+        columns, 0 without thresholds) and the ``cols`` (0 with K4)."""
+        devices = (self.device,) if self.shard is None else self.shard.devices
+        with trace.device_span("pipeline.tighten", devices, pairs=0, cols=0) as sp:
+            nx = self.ann.nx
+            args = (self.ij_i, self.ij_j, self.RA, self.ncm, self.lb, self.ub)
+            if nx <= MAX_FULL_MATRIX_NX:
+                sp.count(pairs=self.m)
+                run = tighten_full if self.shard is None else self.shard.tighten_full
+                self.lb, self.ub = run(*args, nx)
+                return
+            if self.thresh is None:
+                return
+            ncol, cmax = min(self.TIGHTEN_NCOL, nx), int(min(self.TIGHTEN_CMAX, self.m))
+            sp.count(cols=ncol)  # tighten_cols counts the pairs
+            if self.shard is not None:
+                self.lb, self.ub = self.shard.tighten_cols(*args, self.thresh, ncol, cmax)
+            else:
+                self.lb, self.ub = tighten_cols(
+                    *args, self.thresh, ncol, cmax,
+                    P_idx=None if self._pidx_capped else self.P_idx_d,
+                )
 
     def finalise(self):
         self.tighten()

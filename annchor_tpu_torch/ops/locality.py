@@ -46,7 +46,7 @@ import os
 import numpy as np
 import torch
 
-from annchor_tpu_torch import parallel
+from annchor_tpu_torch import parallel, trace
 from annchor_tpu_torch.ops import band_linf_cuda
 from annchor_tpu_torch.ops.features import _f32, anchor_membership, shared_anchor_counts
 from annchor_tpu_torch.progress import progress
@@ -298,6 +298,7 @@ def candidate_pairs_device(D, locality: int, loc_thresh: int, loc_min: int,
         P_cnt[s : s + nblk] += rowcnt
     totals = torch.stack(totals).cpu().tolist()
     admitted = int(sum(totals))
+    trace.count(blocks=len(starts))
     if info is not None:
         info.update(admitted=admitted, build="admit")
     if max_resident is not None and budget_cap is not None and admitted > max_resident:
@@ -308,9 +309,12 @@ def candidate_pairs_device(D, locality: int, loc_thresh: int, loc_min: int,
                                                             budget_cap))
         if info is not None:
             info["build"] = "budgeted"
-        return candidate_pairs_device_budgeted(
-            D, locality, loc_thresh, loc_min, budget_cap, block=block, verbose=verbose,
-            device=dev, _pre=(S, sid, eff))
+        with trace.device_span("locality.budgeted", (dev,)) as sp:
+            built = candidate_pairs_device_budgeted(
+                D, locality, loc_thresh, loc_min, budget_cap, block=block, verbose=verbose,
+                device=dev, _pre=(S, sid, eff))
+            sp.count(m=built[2])
+        return built
     parts_i, parts_j = [], []
     for s, t in progress(list(zip(starts, totals)), "pair-extract blocks", verbose):
         if t:

@@ -41,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from annchor_tpu_torch import parallel
+from annchor_tpu_torch import parallel, trace
 from annchor_tpu_torch.ops import device_pipeline as dp
 from annchor_tpu_torch.ops.bounds_update import _build_E
 from annchor_tpu_torch.parallel import all_gather, broadcast, gather_to, to_device
@@ -383,6 +383,7 @@ class ShardedFit:
             found = dp.tighten_contenders(ij_i[c], ij_j[c], ncm[c], lb[c], th[c])
             ids.append(found[: max(left, 0)])
             left -= int(found.shape[0])
+        trace.count(pairs=sum(int(x.shape[0]) for x in ids))
         lb = [t.clone() for t in lb]
         ub = [t.clone() for t in ub]
         for c0 in range(0, ncol_pad, col_chunk):

@@ -10,6 +10,11 @@ its start and end in ``time.time_ns()`` (the clock of the profiler's
 host events), the index of the span it opened in, the request it
 belongs to and its counts.  The spans named in ``ROOTS`` each start a
 request; every other span takes the request of the span it opened in.
+``count(**counts)`` adds counts to the innermost open span from code
+that does not hold it.  ``device_span(name, devices, **counts)`` is a
+span over work queued on the card: while a profiler records it waits
+for ``devices`` as it opens and before it closes, so its time is the
+block's device time too.
 
 ``spans()`` returns the records kept (at most ``CAP``, the oldest
 dropped first), ``reset()`` clears them, and ``self_ns(records)`` gives
@@ -27,6 +32,8 @@ import time
 
 import torch
 
+from annchor_tpu_torch._backend import synchronize
+
 CAP = 1 << 20
 ROOTS = frozenset(("construct", "fit", "query"))
 
@@ -34,7 +41,7 @@ _enabled = torch._C._autograd._profiler_enabled
 _records = collections.deque(maxlen=CAP)
 _index = itertools.count()
 _request = itertools.count(1)
-# (index, request) of the innermost open span of this thread or task
+# (record, request) of the innermost open span of this thread or task
 _current = contextvars.ContextVar("annchor_tpu_torch_span", default=(None, None))
 
 
@@ -74,15 +81,16 @@ class span:
     def __enter__(self):
         if not _enabled():
             return self
-        parent, request = _current.get()
+        outer, request = _current.get()
         if self._name in ROOTS:
             request = next(_request)
         self._range = torch.profiler.record_function(self._name)
         self._range.__enter__()
-        rec = Span(next(_index), self._name, time.time_ns(), parent, request, self._counts)
+        rec = Span(next(_index), self._name, time.time_ns(),
+                   None if outer is None else outer.index, request, self._counts)
         _records.append(rec)
         self._rec = rec
-        self._token = _current.set((rec.index, request))
+        self._token = _current.set((rec, request))
         return self
 
     def __exit__(self, *exc):
@@ -98,6 +106,46 @@ class span:
     def count(self, **counts):
         if self._rec is not None:
             self._rec.counts.update(counts)
+
+
+class device_span(span):
+    """A span over work queued on ``devices`` (torch devices; those not
+    CUDA are skipped).  While a profiler records it synchronises them as
+    it opens, so the work queued before it stays out, and before it
+    closes, so the block's device time is in it; with none recording it
+    costs what a span costs."""
+
+    __slots__ = ("_devices",)
+
+    def __init__(self, name, devices, **counts):
+        super().__init__(name, **counts)
+        self._devices = devices
+
+    def __enter__(self):
+        if _enabled():
+            _synchronize(self._devices)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            if self._rec is not None:
+                _synchronize(self._devices)
+        finally:
+            super().__exit__(*exc)
+        return False
+
+
+def _synchronize(devices):
+    for d in devices:
+        synchronize(torch.device(d))
+
+
+def count(**counts):
+    """Add ``counts`` to the innermost open span of this thread or task;
+    nothing when none is open (as when no profiler records)."""
+    rec = _current.get()[0]
+    if rec is not None:
+        rec.counts.update(counts)
 
 
 def spans():

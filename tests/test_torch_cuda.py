@@ -818,3 +818,49 @@ def test_query_walk_on_card_equals_cpu(cuda, case):
     for got, want in zip(calls[1], calls[0]):
         np.testing.assert_array_equal(got, want)
     assert counts.syncs <= 2 * len(calls[1]) + 2
+
+
+def _certify_index(device, cap=None):
+    """A stand-in index for ``Annchor._certify``: 2,000 points with an
+    exact metric (distances in a random 6-d embedding) and a scout that
+    misranks it by up to 2 %, so the expansion admits pairs."""
+    from types import SimpleNamespace
+
+    emb = np.random.default_rng(3).normal(size=(2000, 6))
+
+    def exact(IJ):
+        IJ = np.asarray(IJ)
+        return np.linalg.norm(emb[IJ[:, 0]] - emb[IJ[:, 1]], axis=1)
+
+    def scout(IJ):
+        IJ = np.asarray(IJ)
+        return exact(IJ) * (1 + 0.02 * np.sin(7.0 * IJ[:, 0] + IJ[:, 1]))
+
+    return SimpleNamespace(n_neighbors=16, metric=SimpleNamespace(scout=object()),
+                           _exact_pairs=exact, _eval_pairs=scout, certify_expand_cap=cap,
+                           certify_expand_rounds=2, scout_evals=0, X=None, device=device)
+
+
+@pytest.mark.parametrize("cap", [None, 500])
+def test_certify_on_card_equals_cpu(cuda, cap):
+    """The hybrid's certify with its set operations and row ranking on
+    the card against the same on the CPU (held to the JAX package's
+    numpy by the CPU tests): bit-equal rows, the same pairs evaluated."""
+    rng = np.random.default_rng(4)
+    emb = np.random.default_rng(3).normal(size=(2000, 6))
+    noisy = emb + 0.3 * rng.normal(size=emb.shape)
+    d2 = ((noisy[:, None, :] - noisy[None, :, :]) ** 2).sum(-1)
+    ngi = np.argsort(d2, axis=1, kind="stable")[:, 1:24]
+    outs, evals = [], []
+    for dev in (torch.device("cpu"), cuda):
+        idx = _certify_index(dev, cap)
+        log = []
+        exact = idx._exact_pairs
+        idx._exact_pairs = lambda IJ, exact=exact, log=log: log.append(np.array(IJ)) or exact(IJ)
+        outs.append(Annchor._certify(idx, ngi, np.zeros(ngi.shape)))
+        evals.append(log)
+    for got, want in zip(outs[1], outs[0]):
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert len(evals[1]) == len(evals[0]) >= 2
+    for got, want in zip(evals[1], evals[0]):
+        np.testing.assert_array_equal(got, want)

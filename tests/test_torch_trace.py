@@ -1,8 +1,9 @@
 """The port's span recorder (``annchor_tpu_torch.trace``) on the CPU: off
 without a profiler, nesting, request ids, self time and the profiler's
 clock under one; the spans of a strings fit, a digits hybrid fit and
-their queries; the verbose stage table beside the stage spans; and the
-benchmark's per-layer metrics that read the spans."""
+their queries; the scale path's build and tighten spans; the verbose
+stage table beside the stage spans; and the benchmark's per-layer
+metrics that read the spans."""
 
 import collections
 import contextlib
@@ -15,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import annchor_tpu_torch as att
 from annchor_tpu_torch import trace
+from annchor_tpu_torch.ops import device_pipeline
 from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix, make_strings
 
 FIT_STAGES = ("get_anchors", "get_locality", "get_features", "get_sample",
@@ -71,6 +73,29 @@ def digits_run():
     return _run(lambda: att.Annchor(X, "wasserstein", func_kwargs=fk, **DIGITS_KW), Q)
 
 
+def _sparse_fit(profiled, **kw):
+    """A digits hybrid fit on the scale path (``ANNCHOR_TPU_FORCE_SPARSE``,
+    and the column tighten above 64 points): (index, spans)."""
+    X, _, fk = _digits()
+    mp = pytest.MonkeyPatch()
+    mp.setenv("ANNCHOR_TPU_FORCE_SPARSE", "1")
+    mp.setenv("ANNCHOR_TPU_DISABLE_SHARDING", "1")
+    mp.setattr(device_pipeline, "MAX_FULL_MATRIX_NX", 64)
+    trace.reset()
+    try:
+        with _profiled() if profiled else contextlib.nullcontext():
+            ann = att.Annchor(X, "wasserstein", func_kwargs=fk, **DIGITS_KW, **kw)
+            ann.fit()
+    finally:
+        mp.undo()
+    return ann, trace.spans()
+
+
+@pytest.fixture(scope="module")
+def sparse_run():
+    return _sparse_fit(True)
+
+
 def _children(recs, parent):
     return [r for r in recs if r.parent == parent.index]
 
@@ -89,6 +114,17 @@ def test_no_profiler_records_nothing_and_enters_no_range(monkeypatch):
     ann.fit()
     ann.query(Qd, nn=5, p_work=0.3)
     assert trace.spans() == []
+
+
+def test_no_profiler_records_no_scale_path_span(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("record_function entered with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    ann, recs = _sparse_fit(False)
+    assert ann._locality_info["build"] == "admit" and recs == []
+    ann, recs = _sparse_fit(False, max_resident_pairs=ann._locality_info["admitted"] - 1)
+    assert ann._locality_info["build"] == "budgeted" and recs == []
 
 
 def test_spans_nest_with_parents_requests_and_counts():
@@ -117,6 +153,39 @@ def test_spans_nest_with_parents_requests_and_counts():
     assert fit.counts == {"rounds": 2}
     assert all(r.start_ns <= r.end_ns for r in recs)
     assert fit.start_ns <= stage.start_ns <= emd.start_ns <= emd.end_ns <= stage.end_ns
+
+
+def test_count_adds_to_the_innermost_open_span():
+    trace.count(pairs=1)  # no span open: nothing to add to
+    with _profiled():
+        with trace.span("pipeline.tighten", pairs=0) as outer:
+            with trace.span("inner"):
+                trace.count(blocks=2)
+            trace.count(pairs=5)
+    outer, inner = trace.spans()
+    assert outer.counts == {"pairs": 5} and inner.counts == {"blocks": 2}
+    with trace.span("off"):
+        trace.count(pairs=7)
+    assert len(trace.spans()) == 2
+
+
+def test_device_span_waits_for_the_card_only_while_recording(monkeypatch):
+    """A device span synchronises its CUDA devices before its start is
+    taken and before its end is, and only while a profiler records."""
+    waits = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: waits.append((torch.device(d), time.time_ns())))
+    card = torch.device("cuda", 0)
+    with trace.device_span("pipeline.tighten", (card, torch.device("cpu"))):
+        pass
+    assert waits == [] and trace.spans() == []
+    with _profiled():
+        with trace.device_span("pipeline.tighten", (card,), pairs=3) as sp:
+            sp.count(cols=4)
+    (rec,) = trace.spans()
+    assert rec.counts == {"pairs": 3, "cols": 4}
+    assert [d for d, _ in waits] == [card, card]
+    assert waits[0][1] <= rec.start_ns <= waits[1][1] <= rec.end_ns
 
 
 def test_self_ns_takes_out_what_children_cover():
@@ -199,6 +268,45 @@ def test_hybrid_fit_records_certify_and_its_children(digits_run):
     assert sum(r.counts["pairs"] for r in in_fit if r.name == "sinkhorn_exp_chunk") > 0
 
 
+def test_sparse_fit_records_the_admit_build_and_the_column_tighten(sparse_run):
+    ann, recs = sparse_run
+    fit = next(r for r in recs if r.name == "fit")
+    locality = next(r for r in recs if r.name == "fit.get_locality")
+    (admit,) = [r for r in recs if r.name == "locality.admit"]
+    assert admit.parent == locality.index and admit.request == fit.request
+    m = ann._ij_dev[2]
+    assert admit.counts == {"blocks": 1, "admitted": m, "m": m, "switched": 0}
+    assert not any(r.name == "locality.budgeted" for r in recs)
+    tightens = [r for r in recs if r.name == "pipeline.tighten"]
+    assert tightens and all(r.request == fit.request for r in tightens)
+    # the column tighten runs once a selection has set thresholds
+    assert all(r.counts["cols"] in (0, ann.nx) for r in tightens)
+    ran = [r.counts["pairs"] for r in tightens if r.counts["cols"]]
+    assert ran and 0 < max(ran) <= m
+    assert all(r.counts["pairs"] == 0 for r in tightens if not r.counts["cols"])
+
+
+def test_sparse_fit_over_the_resident_budget_switches_builds(sparse_run):
+    first, _ = sparse_run
+    admitted = first._locality_info["admitted"]
+    ann, recs = _sparse_fit(True, max_resident_pairs=admitted - 1)
+    assert ann._locality_info == {"build": "budgeted", "admitted": admitted}
+    (admit,) = [r for r in recs if r.name == "locality.admit"]
+    (budgeted,) = [r for r in recs if r.name == "locality.budgeted"]
+    assert budgeted.parent == admit.index
+    m = ann._ij_dev[2]
+    assert admit.counts == {"blocks": 1, "admitted": admitted, "m": m, "switched": 1}
+    assert budgeted.counts == {"m": m}
+
+
+def test_dense_fit_tightens_every_pair_with_k4(digits_run):
+    ann, recs = digits_run
+    tightens = [r for r in recs if r.name == "pipeline.tighten"]
+    assert tightens
+    assert all(r.counts == {"pairs": ann._dev.m, "cols": 0} for r in tightens)
+    assert not any(r.name.startswith("locality.") for r in recs)
+
+
 @pytest.mark.parametrize("which", ["strings", "digits"])
 def test_query_children_cover_the_call(which, strings_run, digits_run):
     _, recs = strings_run if which == "strings" else digits_run
@@ -275,6 +383,9 @@ def _synthetic(kind):
             add("engine.emd", base + 322, base + 418, x)
             add("certify.scout_wait", base + 430, base + 450, cert)
             add("certify.scout", base + 500, base + 560, cert)
+            add("locality.admit", base + 60, base + 95, f)
+            add("pipeline.tighten", base + 240, base + 250, f)
+            add("pipeline.tighten", base + 710, base + 722, f)
         else:
             q = add("query", base, base + 500)
             a = add("query.anchors", base, base + 50, q)
@@ -293,6 +404,8 @@ def _synthetic(kind):
     ("ann_s.fit", 0.400),
     ("certify_self_s.fit", 0.380 - 0.100 - 0.020 - 0.060),
     ("emd_s.fit", 0.096),
+    ("admit_build_s.fit", 0.035),
+    ("tighten_s.fit", 0.022),
     ("encode_s.query", 0.020 + 0.040),
     ("walk_self_s.query", 0.300 - 0.040 - 0.060),
     ("emd_s.query", 0.060),

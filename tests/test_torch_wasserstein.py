@@ -259,6 +259,61 @@ def test_certify_graph_expansion_recovers_scout_misranks():
     assert ann2.evals < 0.5 * (300 * 299) // 2
 
 
+def _certify_index(port, cap, rounds, log):
+    """A stand-in index for either package's ``Annchor._certify``: 2,000
+    points whose exact metric is the distance in a random 6-d embedding,
+    and a scout that misranks it by up to 2 %, so the expansion admits
+    pairs; every exact batch is appended to ``log``."""
+    from types import SimpleNamespace
+
+    emb = np.random.default_rng(3).normal(size=(2000, 6))
+
+    def exact(IJ):
+        IJ = np.array(IJ)
+        log.append(IJ)
+        return np.linalg.norm(emb[IJ[:, 0]] - emb[IJ[:, 1]], axis=1)
+
+    def scout(IJ):
+        IJ = np.asarray(IJ)
+        d = np.linalg.norm(emb[IJ[:, 0]] - emb[IJ[:, 1]], axis=1)
+        return d * (1 + 0.02 * np.sin(7.0 * IJ[:, 0] + IJ[:, 1]))
+
+    idx = SimpleNamespace(n_neighbors=16, metric=SimpleNamespace(scout=object()),
+                          _eval_pairs=scout, certify_expand_cap=cap,
+                          certify_expand_rounds=rounds, evals=0, scout_evals=0,
+                          X=None, f=None)
+    if port:
+        idx._exact_pairs = exact
+        idx.device = torch.device("cpu")
+    else:
+        idx._exact_eval = lambda f, X, IJ: exact(IJ)
+    return idx
+
+
+@pytest.mark.parametrize("cap", [None, 500])
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_certify_matches_jax(rounds, cap):
+    """The port's certify, whose set operations and row ranking are torch
+    ops on ``ann.device``, against the JAX package's numpy on the same
+    candidate lists: bit-equal rows and the same exact evaluations, batch
+    for batch and pair for pair."""
+    emb = np.random.default_rng(3).normal(size=(2000, 6))
+    noisy = emb + 0.3 * np.random.default_rng(4).normal(size=emb.shape)
+    d2 = ((noisy[:, None, :] - noisy[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, -np.inf)
+    ngi = np.argsort(d2, axis=1, kind="stable")[:, 1:24]
+    logs = {True: [], False: []}
+    want = at.Annchor._certify(_certify_index(False, cap, rounds, logs[False]), ngi,
+                               np.zeros(ngi.shape))
+    got = att.Annchor._certify(_certify_index(True, cap, rounds, logs[True]), ngi,
+                               np.zeros(ngi.shape))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.tobytes() == w.tobytes()
+    assert len(logs[True]) == len(logs[False]) == 1 + rounds
+    for g, w in zip(logs[True], logs[False]):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_pure_sinkhorn_graph_recall(digits):
     """Port of tests/test_hybrid.py::test_pure_sinkhorn_graph_recall at 150
     digits: the wasserstein_sinkhorn fit keeps >= 0.9 of the exact
