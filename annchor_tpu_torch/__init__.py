@@ -6,9 +6,9 @@ kernel (``csrc/levenshtein_myers.cu``) on an NVIDIA card, or by its
 plain PyTorch version when ``device="cpu"``.
 
 Ported so far: fits at nx <= 4096 under ``levenshtein``, ``euclidean``,
-``sqeuclidean``, ``cosine``, ``wasserstein`` (exact EMD on the host,
-with ``scout="sinkhorn"`` the scout/certify hybrid whose scout runs on
-the device), ``wasserstein_sinkhorn``, ``GraphShortestPathMetric`` or
+``sqeuclidean``, ``cosine``, ``wasserstein`` (exact EMD on the card up
+to 64 bins, K12, else on the host, with ``scout="sinkhorn"`` the
+scout/certify hybrid whose scout runs on the device), ``wasserstein_sinkhorn``, ``GraphShortestPathMetric`` or
 any Python callable, with the default strategies (device pipeline) or
 custom strategy objects (host pipeline), and above 4,096 points the
 scale path for metric fits; ``BruteForce``, the exact oracles

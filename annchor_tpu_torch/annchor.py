@@ -905,8 +905,9 @@ class Annchor:
             key = (np.minimum(rows, cols) * nx + np.maximum(rows, cols))[valid]
             uniq = np.unique(key)
             IJ = np.stack([uniq // nx, uniq % nx], axis=1)
-            # queue the scout values of the same edges first, run the host's
-            # exact batch while the device computes them, then download once
+            # queue the scout values of the same edges first, then the exact
+            # batch (on a card K12 runs after them on the same stream, else
+            # the host solver overlaps them), then download once
             scout_dev = None
             scout = self.metric.scout
             if hasattr(scout, "dispatch"):

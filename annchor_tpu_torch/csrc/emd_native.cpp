@@ -5,14 +5,23 @@
 // (annchor_tpu/native/annchor_native.cpp): the transportation network
 // simplex with a least-cost initial basis, the successive-shortest-path
 // solver that cross-checks it, the per-cost-matrix rank table, and a
-// thread stripe over the batch.  The exact optimal-transport solve is
-// sequential pivoting, so it stays host C++ in the port as in the JAX
-// package; the card runs the Sinkhorn scout (ops/wasserstein.py).
+// thread stripe over the batch.  The port solves the same network simplex
+// on the card too, a warp a pair (K12, csrc/emd_simplex.cu), for a card
+// engine and histograms of at most 64 bins; this solver serves the CPU,
+// wider histograms and the scalar metric.
 //
-// Built with g++ -O3 -march=native -std=c++17 -shared -fPIC -pthread at
-// first use (annchor_tpu_torch/native.py); the JAX package's library is
-// built with the same flags, so on one machine the two give bit-equal
-// float64 results.
+// Built with g++ -O3 -march=native -ffp-contract=off -std=c++17 -shared
+// -fPIC -pthread at first use (annchor_tpu_torch/native.py).  The
+// compiler fuses no multiply-add here: every FMA is written out
+// (std::fma), exactly where GCC 12 contracts the JAX package's copy,
+// built without -ffp-contract=off.  So the arithmetic is the source's on
+// every compiler: K12 and its plain version (ops/emd_cuda.py) repeat it
+// bit for bit, and where g++ contracts as GCC 12 does, the JAX package's
+// library gives the same float64 results; under another contraction the
+// two may differ by an ulp.  Each std::fma is marked "FMA site: <name>";
+// the network simplex's sites are ops/emd_cuda.py FMA_SITES, the list that
+// K12 and the plain version share (tests/test_torch_emd_simplex.py holds
+// the three files to it), and the SSP's two are this file's alone.
 
 #include <algorithm>
 #include <cmath>
@@ -44,7 +53,8 @@ double emd_ssp(const double* a_in, const double* b_in, int n, int m,
 
   double remaining = 0.0;
   for (int i = 0; i < n; ++i) remaining += ra[i];
-  const double tol = remaining * 1e-12 + 1e-14;
+  // FMA site: ssp-tol (host only)
+  const double tol = std::fma(remaining, 1e-12, 1e-14);
 
   int max_rounds = 16 * (n + m) + 64;
   while (remaining > tol && max_rounds-- > 0) {
@@ -136,7 +146,8 @@ double emd_ssp(const double* a_in, const double* b_in, int n, int m,
   for (int i = 0; i < n; ++i) {
     const double* fi = f.data() + static_cast<size_t>(i) * m;
     const double* Ci = C + static_cast<size_t>(i) * m;
-    for (int j = 0; j < m; ++j) total += fi[j] * Ci[j];
+    // FMA site: ssp-cost (host only)
+    for (int j = 0; j < m; ++j) total = std::fma(fi[j], Ci[j], total);
   }
   return total;
 }
@@ -194,7 +205,8 @@ class NetSimplex {
     for (int i = 0; i < n; ++i) total += sa_[i];
     const double eps = total * 1e-11;
     for (int i = 0; i < n; ++i) sa_[i] += eps;
-    sb_[m - 1] += n * eps;
+    // FMA site: supply
+    sb_[m - 1] = std::fma(n, eps, sb_[m - 1]);
 
     // --- least-cost initial basic solution: allocate cells in
     // ascending cost order, skipping exhausted rows/columns.  Under
@@ -232,7 +244,8 @@ class NetSimplex {
       build_tree_(arc_a_, arc_b_, arc_f_);
     }
 
-    const double tol = cost_scale_() * 1e-12 + 1e-15;
+    // FMA site: tol
+    const double tol = std::fma(cost_scale_(), 1e-12, 1e-15);
     const int max_pivots = 64 * N_ + 256;
     refresh_();
     for (int it = 0; it < max_pivots; ++it) {
@@ -299,7 +312,8 @@ class NetSimplex {
       // arc between v and p carries |bal[v]|; cost counts C once
       const int src = (v < n_) ? v : p;
       const int snk = (v < n_) ? p - n_ : v - n_;
-      cost += std::abs(bal[v]) * C_[static_cast<size_t>(src) * m_ + snk];
+      // FMA site: peel
+      cost = std::fma(std::abs(bal[v]), C_[static_cast<size_t>(src) * m_ + snk], cost);
       bal[p] += bal[v];
     }
     return cost;
@@ -499,12 +513,17 @@ class NetSimplex {
 double emd_netsimplex(const double* a, const double* b, int n, int m,
                       const double* C, const int32_t* cells) {
   if (n == 1 || m == 1) {  // trivial: all mass via the single node
+    // the products rounded and summed in order, the last of an odd count
+    // fused: what GCC 12 made of the plain sum (pairs and fours of
+    // products, an odd last term alone), kept as the JAX package's copy
+    const int cnt = (n == 1) ? m : n;
+    const double* w = (n == 1) ? b : a;
     double cost = 0.0;
-    if (n == 1)
-      for (int j = 0; j < m; ++j) cost += b[j] * C[j];
-    else
-      for (int i = 0; i < n; ++i)
-        cost += a[i] * C[static_cast<size_t>(i) * m];
+    for (int k = 0; k < cnt; ++k) {
+      const double c = (n == 1) ? C[k] : C[static_cast<size_t>(k) * m];
+      // FMA site: one-node
+      cost = (k == cnt - 1 && (cnt & 1)) ? std::fma(w[k], c, cost) : cost + w[k] * c;
+    }
     return cost;
   }
   // reuse one solver per thread: member scratch keeps its capacity so

@@ -12,8 +12,8 @@ fit's device, so the host only ever sees (block, k):
 * ``euclidean``, ``sqeuclidean``, ``cosine``: the dense engine's gather
   and reduction (``_dense_knn``);
 * any other metric (exact EMD, graph shortest paths, Python callables):
-  the metric's batched engine or its scalar, on the host
-  (``_host_knn``, ``_blocked_rows``).
+  the metric's batched engine (for exact EMD on a card, K12) or its
+  scalar on the host (``_host_knn``, ``_blocked_rows``).
 
 Ties are broken by the lower column index, as the JAX package's
 ``lax.top_k`` breaks them; the host branch keeps the JAX package's

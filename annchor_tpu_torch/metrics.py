@@ -9,8 +9,10 @@ batched engine:
 * ``euclidean``, ``sqeuclidean`` and ``cosine``: ``_DenseBatchEngine``,
   a gather and a row reduction in float32 (the JAX engine is an XLA
   program, not a Pallas kernel, so plain torch ops are its port);
-* ``wasserstein``: ``_EMDEngine``, the exact EMD solver on the host's
-  cores (``native.py``), with ``scout="sinkhorn"`` the exp-domain
+* ``wasserstein``: ``_EMDEngine``, the exact EMD: on a card K12, a warp
+  a pair (``ops/emd_cuda.py``), on the CPU and past K12's 64 bins the
+  host solver on the host's cores (``native.py``), the same float64
+  bits either way; with ``scout="sinkhorn"`` the exp-domain
   Sinkhorn scout on the device (``ops/wasserstein.SinkhornExpEngine``)
   for the scout/certify hybrid;
 * ``wasserstein_sinkhorn``: log-domain Sinkhorn on the device
@@ -43,12 +45,18 @@ import torch
 from annchor_tpu_torch import native, parallel, trace
 from annchor_tpu_torch._backend import resolve_device
 from annchor_tpu_torch.ops import levenshtein as _lev_ops
+from annchor_tpu_torch.ops.emd_cuda import K12_MAX_BINS, cell_order, emd_simplex_cuda
 from annchor_tpu_torch.ops.levenshtein_myers import (
     MyersEncoding,
     myers_maxmin,
     myers_pairs,
 )
-from annchor_tpu_torch.ops.wasserstein import SinkhornEngine, SinkhornExpEngine
+from annchor_tpu_torch.ops.wasserstein import (
+    SinkhornEngine,
+    SinkhornExpEngine,
+    cached_table,
+    to_device,
+)
 from annchor_tpu_torch.progress import progress
 
 __all__ = [
@@ -369,19 +377,53 @@ class _LevenshteinEngine:
 
 
 class _EMDEngine:
-    """Exact 1-Wasserstein distance by the host C++ solver (``native.py``),
-    striped over the host's cores: network-simplex pivoting is
-    sequential, so exact EMD stays on the host, as in the reference
-    (pynndescent's numba kantorovich, utils.py:82-86)."""
+    """Exact 1-Wasserstein distance, bit-equal on every device to the host
+    C++ solver (``native.py``), the network simplex the reference's
+    pynndescent kantorovich solves (utils.py:82-86).  On a card, for
+    histograms of at most ``K12_MAX_BINS`` bins, each batch is one K12
+    launch, a warp a pair (``ops/emd_cuda.py``); on the CPU, or for wider
+    histograms, the host solver striped over the host's cores."""
 
-    def __init__(self, cost_matrix):
+    def __init__(self, cost_matrix, device="cpu"):
         self.cost_matrix = np.ascontiguousarray(cost_matrix, np.float64)
+        self.device = resolve_device(device)
+        self.on_card = (self.device.type == "cuda"
+                        and self.cost_matrix.shape[0] <= K12_MAX_BINS)
+        self._card = None  # (cost, cell order) on the card, at first use
+        self._tables = {}
+
+    def _table(self, X):
+        """X as float64 rows on the card."""
+        return cached_table(self._tables, X, lambda X: to_device(X, self.device, np.float64))
+
+    def dispatch(self, X, Z, IJ):
+        """Queue K12 on the pairs IJ (int64 (m, 2), m > 0) and return the
+        float64 distances on the card without waiting for them: the ids
+        and, at first use, the histograms, cost and cell order go up
+        through pinned memory."""
+        nb = self.cost_matrix.shape[0]
+        (nx, bx), (nz, bz) = np.shape(X), np.shape(Z)
+        if bx != nb or bz != nb:
+            raise ValueError("emd: histograms of %d and %d bins under a %d-bin cost"
+                             % (bx, bz, nb))
+        if IJ.min() < 0 or IJ[:, 0].max() >= nx or IJ[:, 1].max() >= nz:
+            raise ValueError("emd: index out of range")
+        if self._card is None:
+            self._card = (to_device(self.cost_matrix, self.device, np.float64),
+                          to_device(cell_order(self.cost_matrix), self.device, np.int16))
+        Xd = self._table(X)
+        Zd = Xd if Z is X else self._table(Z)
+        return emd_simplex_cuda(Xd, Zd, to_device(IJ[:, 0], self.device),
+                                to_device(IJ[:, 1], self.device), *self._card)
 
     def __call__(self, X, Z, IJ):
         IJ = np.asarray(IJ, dtype=np.int64)
         if IJ.shape[0] == 0:
             return np.zeros(0, dtype=np.float64)
-        with trace.span("engine.emd", pairs=IJ.shape[0]):
+        m = IJ.shape[0]
+        with trace.span("engine.emd", pairs=m, on_card=m if self.on_card else 0):
+            if self.on_card:
+                return self.dispatch(X, Z, IJ).cpu().numpy()
             X = np.ascontiguousarray(X, dtype=np.float64)
             Zc = X if Z is X else np.ascontiguousarray(Z, dtype=np.float64)
             return native.emd_batch(X, Zc, self.cost_matrix, IJ[:, 0], IJ[:, 1])
@@ -415,8 +457,9 @@ def get_function_from_input(func, func_kwargs=None, device="cuda"):
     metrics need ``func_kwargs["cost_matrix"]``; ``wasserstein`` with
     ``"scout": "sinkhorn"`` (and optionally the scout's eps, n_iter,
     chunk) carries the Sinkhorn scout for the hybrid fit.  ``device`` is
-    where the batched engine of a built-in metric runs (the exact EMD
-    always runs on the host).
+    where the batched engine of a built-in metric runs (the exact EMD on a
+    card runs K12 up to 64 bins and the host solver past them; its scalar
+    form always runs on the host).
     """
     if isinstance(func, Metric):
         return func
@@ -447,9 +490,9 @@ def get_function_from_input(func, func_kwargs=None, device="cuda"):
             scout = None
             if kw.pop("scout", None) == "sinkhorn":
                 # the scout/certify hybrid: entropic OT on the device drives
-                # the search; the exact host solver certifies the graph
+                # the search; the exact EMD engine certifies the graph
                 scout = SinkhornExpEngine(M, device=device, **kw)
-            return Metric(_make_emd_scalar(M), _EMDEngine(M), name="wasserstein",
+            return Metric(_make_emd_scalar(M), _EMDEngine(M, device), name="wasserstein",
                           scout=scout)
         if func == "wasserstein_sinkhorn":
             assert func_kwargs and "cost_matrix" in func_kwargs, (

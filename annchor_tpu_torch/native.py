@@ -3,8 +3,13 @@
 The solver is compiled with ``g++`` at first use into a shared library
 under the ignored ``build/native/``, keyed on a hash of its source, its
 flags and the host's CPU model (``-march=native`` compiles for the CPU it
-runs on), and loaded with ``ctypes``.  The flags are the JAX package's,
-so on one machine the two libraries give bit-equal float64 results.  A
+runs on), and loaded with ``ctypes``.  The flags are the JAX package's
+and ``-ffp-contract=off``: the source writes out each FMA where GCC 12
+contracts the JAX package's copy, so the float64 results are the
+source's on every compiler and those of the card's solver (K12,
+``ops/emd_cuda.py``; the sites are ``emd_cuda.FMA_SITES``).  Bit-parity
+with the JAX package's library holds only where its g++ contracts as
+GCC 12 does; under another contraction the two may differ by an ulp.  A
 failed build raises; nothing falls back.
 """
 
@@ -22,7 +27,8 @@ import numpy as np
 from annchor_tpu_torch._backend import BUILD_ROOT
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "emd_native.cpp")
-GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread")
+GXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+             "-pthread")
 
 # The solver packs (bin_i << 16 | bin_j) cell ids into a signed int32, so
 # a bin index must stay below 1 << 15 for the packed id to stay positive.

@@ -2,8 +2,10 @@
 device.
 
 Port of the JAX package's ``ops/wasserstein.py`` (XLA programs there, so
-plain torch here).  Exact EMD is sequential pivoting and stays on the
-host (``native.py``); these engines approximate it:
+plain torch here).  Exact EMD is the network simplex of ``native.py``,
+run on a card by K12, a warp a pair (``ops/emd_cuda.py``, through
+``metrics._EMDEngine``), and on the host's cores otherwise; these
+engines approximate it:
 
 * ``SinkhornExpEngine``: exp-domain Sinkhorn with the dataset resident
   on the device, the scout of the scout/certify hybrid
@@ -137,10 +139,23 @@ def unit_mass(X):
     return X / np.where(s > 0, s, 1.0)
 
 
-def _ids(a, device):
-    """int64 ids from the host to ``device``; to a card through pinned
-    memory, so the copy does not wait for the card."""
-    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
+def cached_table(tables, X, make):
+    """``make(X)``, kept in the dict ``tables`` for up to two datasets (the
+    fitted set and a query set); each entry holds a strong reference to X
+    so its id() cannot be recycled."""
+    hit = tables.get(id(X))
+    if hit is None or hit[0] is not X:
+        if len(tables) >= 2:
+            tables.clear()
+        hit = (X, make(X))
+        tables[id(X)] = hit
+    return hit[1]
+
+
+def to_device(a, device, dtype=np.int64):
+    """A host array as ``dtype`` (by default int64 ids) on ``device``; to
+    a card through pinned memory, so the copy does not wait for the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
@@ -174,17 +189,9 @@ class SinkhornExpEngine:
         self._tables = {}
 
     def _table(self, X):
-        """X's rows as float32 histograms of unit mass on the device, for
-        up to two datasets (the fitted set and a query set); each entry
-        holds a strong reference to X so its id() cannot be recycled."""
-        key = id(X)
-        hit = self._tables.get(key)
-        if hit is None or hit[0] is not X:
-            if len(self._tables) >= 2:
-                self._tables.clear()
-            hit = (X, torch.from_numpy(np.ascontiguousarray(unit_mass(X))).to(self.device))
-            self._tables[key] = hit
-        return hit[1]
+        """X's rows as float32 histograms of unit mass on the device."""
+        return cached_table(self._tables, X, lambda X: torch.from_numpy(
+            np.ascontiguousarray(unit_mass(X))).to(self.device))
 
     def _chunks(self, Xd, Zd, I, J):
         outs = [
@@ -221,8 +228,8 @@ class SinkhornExpEngine:
             return None, 0
         Xd = self._table(X)
         Zd = Xd if Z is X else self._table(Z)
-        return self._chunks(Xd, Zd, _ids(IJ[:, 0], self.device),
-                            _ids(IJ[:, 1], self.device)), m
+        return self._chunks(Xd, Zd, to_device(IJ[:, 0], self.device),
+                            to_device(IJ[:, 1], self.device)), m
 
     def __call__(self, X, Z, IJ):
         with trace.span("engine.sinkhorn", pairs=len(IJ)):

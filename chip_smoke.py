@@ -9,8 +9,8 @@ against the exact graph from the port's own ``BruteForce``.  Phases, each
 of which exits non-zero when it fails:
 
 1. device: the card's name and power limit, and the build of every
-   kernel from the sources in this checkout (K1, K10, K4, K9a, K8 and
-   the host EMD solver, one compiler process each, started together),
+   kernel from the sources in this checkout (K1, K10, K4, K9a, K8, K12
+   and the host EMD solver, one compiler process each, started together),
    with ptxas's registers and spills for each instantiation;
 2. kernel check: the CUDA edit-distance kernel (K1), in each launch mode
    (auto, thread, group), against its plain PyTorch version, bit for
@@ -85,7 +85,9 @@ of which exits non-zero when it fails:
    large n (300 and 784 bins on 8,192 pairs, 14,401 on 2), beside
    their bounds (the FP64 peak; expf, with the FP32 pipe's beside it),
    plain versions and, for K8a, the plain version's float64 ``torch.mm``
-   alone;
+   alone; then K12, the exact EMD, on a digits-5620 certify's 120,914
+   pairs and a digits-1797 query's 8,980, bit-equal to the host solver,
+   beside its FP64 pricing bound and the host solver's time;
 6. vector metrics: the euclidean, sqeuclidean and cosine engine on the
    card against a float64 oracle, the blobs contract (0 errors) and a
    euclidean fit on 4,096 x 64 blobs, held to the JAX package's evals and
@@ -137,12 +139,15 @@ of which exits non-zero when it fails:
    ``Annchor(X, "wasserstein", func_kwargs={"cost_matrix":
    grid_cost_matrix(), "scout": "sinkhorn"}, n_anchors=25, n_neighbors=25,
    n_samples=5000, p_work=0.16, random_seed=42)`` (BENCHMARKS.md's
-   protocol), scored against ``exact_knn(X, "wasserstein", k=25)`` on the
-   host's EMD solver: < 10 errors, every reported distance the exact EMD
-   to 1e-9; its wall split into the Sinkhorn scout's device time (under
-   ``torch.profiler``: K8a's device ms and launches) and the host EMD
-   seconds, K8a launched; (c) ``wasserstein_sinkhorn`` on the first 300
-   digits: neighbour-set recall >= 0.9 against the exact graph, K8b
+   protocol), scored against ``exact_knn(X, "wasserstein", k=25,
+   device="cpu")`` on the host's EMD solver (the same graph by K12,
+   ``device="cuda"``, must be bit-equal to it): < 10 errors, every
+   reported distance the exact EMD to 1e-9; its wall split into the
+   Sinkhorn scout's device time (under ``torch.profiler``: K8a's device
+   ms and launches) and the exact EMD seconds; K8a launched, and K12
+   once for each exact batch of the fit; (c) ``wasserstein_sinkhorn`` on
+   the first 300 digits: neighbour-set recall >= 0.9 against the exact
+   graph (the host's solver), K8b
    launched, and the same fit under ``torch.profiler`` in a fresh process
    (K8b's device ms; every K8b launch must be recorded);
    (d) graph-sp on the 796-vertex component of ``make_graph()``
@@ -369,6 +374,13 @@ FMNMX_PER_S = 132 * 64 * 1.98e9
 # pair, one MUFU.EX2 each at 16 a clock per SM; H100 SXM, 132 SMs at 1.98
 # GHz
 FP64_FMA_PER_S = 132 * 128 * 1.98e9
+# K12's bound (csrc/emd_simplex.cu): its pricing, one DADD and one DSETP
+# for each reduced cost of each pass, on the FP64 pipe outside the tensor
+# cores, 64 lanes a clock per SM (H100 SXM, 132 SMs at 1.98 GHz)
+FP64_OPS_PER_S = 132 * 64 * 1.98e9
+# K12's batches: the pairs of a traced digits-5620 fit's certify and a
+# digits-1797 query call's
+K12_BATCHES = {"K12 certify 5620": 120_914, "K12 query 1797": 8_980}
 EXPF_PER_S = 132 * 16 * 1.98e9
 # beside K8b's expf bound, its FP32 pipe's: K8B_FP32_PER_ELEM FP32-pipe
 # instructions (FADD, FFMA, FMUL) for each element of a half step's two
@@ -499,7 +511,7 @@ def _ptxas(kernel):
         if m:
             kind = re.search(r"(k10?_thread|k10?_group|k10?_long|k4_tropical|k9a_band|"
                              r"k8a_resident|k8a_step|k8a_ones|k8a_sum|k8b_resident|k8b_step|"
-                             r"k8b_cost|k8b_sum)", m.group(1))
+                             r"k8b_cost|k8b_sum|k12_emd)", m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
             name = "%s%s" % (kind.group(1) if kind else "?",
                              "<%s>" % ",".join(args) if args else "")
@@ -1528,6 +1540,96 @@ def _k8_timing(torch, np):
     return rows
 
 
+def _k12_timing(torch, np):
+    """Phase 5's K12 rows (``K12_BATCHES``): the exact EMD of 120,914 near
+    pairs of the digits-5620 stand-in (each image with its nearest by
+    pixel distance, as a fit's certify pairs) and of 8,980 pairs of the
+    digits (every 4th against its 20 nearest of the rest, a query call's):
+    K12's ms by CUDA events, the engine's (ids up, K12, distances down)
+    and the host solver's (``native.emd_batch`` on this machine's cores)
+    by the host clock, the values bit-equal.  On 200 pairs drawn from the
+    batch, K12 against its plain version (``emd_simplex_plain``'s solve):
+    bit-equal, both timed there (``sample_ms``, ``plain_ms``).  The
+    bound: 2 FP64 operations (DADD, DSETP) for each reduced cost priced,
+    counted by the plain version on those pairs and scaled to the batch,
+    at ``FP64_OPS_PER_S``."""
+    from annchor_tpu_torch import native
+    from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix, make_digits_large
+    from annchor_tpu_torch.metrics import _EMDEngine
+    from annchor_tpu_torch.ops import emd_cuda
+
+    dev = torch.device("cuda")
+    M = grid_cost_matrix()
+    order = emd_cuda.cell_order(M)
+    big, _ = make_digits_large()
+    small, _ = digit_images()
+    rows = {}
+    for (name, P), (X, Q, k) in zip(K12_BATCHES.items(), ((big, big, 22), (small, small[::4], 20))):
+        Xd = torch.as_tensor(X, device=dev)
+        d2 = torch.cdist(torch.as_tensor(Q, device=dev), Xd)
+        if Q is X:
+            d2.fill_diagonal_(float("inf"))
+        near = torch.topk(d2, k, largest=False).indices.cpu().numpy()
+        IJ = np.stack([np.repeat(np.arange(len(Q)), k), near.ravel()], axis=1)[:P]
+        IJ = IJ[:, ::-1].copy() if Q is not X else IJ  # index rows first
+        eng = _EMDEngine(M, device=dev)
+        eng(X, Q, IJ[:8])  # builds K12, tables up
+        t0 = time.perf_counter()
+        got = eng(X, Q, IJ)
+        engine_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = native.emd_batch(X, Q, M, IJ[:, 0], IJ[:, 1])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        Qd = eng._table(Q)
+        args = (eng._table(X), Qd, torch.as_tensor(IJ[:, 0].copy(), device=dev),
+                torch.as_tensor(IJ[:, 1].copy(), device=dev), *eng._card)
+        before = emd_cuda.K12.launches
+        emd_cuda.emd_simplex_cuda(*args)
+        launches = emd_cuda.K12.launches - before
+        ms = _time(torch, lambda: emd_cuda.emd_simplex_cuda(*args), 5)
+        warp = emd_cuda._Warp(M, order)
+        sample = np.random.default_rng(9).choice(P, 200, replace=False)
+        part = (args[0], Qd, *(torch.as_tensor(IJ[sample, c].copy(), device=dev)
+                               for c in (0, 1)), *eng._card)
+        on_sample = emd_cuda.emd_simplex_cuda(*part).cpu().numpy()
+        sample_ms = _time(torch, lambda: emd_cuda.emd_simplex_cuda(*part), 5)
+        plain = np.empty(sample.size)
+        priced = pivots = 0
+        t0 = time.perf_counter()
+        for k, (i, j) in enumerate(IJ[sample]):
+            plain[k] = warp.solve(X[i], Q[j])
+            priced += warp.priced
+            pivots += warp.pivots
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bound_ms = 2 * priced * P / 200 / FP64_OPS_PER_S * 1e3
+        rows[name] = {"pairs": P, "ms": ms, "engine_ms": engine_ms, "host_ms": host_ms,
+                      "launches_per_call": launches, "bound_ms": bound_ms,
+                      "bound_by": "operations", "bound_share": bound_ms / ms,
+                      "pivots_per_pair": pivots / 200, "priced_per_pair": priced / 200,
+                      "bit_equal": got.tobytes() == want.tobytes(),
+                      "sample_pairs": int(sample.size), "sample_ms": sample_ms,
+                      "plain_ms": plain_ms,
+                      "plain_bit_equal": plain.tobytes() == on_sample.tobytes()}
+        print("  %-18s %6d pairs, %d launch: %9.4f ms | engine %.3f ms | host solver %.1f ms "
+              "(%.1fx) | bound %.4f ms (FP64 pricing, %.1f %% of it; %.1f pivots, %.0f "
+              "reduced costs a pair) | bit-equal %s | on %d of its pairs %.4f ms, plain "
+              "version %.1f ms, bit-equal %s" % (
+                  name, P, launches, ms, engine_ms, host_ms, host_ms / ms, bound_ms,
+                  100 * bound_ms / ms, pivots / 200, priced / 200, rows[name]["bit_equal"],
+                  sample.size, sample_ms, plain_ms, rows[name]["plain_bit_equal"]),
+              flush=True)
+        if not rows[name]["bit_equal"]:
+            bad = np.flatnonzero(got != want)
+            raise SystemExit("K12 differs from the host solver on %d of %d pairs, first %s: "
+                             "%r against %r" % (bad.size, P, IJ[bad[0]].tolist(),
+                                                got[bad[0]], want[bad[0]]))
+        if not rows[name]["plain_bit_equal"]:
+            bad = np.flatnonzero(plain != on_sample)
+            raise SystemExit("K12 differs from its plain version on %d of %d pairs, first %s"
+                             % (bad.size, sample.size, IJ[sample[bad[0]]].tolist()))
+    return rows
+
+
 def _k8b_row(torch, args, reps, plain_reps):
     """K8b on (A, B, C, eps, n_iter) through its dispatch: ms by CUDA events
     beside its plain version's, the bound (the larger of its (2 n_iter + 1)
@@ -2376,6 +2478,7 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
         make_graph,
     )
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+    from annchor_tpu_torch.ops.emd_cuda import K12
     from annchor_tpu_torch.ops.sinkhorn_cuda import K8
 
     out = report["slow_metrics"] = {}
@@ -2409,15 +2512,22 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
     M = grid_cost_matrix()
     t0 = time.perf_counter()
     ei, ed = att.exact_knn(Xd, "wasserstein", {"cost_matrix": M}, k=N_NEIGHBORS,
-                           device="cuda")
+                           device="cpu")
     gt_s = time.perf_counter() - t0
+    K12.reset_counts()
+    t0 = time.perf_counter()
+    ci, cd = att.exact_knn(Xd, "wasserstein", {"cost_matrix": M}, k=N_NEIGHBORS,
+                           device="cuda")
+    card_s = time.perf_counter() - t0
+    card_launches = K12.launches
+    card_equal = bool(np.array_equal(ci, ei) and cd.tobytes() == ed.tobytes())
     kw = dict(func_kwargs={"cost_matrix": M, "scout": "sinkhorn"}, n_anchors=25,
               n_neighbors=N_NEIGHBORS, n_samples=5000, p_work=0.16, random_seed=42,
               device="cuda")
     rows = []
     for run in ("timed", "profiled"):
         ann = att.Annchor(Xd, "wasserstein", verbose=run == "timed", **kw)
-        emd = {"s": 0.0, "calls": 0}
+        emd = {"s": 0.0, "calls": 0, "batches": 0}
         exact_eval = ann._exact_eval
 
         def timed_exact(f, X_, IJ, exact_eval=exact_eval, emd=emd):
@@ -2427,9 +2537,11 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
             finally:
                 emd["s"] += time.perf_counter() - t
                 emd["calls"] += len(IJ)
+                emd["batches"] += len(IJ) > 0
 
         ann._exact_eval = timed_exact
         K8.reset_counts()
+        K12.reset_counts()
         if run == "timed":
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2440,23 +2552,25 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
             row = _device_profile(torch, ann.fit, "sinkhorn_exp_chunk")
             for name, ms, cnt in row["top"]:
                 print("    %-60s %10.3f ms in %6d events" % (name, ms, cnt), flush=True)
-        row["k8a_launches"] = K8.mode_launches["exp"]
+        row.update(k8a_launches=K8.mode_launches["exp"], k12_launches=K12.launches,
+                   exact_batches=emd["batches"])
         errors = att.compare_neighbor_graphs((ei, ed), ann.neighbor_graph, N_NEIGHBORS)
         ngi, ngd = ann.neighbor_graph
         check = native.emd_batch(Xd, Xd, M, np.repeat(np.arange(len(Xd)), N_NEIGHBORS),
                                  ngi.reshape(-1))
         row.update(evals=int(ann.evals), scout_evals=int(ann.scout_evals),
-                   errors=int(errors), host_emd_s=emd["s"], host_emd_calls=emd["calls"],
+                   errors=int(errors), exact_emd_s=emd["s"], exact_emd_calls=emd["calls"],
                    max_abs_err_reported=float(np.abs(check - ngd.reshape(-1)).max()),
                    anchors=[int(a) for a in ann.A[:5]])
         rows.append(row)
         print("  (b) digits-1797 hybrid (%s): %.3f s wall, %d exact calls (JAX package on a "
               "CPU: %d), %d scout calls (%d), %d errors (%d; contract < %d), reported "
-              "distances within %.3g of the exact EMD, host EMD %.3f s in %d calls, K8a "
-              "launches %d%s" % (
+              "distances within %.3g of the exact EMD, exact EMD %.3f s in %d calls, K8a "
+              "launches %d, K12 launches %d for %d exact batches%s" % (
                   run, row["wall_s"], ann.evals, DIGITS_EVALS, ann.scout_evals,
                   DIGITS_SCOUT_EVALS, errors, DIGITS_ERRORS, DIGITS_MAX_ERRORS,
                   row["max_abs_err_reported"], emd["s"], emd["calls"], row["k8a_launches"],
+                  row["k12_launches"], row["exact_batches"],
                   "" if run == "timed" else "; device %.3f ms in %d kernels, the Sinkhorn "
                   "scout %.3f ms in %d kernels over a %.3f ms span of the card's timeline, "
                   "K8a %.3f ms in %d kernels"
@@ -2465,18 +2579,26 @@ def _slow_metrics(torch, np, att, K1, report, X, gt):
                      row["k8a_kernels"])), flush=True)
         if not row["k8a_launches"]:
             raise SystemExit("(b) the digits hybrid never launched K8a")
+        if not row["k12_launches"] or row["k12_launches"] != row["exact_batches"]:
+            raise SystemExit("(b) the digits hybrid launched K12 %d times for %d exact batches"
+                             % (row["k12_launches"], row["exact_batches"]))
         if errors >= DIGITS_MAX_ERRORS or row["max_abs_err_reported"] > 1e-9:
             raise SystemExit("(b) the digits hybrid: %d errors, reported distances off by "
                              "%.3g" % (errors, row["max_abs_err_reported"]))
         if ngi.shape != (len(Xd), N_NEIGHBORS) or not ann._scouting:
             raise SystemExit("(b) the digits hybrid did not run the scout/certify path")
-    out["b"] = {"exact_knn_s": gt_s, "emd_solves": len(Xd) ** 2, "fits": rows}
-    print("  (b) its exact 25-NN graph by exact_knn: %.3f s for %d EMD solves on the host"
-          % (gt_s, len(Xd) ** 2), flush=True)
+    out["b"] = {"exact_knn_s": gt_s, "exact_knn_card_s": card_s,
+                "exact_knn_k12_launches": card_launches, "exact_knn_card_equal": card_equal,
+                "emd_solves": len(Xd) ** 2, "fits": rows}
+    print("  (b) its exact 25-NN graph by exact_knn: %.3f s for %d EMD solves by the host "
+          "solver; on the card %.3f s in %d K12 launches, graph bit-equal %s"
+          % (gt_s, len(Xd) ** 2, card_s, card_launches, card_equal), flush=True)
+    if not (card_equal and card_launches):
+        raise SystemExit("(b) exact_knn on the card differs from the host solver's graph")
 
     # (c) wasserstein_sinkhorn on 300 digits (tests/test_hybrid.py:123-131)
     X3 = Xd[:300]
-    exact10 = att.exact_knn(X3, "wasserstein", {"cost_matrix": M}, k=10, device="cuda")[0]
+    exact10 = att.exact_knn(X3, "wasserstein", {"cost_matrix": M}, k=10, device="cpu")[0]
     K8.reset_counts()
     t0 = time.perf_counter()
     sk = att.Annchor(X3, "wasserstein_sinkhorn", func_kwargs={"cost_matrix": M},
@@ -2555,6 +2677,7 @@ def _digits5620(torch, np, att, report):
     from annchor_tpu_torch import native
     from annchor_tpu_torch.datasets import load_digits_large
     from annchor_tpu_torch.ops.device_pipeline import jax_threefry_uniforms
+    from annchor_tpu_torch.ops.emd_cuda import K12
     from annchor_tpu_torch.ops.sinkhorn_cuda import K8
 
     d = load_digits_large()
@@ -2577,13 +2700,14 @@ def _digits5620(torch, np, att, report):
         out["fits"].append(row)
         print("  (%s) digits-5620 hybrid (%s): %.3f s wall, build %s, m %d of %d admitted, "
               "%d exact calls (JAX package on a CPU: %d), %d scout calls (%d), %d errors "
-              "(%d; contract < %d), reported distances within %.3g of the exact EMD, host "
-              "EMD %.3f s in %d calls, K8a launches %d%s" % (
-                  "b" if run == "switched" else "a", run, row["wall_s"],
+              "(%d; contract < %d), reported distances within %.3g of the exact EMD, exact "
+              "EMD %.3f s in %d calls, K8a launches %d, K12 launches %d for %d exact batches%s"
+              % ("b" if run == "switched" else "a", run, row["wall_s"],
                   row["locality"]["build"], row["m"], row["locality"]["admitted"],
                   ann.evals, pin["evals"], ann.scout_evals, pin["scout_evals"], errors,
                   pin["errors"], DIGITS_MAX_ERRORS, row["max_abs_err_reported"],
-                  row["host_emd_s"], row["host_emd_calls"], row["k8a_launches"],
+                  row["exact_emd_s"], row["exact_emd_calls"], row["k8a_launches"],
+                  row["k12_launches"], row["exact_batches"],
                   "" if "device_ms" not in row else "; device %.3f ms in %d kernels, the "
                   "Sinkhorn scout %.3f ms in %d kernels over a %.3f ms span of the card's "
                   "timeline, K8a %.3f ms in %d kernels" % (
@@ -2594,6 +2718,9 @@ def _digits5620(torch, np, att, report):
             raise SystemExit("(12) a reported distance is not the exact EMD")
         if not row["k8a_launches"]:
             raise SystemExit("(12) the digits-5620 hybrid never launched K8a")
+        if not row["k12_launches"] or row["k12_launches"] != row["exact_batches"]:
+            raise SystemExit("(12) the digits-5620 hybrid launched K12 %d times for %d exact "
+                             "batches" % (row["k12_launches"], row["exact_batches"]))
         if ngi.shape != (len(X), N_NEIGHBORS):
             raise SystemExit("(12) graph of shape %s" % (ngi.shape,))
         return errors
@@ -2601,7 +2728,7 @@ def _digits5620(torch, np, att, report):
     for run in ("timed", "profiled", "switched"):
         extra = {"max_resident_pairs": pin["m"] // 2} if run == "switched" else {}
         ann = att.Annchor(X, "wasserstein", verbose=run == "timed", **kw, **extra)
-        emd = {"s": 0.0, "calls": 0}
+        emd = {"s": 0.0, "calls": 0, "batches": 0}
         exact_eval = ann._exact_eval
 
         def timed_exact(f, X_, IJ, exact_eval=exact_eval, emd=emd):
@@ -2611,9 +2738,11 @@ def _digits5620(torch, np, att, report):
             finally:
                 emd["s"] += time.perf_counter() - t
                 emd["calls"] += len(IJ)
+                emd["batches"] += len(IJ) > 0
 
         ann._exact_eval = timed_exact
         K8.reset_counts()
+        K12.reset_counts()
         if run == "profiled":
             row = _device_profile(torch, ann.fit, "sinkhorn_exp_chunk")
             for name, ms, cnt in row["top"]:
@@ -2624,8 +2753,9 @@ def _digits5620(torch, np, att, report):
             ann.fit()
             torch.cuda.synchronize()
             row = {"wall_s": time.perf_counter() - t0}
-        row.update(host_emd_s=emd["s"], host_emd_calls=emd["calls"],
-                   k8a_launches=K8.mode_launches["exp"])
+        row.update(exact_emd_s=emd["s"], exact_emd_calls=emd["calls"],
+                   k8a_launches=K8.mode_launches["exp"], k12_launches=K12.launches,
+                   exact_batches=emd["batches"])
         errors = check(ann, run, row)
         if run == "switched":
             if ann._locality_info["build"] != "budgeted" or ann._dev is None:
@@ -2958,6 +3088,7 @@ def main() -> int:
     from annchor_tpu_torch.ops.band_linf_cuda import K9A
     from annchor_tpu_torch.ops.levenshtein_cuda import K1
     from annchor_tpu_torch.ops.levenshtein_rowdp_cuda import K10
+    from annchor_tpu_torch.ops.emd_cuda import K12
     from annchor_tpu_torch.ops.sinkhorn_cuda import K8
     from annchor_tpu_torch.ops.tropical_cuda import K4
 
@@ -2979,12 +3110,13 @@ def main() -> int:
         return time.perf_counter() - t
 
     # one compiler process for each source, all started together
-    with ThreadPoolExecutor(6) as pool:
-        builds = [pool.submit(build, lib) for lib in (K1, K10, K4, K9A, K8, EMD)]
+    with ThreadPoolExecutor(7) as pool:
+        builds = [pool.submit(build, lib) for lib in (K1, K10, K4, K9A, K8, K12, EMD)]
         (report["k1_build_s"], report["k10_build_s"], report["k4_build_s"],
-         report["k9a_build_s"], report["k8_build_s"],
+         report["k9a_build_s"], report["k8_build_s"], report["k12_build_s"],
          report["emd_build_s"]) = (b.result() for b in builds)
-    for kernel, key in ((K1, "k1"), (K10, "k10"), (K4, "k4"), (K9A, "k9a"), (K8, "k8")):
+    for kernel, key in ((K1, "k1"), (K10, "k10"), (K4, "k4"), (K9A, "k9a"), (K8, "k8"),
+                        (K12, "k12")):
         print("  built %s in %.3f s" % (kernel.name, report[key + "_build_s"]))
         report[key + "_ptxas"] = _ptxas(kernel)
         for name, (regs, st, ld) in report[key + "_ptxas"].items():
@@ -3099,6 +3231,7 @@ def main() -> int:
     report["k4_k9a_timing"] = timing = _k4_k9a_timing(torch, np, E1600)
     del E1600
     report["k8_timing"] = k8_timing = _k8_timing(torch, np)
+    report["k12_timing"] = _k12_timing(torch, np)
 
     _phase("6. vector metrics (%s)" % report["card"])
     X64, _ = make_blobs(4096, 64, 10, 42)
@@ -3244,6 +3377,12 @@ def main() -> int:
     k8b_main = report["slow_metrics"]["c"]["k8b_launches"]
     print("  K8 launches: K8a digits-1797 %d, digits-5620 %d; K8b wasserstein_sinkhorn %d"
           % (k8a_1797, k8a_5620, k8b_main))
+    # K12's main paths: the hybrids' timed fits' exact batches (11(b), 12(a))
+    k12_1797 = report["slow_metrics"]["b"]["fits"][0]["k12_launches"]
+    k12_5620 = report["digits5620"]["fits"][0]["k12_launches"]
+    k12_rows = report["k12_timing"]
+    print("  K12 launches: digits-1797 %d, digits-5620 %d (one an exact batch)"
+          % (k12_1797, k12_5620))
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     # K9a's figures: the 100k build's first band (phase 9(b))
@@ -3395,6 +3534,31 @@ def main() -> int:
                                           "bound_ms_fp32", "bytes_ms_sweeps", "library_ms")
                         if f in r}
                     for k, r in k8_timing.items() if k.startswith("K8b n ")},
+    }, {
+        "name": "emd_simplex (K12)",
+        "route": "cuda",
+        "source": "annchor_tpu_torch/csrc/emd_simplex.cu",
+        "replaces": None,  # the JAX package's exact EMD is host C++
+        "launches": k12_1797 + k12_5620,
+        "launches_digits1797": k12_1797,
+        "launches_digits5620": k12_5620,
+        "launches_exact_knn": report["slow_metrics"]["b"]["exact_knn_k12_launches"],
+        "max_abs_err": 0.0,  # bit-equal to the host solver and the plain version, or exit
+        "pairs": k12_rows["K12 certify 5620"]["pairs"],
+        "ms": k12_rows["K12 certify 5620"]["ms"],
+        "bound_ms": k12_rows["K12 certify 5620"]["bound_ms"],
+        "bound_by": k12_rows["K12 certify 5620"]["bound_by"],
+        "host_ms": k12_rows["K12 certify 5620"]["host_ms"],
+        "plain_pairs": k12_rows["K12 certify 5620"]["sample_pairs"],
+        "plain_ms": k12_rows["K12 certify 5620"]["plain_ms"],
+        "ms_plain_pairs": k12_rows["K12 certify 5620"]["sample_ms"],
+        "library_ms": None,
+        "pairs_query": k12_rows["K12 query 1797"]["pairs"],
+        "ms_query": k12_rows["K12 query 1797"]["ms"],
+        "bound_ms_query": k12_rows["K12 query 1797"]["bound_ms"],
+        "host_ms_query": k12_rows["K12 query 1797"]["host_ms"],
+        "plain_ms_query": k12_rows["K12 query 1797"]["plain_ms"],
+        "ms_plain_pairs_query": k12_rows["K12 query 1797"]["sample_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -864,3 +864,141 @@ def test_certify_on_card_equals_cpu(cuda, cap):
     assert len(evals[1]) == len(evals[0]) >= 2
     for got, want in zip(evals[1], evals[0]):
         np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------- K12 ----
+
+
+def _hybrid_digits_fit(device, card_engine):
+    """The digits-1797 hybrid fit (examples/wasserstein_digits.py's
+    arguments) with its exact engine on the card (K12) or on the host
+    solver; returns the fit and the exact pair batches it evaluated."""
+    from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
+
+    X, _ = digit_images()
+    ann = Annchor(X, "wasserstein", func_kwargs={"cost_matrix": grid_cost_matrix(),
+                                                 "scout": "sinkhorn"},
+                  n_anchors=25, n_neighbors=25, n_samples=5000, p_work=0.16,
+                  random_seed=42, device=device)
+    assert ann.metric.batch.on_card
+    ann.metric.batch.on_card = card_engine
+    log = []
+    exact = ann._exact_eval
+    ann._exact_eval = lambda f, X, IJ: log.append(np.array(IJ)) or exact(f, X, IJ)
+    ann.fit()
+    return ann, log
+
+
+@pytest.fixture(scope="module")
+def hybrid_fits():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    from annchor_tpu_torch.ops.emd_cuda import K12
+
+    before = K12.launches
+    card = _hybrid_digits_fit("cuda", True)
+    launches = K12.launches - before
+    return card, _hybrid_digits_fit("cuda", False), launches
+
+
+def test_k12_hybrid_fit_equals_host_engine(hybrid_fits):
+    """The hybrid fit with K12 certifying gives the host engine's graph,
+    distances, evals and scout evals, one K12 launch an exact batch."""
+    (card, card_log), (host, host_log), launches = hybrid_fits
+    assert launches == len(card_log) >= 2
+    assert card.evals == host.evals and card.scout_evals == host.scout_evals
+    for got, want in zip(card.neighbor_graph, host.neighbor_graph):
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert len(card_log) == len(host_log)
+    for got, want in zip(card_log, host_log):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_k12_bit_equal_to_host_on_certify_pairs(hybrid_fits):
+    """K12 against native.emd_batch on every exact pair of the fit's
+    certify."""
+    from annchor_tpu_torch import native
+    from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
+
+    (card, log), _, _ = hybrid_fits
+    X, _ = digit_images()
+    M = grid_cost_matrix()
+    IJ = np.concatenate(log)
+    got = card.metric.batch(X, X, IJ)
+    want = native.emd_batch(X, X, M, IJ[:, 0], IJ[:, 1])
+    assert got.dtype == np.float64 and got.tobytes() == want.tobytes()
+
+
+def test_k12_bit_equal_to_host_on_digits_large(cuda):
+    """K12 against native.emd_batch on 50,000 pairs of the digits-5620
+    stand-in: 25,000 of near neighbours by pixel distance, 25,000 random."""
+    from annchor_tpu_torch import native
+    from annchor_tpu_torch.datasets import grid_cost_matrix, make_digits_large
+    from annchor_tpu_torch.metrics import _EMDEngine
+
+    X, _ = make_digits_large()
+    M = grid_cost_matrix()
+    rng = np.random.default_rng(8)
+    rows = rng.choice(len(X), 5000, replace=False)
+    Xd = torch.as_tensor(X, device=cuda)
+    d2 = torch.cdist(Xd[torch.as_tensor(rows, device=cuda)], Xd)
+    d2[torch.arange(5000, device=cuda), torch.as_tensor(rows, device=cuda)] = float("inf")
+    near = torch.topk(d2, 5, largest=False).indices.cpu().numpy()
+    IJ = np.concatenate([np.stack([np.repeat(rows, 5), near.ravel()], axis=1),
+                         rng.integers(0, len(X), size=(25_000, 2))])
+    eng = _EMDEngine(M, device=cuda)
+    got = eng(X, X, IJ)
+    want = native.emd_batch(X, X, M, IJ[:, 0], IJ[:, 1])
+    assert got.tobytes() == want.tobytes()
+
+
+def test_k12_call_does_not_sync(cuda):
+    """The engine's K12 batch is one launch and queues on the card with no
+    host sync: ids through pinned memory, the tables cached."""
+    from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
+    from annchor_tpu_torch.metrics import _EMDEngine
+    from annchor_tpu_torch.ops.emd_cuda import K12
+
+    X, _ = digit_images()
+    eng = _EMDEngine(grid_cost_matrix(), device=cuda)
+    IJ = np.random.default_rng(2).integers(0, len(X), size=(9000, 2))
+    Q = X[::4]
+    QJ = np.stack([IJ[:, 0] % len(Q), IJ[:, 1]], axis=1)
+    want = eng.dispatch(X, X, IJ), eng.dispatch(Q, X, QJ)  # build, tables up
+    torch.cuda.synchronize()
+    before = K12.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eng.dispatch(X, X, IJ), eng.dispatch(Q, X, QJ)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert K12.launches == before + 2
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_k12_wrapper_checks_inputs(cuda):
+    from annchor_tpu_torch.datasets import grid_cost_matrix
+    from annchor_tpu_torch.ops.emd_cuda import cell_order, emd_simplex_cuda
+
+    M = grid_cost_matrix()
+    X = torch.rand((10, 64), dtype=torch.float64, device=cuda)
+    I = torch.zeros(4, dtype=torch.int64, device=cuda)
+    C = torch.as_tensor(M, device=cuda)
+    order = torch.as_tensor(cell_order(M), device=cuda)
+    emd_simplex_cuda(X, X, I, I, C, order)
+    bad = [
+        (X.cpu(), X, I, I, C, order),  # device
+        (X.float(), X.float(), I, I, C, order),  # dtype
+        (X, X, I.int(), I.int(), C, order),
+        (torch.rand((10, 81), dtype=torch.float64, device=cuda),) * 2 + (
+            I, I, torch.as_tensor(grid_cost_matrix(9, 9), device=cuda),
+            torch.zeros(81 * 81, dtype=torch.int16, device=cuda)),  # width
+        (X, X[:, :32].contiguous(), I, I, C, order),  # shapes
+        (X, X, I, I[:3], C, order),
+        (X, X, I, I, C[:32], order),
+        (X, X, I, I, C, order[:100]),
+        (X.t(), X, I, I, C, order),  # contiguity
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            emd_simplex_cuda(*args)
