@@ -48,7 +48,7 @@ from annchor_tpu_torch.metrics import (
 )
 from annchor_tpu_torch.ops import pairs as pair_ops
 from annchor_tpu_torch.ops.bounds_update import tighten_bounds
-from annchor_tpu_torch.ops.device_pipeline import DeviceFitState
+from annchor_tpu_torch.ops.device_pipeline import DeviceFitState, host_pairs
 from annchor_tpu_torch.ops.features import bounds_and_dad
 from annchor_tpu_torch.ops.locality import (
     DENSE_MAX_NX,
@@ -68,6 +68,21 @@ FEATURE_NAMES = [
     "double anchor distance",
     "is anchor",
 ]
+
+
+def _state_view(own, of_state):
+    """A property that reads ``of_state(self._dev)`` while the fit state
+    lives and the attribute ``own`` otherwise; assignment brings the state
+    to the host first (``_sync_from_device``) and sets ``own``."""
+
+    def get(self):
+        return getattr(self, own) if self._dev is None else of_state(self._dev)
+
+    def put(self, value):
+        self._sync_from_device()
+        setattr(self, own, value)
+
+    return property(get, put)
 
 
 def _host_property(attr):
@@ -255,8 +270,7 @@ class Annchor:
             self._RefineApprox = None
             self._ncm = None
             self._P_idx = None
-            self._IJs = None
-            self._ij_dev = None  # device pair list (ij_i, ij_j, m), scale path
+            self._ij_host = self._ij_device = self._P_cnt = None  # while no state owns them
             self._locality_info = None  # the scale path's build and admitted total
             self._S_raw = self._sid_raw = self._loc_eff_raw = None
             self._dev = None  # device-resident state (ops.device_pipeline)
@@ -314,12 +328,14 @@ class Annchor:
     # numpy arrays, which these properties then return and replace.
 
     def _sync_from_device(self):
-        if self._dev is not None:
-            (
-                self._features,
-                self._RefineApprox,
-                self._ncm,
-            ) = self._dev.materialise()
+        """Bring the fit state to the host and drop it: its host arrays,
+        and the pair list and counts it owned."""
+        dev = self._dev
+        if dev is not None:
+            self._features, self._RefineApprox, self._ncm = dev.materialise()
+            self._ij_host, self._ij_device, self._P_cnt = (
+                dev.ij_host, dev.device_pairs(), dev.P_cnt
+            )
             self._dev = None
 
     @property
@@ -353,13 +369,20 @@ class Annchor:
         self._sync_from_device()
         self._ncm = value
 
+    # the pair list and its counts: the fit state owns them while it
+    # lives, and these views read through it
+    _IJs = _state_view("_ij_host", lambda st: st.ij_host)  # None until assembled
+    _ij_dev = _state_view("_ij_device", DeviceFitState.device_pairs)
+    P_cnt = _state_view("_P_cnt", lambda st: st.P_cnt)
+
     @property
     def IJs(self):
         """The (m, 2) candidate pair array; a scale-path fit keeps it on
         the device, and the host copy is assembled on first access."""
+        if self._dev is not None:
+            return self._dev.IJs
         if self._IJs is None and self._ij_dev is not None:
-            ij_i, ij_j, m = self._ij_dev
-            self._IJs = torch.stack([ij_i[:m], ij_j[:m]], dim=1).cpu().numpy()
+            self._ij_host = host_pairs(*self._ij_dev)
         return self._IJs
 
     @IJs.setter
@@ -375,11 +398,13 @@ class Annchor:
     @property
     def P_idx(self):
         """Padded point-incidence matrix, built on first access when the
-        device pipeline kept its own."""
+        device pipeline kept its own (and not kept while the fit state,
+        whose pair list may grow, lives)."""
         if self._P_idx is None:
-            self._P_idx, _ = pair_ops.build_point_index(
-                self.IJs, self.nx, self.device
-            )
+            P_idx, _ = pair_ops.build_point_index(self.IJs, self.nx, self.device)
+            if self._dev is not None:
+                return P_idx
+            self._P_idx = P_idx
         return self._P_idx
 
     @P_idx.setter
@@ -604,7 +629,13 @@ class Annchor:
     def get_features(self):
         if self._device_pipeline_ok():
             self.feature_names = list(FEATURE_NAMES)
-            self._dev = DeviceFitState(self)
+            pairs = self._ij_device if self._ij_device is not None else self._ij_host
+            self._dev = DeviceFitState(
+                self.device, self.nx, self.D, self.A, self._P_cnt, pairs, self.is_metric,
+                self.n_neighbors,
+            )
+            # the state owns the pair list and its counts from here on
+            self._ij_host = self._ij_device = self._P_cnt = None
             self._dev_eval = self._make_device_eval()
             return
         (

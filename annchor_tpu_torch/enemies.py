@@ -36,15 +36,16 @@ def _new_enemy_pairs(ann, y, loc_min):
     eff_e = effective_thresholds(
         S, ann.loc_thresh, loc_min, label_neq=y, device=ann.device
     )
-    budgeted = ann._ij_dev is not None
+    dev = ann._dev
+    budgeted = dev.sparse if dev is not None else ann._ij_dev is not None
     loc_eff_excl = (
         np.full(nx, np.inf, dtype=np.float32) if budgeted else ann._loc_eff_raw
     )
     IJ_new = enemy_candidate_pairs(S, y, eff_e, loc_eff_excl, device=ann.device)
     if not budgeted or not IJ_new.shape[0]:
         return IJ_new
-    if ann._dev is not None:
-        return IJ_new[~ann._dev.tracked_mask(IJ_new)]
+    if dev is not None:
+        return IJ_new[~dev.tracked_mask(IJ_new)]
     old = ann.IJs
     keys_old = old[:, 0].astype(np.int64) * nx + old[:, 1]
     keys_new = IJ_new[:, 0].astype(np.int64) * nx + IJ_new[:, 1]

@@ -736,10 +736,10 @@ def cover_incidence(RA, ncm, ub, P_idx, ij_i, ij_j, slot, radii, S: int):
 
 
 class ExactStore:
-    """Sparse float64 store of computed pair distances, keyed by pair id
-    and kept id-sorted for batched binary-search lookup.  Scale-path fits
-    keep it instead of an m-sized host mirror: only the evaluated pairs
-    (the eval budget) ever exist on the host."""
+    """Float64 store of computed pair distances, keyed by pair id and
+    kept id-sorted for batched binary-search lookup.  Every fit keeps its
+    exact values here: only the anchor pairs and the evaluated pairs (the
+    eval budget) ever exist on the host."""
 
     def __init__(self):
         self.ids = np.empty(0, np.int64)
@@ -778,15 +778,21 @@ class ExactStore:
         return out
 
 
+def host_pairs(ij_i, ij_j, m: int):
+    """The (m, 2) host array of a device pair list."""
+    return torch.stack([ij_i[:m], ij_j[:m]], dim=1).cpu().numpy()
+
+
 class DeviceFitState:
     """Device-resident pair state of a fit plus its host bookkeeping.
 
-    Dense fits (nx <= 4096) keep host mirrors of the not-computed mask
-    and of the exact float64 values (an m-sized array).  Scale-path fits
-    (``ann._ij_dev`` set) run in sparse mode: the pair list comes from
-    the device build and never reaches the host, the not-computed mask
-    lives only on the device, and the exact values sit in an
-    ``ExactStore`` sized by the eval budget.
+    The state takes its inputs as arguments and, from then on, owns the
+    fit's pair list and the per-point counts ``P_cnt``.  A dense fit
+    (nx <= 4096) hands it the host (m, 2) pair array; a scale-path fit
+    hands it the device pair list (ij_i, ij_j, m) of its build, which
+    never reaches the host unless read (``sparse``).  Either way the
+    not-computed mask lives on the device and the exact float64 values
+    in an ``ExactStore``.
 
     On a device mesh (``parallel.auto_mesh``) the per-pair arrays and the
     incidence matrix are lists of per-shard tensors and every stage runs
@@ -798,18 +804,23 @@ class DeviceFitState:
     TIGHTEN_CMAX = 1 << 23  # contender pairs per column tighten
     shard = None  # the ShardedFit of a state on a device mesh
 
-    def __init__(self, ann):
-        self.ann = ann
-        self.device = dev = ann.device
-        nx = ann.nx
-        self.sparse = ann._ij_dev is not None
+    def __init__(self, device, nx, D, A, P_cnt, pairs, is_metric, n_neighbors):
+        self.device = dev = device
+        self.nx = nx
+        self.D = np.asarray(D)
+        self.A = np.asarray(A, dtype=np.int64)
+        self.P_cnt = P_cnt
+        self.is_metric = bool(is_metric)
+        self.n_neighbors = int(n_neighbors)
+        self.sparse = isinstance(pairs, tuple)
         if self.sparse:
-            self.ij_i, self.ij_j, self.m = ann._ij_dev
+            self.ij_i, self.ij_j, self.m = pairs
+            self.ij_host = None  # assembled on the first host read
         else:
-            IJs = ann.IJs
-            self.m = IJs.shape[0]
-            self.ij_i = torch.as_tensor(IJs[:, 0].astype(np.int32), device=dev)
-            self.ij_j = torch.as_tensor(IJs[:, 1].astype(np.int32), device=dev)
+            self.ij_host = pairs
+            self.m = pairs.shape[0]
+            self.ij_i = torch.as_tensor(pairs[:, 0].astype(np.int32), device=dev)
+            self.ij_j = torch.as_tensor(pairs[:, 1].astype(np.int32), device=dev)
 
         # a device mesh shards the whole pair state; sentinel pairs (0, 0)
         # pad it to a multiple of the mesh size
@@ -825,14 +836,14 @@ class DeviceFitState:
             self.ij_j = self.shard.put_pairs(self.ij_j, fill=0)
         self.m_pad = self.m if self.shard is None else self.shard.m_pad
 
-        D32 = torch.as_tensor(np.asarray(ann.D, dtype=np.float32), device=dev)
+        self._D32 = torch.as_tensor(self.D.astype(np.float32), device=dev)
         # keep the (chunk, na) gathers near 0.5 GB
-        fchunk = max(1 << 18, (1 << 27) // max(D32.shape[1], 1))
+        self._fchunk = max(1 << 18, (1 << 27) // max(self._D32.shape[1], 1))
         if self.shard is not None:
-            self.lb, self.ub, self.dad = self.shard.features(D32, self.ij_i, self.ij_j,
-                                                             fchunk)
+            self.lb, self.ub, self.dad = self.shard.features(self._D32, self.ij_i, self.ij_j,
+                                                             self._fchunk)
         else:
-            self.lb, self.ub, self.dad = features(D32, self.ij_i, self.ij_j, fchunk)
+            self.lb, self.ub, self.dad = features(self._D32, self.ij_i, self.ij_j, self._fchunk)
 
         if not self.sparse and self.m == nx * (nx - 1) // 2:
             self.P_idx_d = pidx_full(nx, dev)
@@ -842,42 +853,30 @@ class DeviceFitState:
         else:
             self._rebuild_pidx()
 
-        anchor_np = np.zeros(nx, dtype=bool)
-        if len(ann.A):
-            anchor_np[np.asarray(ann.A, dtype=int)] = True
-        if self.sparse:
-            self.anchor_flag = self.ncm_host = None
-            is_anchor = torch.as_tensor(anchor_np, device=dev)
-            if self.shard is not None:
-                # sentinel pairs are neither anchor pairs nor samplable
-                flags, self.ncm = [], []
-                for c, isa in enumerate(parallel.broadcast(is_anchor, self.shard.devices)):
-                    af = isa[self.ij_i[c]] | isa[self.ij_j[c]]
-                    real = self.shard._real_mask(c)
-                    if real is not None:
-                        af = af & real
-                    flags.append(af)
-                    self.ncm.append(~af if real is None else ~af & real)
-                ids = np.concatenate([
-                    torch.nonzero(af)[:, 0].cpu().numpy() + c * self.shard.shard_m
-                    for c, af in enumerate(flags)
-                ])
-            else:
-                af = is_anchor[self.ij_i] | is_anchor[self.ij_j]
-                self.ncm = ~af
-                ids = torch.nonzero(af)[:, 0].cpu().numpy()
-            self.exact = ExactStore()
-            self.pool = self.m - ids.shape[0]
+        self._is_anchor = np.zeros(nx, dtype=bool)
+        self._is_anchor[self.A] = True
+        is_anchor = torch.as_tensor(self._is_anchor, device=dev)
+        if self.shard is not None:
+            # sentinel pairs are neither anchor pairs nor samplable
+            flags, self.ncm = [], []
+            for c, isa in enumerate(parallel.broadcast(is_anchor, self.shard.devices)):
+                af = isa[self.ij_i[c]] | isa[self.ij_j[c]]
+                real = self.shard._real_mask(c)
+                if real is not None:
+                    af = af & real
+                flags.append(af)
+                self.ncm.append(~af if real is None else ~af & real)
+            ids = np.concatenate([
+                torch.nonzero(af)[:, 0].cpu().numpy() + c * self.shard.shard_m
+                for c, af in enumerate(flags)
+            ])
         else:
-            self.anchor_flag = anchor_np[IJs[:, 0]] | anchor_np[IJs[:, 1]]
-            self.ncm_host = ~self.anchor_flag
-            self.ncm = torch.as_tensor(self.ncm_host, device=dev)
-            if self.shard is not None:
-                self.ncm = self.shard.put_pairs(self.ncm, fill=False)
-            self.pool = int(self.ncm_host.sum())
-            self.exact64 = np.full(self.m, np.nan)
-            ids = np.flatnonzero(self.anchor_flag)
-        self._anchor_ids = ids.astype(np.int64) if ids.shape[0] else None
+            af = is_anchor[self.ij_i] | is_anchor[self.ij_j]
+            self.ncm = ~af
+            ids = torch.nonzero(af)[:, 0].cpu().numpy()
+        self.exact = ExactStore()
+        self.pool = self.m - ids.shape[0]
+        self._anchor_ids = ids.astype(np.int64)
         self._fill_anchor_exacts(self._anchor_ids)
 
         self.RA = torch.zeros(self.m, dtype=torch.float32, device=dev)
@@ -892,9 +891,9 @@ class DeviceFitState:
         # non-metric fits: anchor pairs keep their exact column values
         # once predictions stop being clipped to the bounds
         self._override = None
-        if not ann.is_metric and self._anchor_ids is not None:
+        if not self.is_metric and len(self._anchor_ids):
             ids = self._anchor_ids
-            vals = self._exact_at(ids).astype(np.float32)
+            vals = self.exact.lookup(ids).astype(np.float32)
             if self.shard is not None:
                 self._override = self.shard.localize(ids, vals)
             else:
@@ -913,11 +912,10 @@ class DeviceFitState:
         overrides the 2^29-element budget); a capped matrix keeps each
         row's smallest-lower-bound pairs and cannot feed the column
         tighten's panel build."""
-        ann = self.ann
-        nx = ann.nx
-        max_deg = int(np.asarray(ann.P_cnt).max())
+        nx = self.nx
+        max_deg = int(np.asarray(self.P_cnt).max())
         budget = int(os.environ.get("ANNCHOR_TPU_PIDX_BUDGET", PIDX_BUDGET_ELEMS))
-        cap = max(2 * ann.n_neighbors, budget // max(nx, 1))
+        cap = max(2 * self.n_neighbors, budget // max(nx, 1))
         self._pidx_capped = max_deg > cap
         if self.shard is not None:
             self.P_idx_d = self.shard.build_pidx(
@@ -934,56 +932,55 @@ class DeviceFitState:
             return self.shard.gather_pairs(arrs, ids)
         return tuple(a[ids] for a in arrs)
 
+    def _flat(self, t):
+        """A per-pair array's real entries as one tensor (on the mesh's
+        first device)."""
+        return t if self.shard is None else self.shard.real(t)
+
     def _host(self, t):
         """A per-pair array's real entries on the host."""
-        if self.shard is not None:
-            t = self.shard.real(t)
-        return t.cpu().numpy()
+        return self._flat(t).cpu().numpy()
+
+    def device_pairs(self):
+        """The device pair list (ij_i, ij_j, m) of a sparse state, None
+        for a dense one."""
+        if not self.sparse:
+            return None
+        return self._flat(self.ij_i), self._flat(self.ij_j), self.m
+
+    @property
+    def IJs(self):
+        """The (m, 2) host pair list: a dense fit's own; a sparse fit's
+        is downloaded on the first read."""
+        if self.ij_host is None:
+            self.ij_host = host_pairs(*self.device_pairs())
+        return self.ij_host
 
     def _pairs_at(self, ids):
         """(len, 2) int64 host pair coordinates for pair ids."""
-        if not self.sparse:
-            return self.ann.IJs[ids].astype(np.int64)
+        if self.ij_host is not None:
+            return self.ij_host[ids].astype(np.int64)
         idd = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
         ii, jj = self._gather_rows((self.ij_i, self.ij_j), idd)
         return torch.stack([ii, jj], dim=1).cpu().numpy().astype(np.int64)
 
-    def _exact_at(self, ids):
-        """Stored exact values of pair ids (NaN where none)."""
-        return self.exact.lookup(ids) if self.sparse else self.exact64[ids]
-
     def _store_exact(self, ids, vals):
         # pool decrements by the count of genuinely new ids, so repeats
         # cannot drift the sampling budget
-        ids = np.asarray(ids, dtype=np.int64)
-        vals = np.asarray(vals, dtype=np.float64)
-        if self.sparse:
-            n_new = self.exact.add(ids, vals)
-        else:
-            uids, first = np.unique(ids, return_index=True)
-            n_new = int(np.count_nonzero(self.ncm_host[uids]))
-            self.ncm_host[uids] = False
-            self.exact64[uids] = vals[first]
-        self.pool -= n_new
+        self.pool -= self.exact.add(ids, vals)
 
     def _fill_anchor_exacts(self, ids):
         """Anchor-pair rows are exact from the D columns."""
-        ann = self.ann
-        if not len(ann.A) or ids is None or not len(ids):
+        if not len(ids):
             return
-        A = np.asarray(ann.A, dtype=int)
-        col_of = np.full(ann.nx, -1, dtype=np.int64)
-        col_of[A] = np.arange(len(A))
+        col_of = np.full(self.nx, -1, dtype=np.int64)
+        col_of[self.A] = np.arange(len(self.A))
         IJ = self._pairs_at(ids)
         ii, jj = IJ[:, 0], IJ[:, 1]
         i_is_anchor = col_of[ii] >= 0
         other = np.where(i_is_anchor, jj, ii)
         col = np.where(i_is_anchor, col_of[ii], col_of[jj])
-        vals = np.asarray(ann.D)[other, col]
-        if self.sparse:
-            self.exact.add(ids, vals)
-        else:
-            self.exact64[ids] = vals
+        self.exact.add(ids, self.D[other, col])
 
     # -- stage methods ------------------------------------------------------
 
@@ -1066,9 +1063,8 @@ class DeviceFitState:
         feats[:, 0] = lb
         feats[:, 1] = ub
         feats[:, 2] = dad
-        # samples come from the not-computed pool, which holds no anchor
-        # pair: the sparse state has no host anchor flag to read
-        feats[:, 3] = 0.0 if self.sparse else self.anchor_flag[ids]
+        # samples come from the not-computed pool, which holds no anchor pair
+        feats[:, 3] = 0.0
         IJ = np.stack([ii, jj], axis=1).astype(np.int64)
         if y is not None:
             y = y.cpu().numpy().astype(np.float64)[keep]
@@ -1091,7 +1087,7 @@ class DeviceFitState:
         if self.shard is not None:
             self.RA, self.ncm = self.shard.regress_update(
                 self.lb, self.ub, self.dad, self.RA, self.ncm, inner, coefs, icepts,
-                sample_ids, sample_y, self.ann.is_metric, init,
+                sample_ids, sample_y, self.is_metric, init,
             )
             if self._override is not None:
                 self.RA = self.shard.override_rows(self.RA, self._override)
@@ -1100,7 +1096,7 @@ class DeviceFitState:
             sy = torch.as_tensor(sample_y.astype(np.float32), device=dev)
             self.RA, self.ncm = regress_update(
                 self.lb, self.ub, self.dad, self.RA, self.ncm,
-                inner, coefs, icepts, sids, sy, self.ann.is_metric, init,
+                inner, coefs, icepts, sids, sy, self.is_metric, init,
             )
             if self._override is not None:
                 self.RA[self._override[0]] = self._override[1]
@@ -1159,7 +1155,7 @@ class DeviceFitState:
                             batch_dev):
         """Selection, device eval of the chosen pairs and their scatter,
         with nothing downloaded: the ids and values are kept for one
-        flush when the host mirrors need them.  Returns the eval count."""
+        flush when the exact store is read.  Returns the eval count."""
         n_ref = int(min(n_ref, self.pool))
         if n_ref <= 0:
             self.thresh = None
@@ -1178,26 +1174,16 @@ class DeviceFitState:
         """Land every deferred fused-select batch in the host store
         (the pool was settled when the batch ran)."""
         for ch, yv in self._pending_exact:
-            ids = ch.cpu().numpy().astype(np.int64)
-            vals = yv.cpu().numpy().astype(np.float64)
-            if self.sparse:
-                self.exact.add(ids, vals)
-            else:
-                self.ncm_host[ids] = False
-                self.exact64[ids] = vals
+            self.exact.add(ch.cpu().numpy().astype(np.int64),
+                           yv.cpu().numpy().astype(np.float64))
         self._pending_exact = []
 
     def seed_ra_from_store(self):
         """Scatter every stored exact value into the device RA (for fits
         that end before the first regression predict ran)."""
         self._flush_exacts()
-        if self.sparse:
-            ids, vals = self.exact.ids, self.exact.vals
-        else:
-            ids = np.flatnonzero(~self.ncm_host).astype(np.int64)
-            vals = self.exact64[ids]
-        if ids.shape[0]:
-            self.apply_exact(ids, vals)
+        if self.exact.ids.shape[0]:
+            self.apply_exact(self.exact.ids, self.exact.vals)
 
     def apply_exact(self, ids, vals):
         if self.shard is not None:
@@ -1218,7 +1204,7 @@ class DeviceFitState:
         columns, 0 without thresholds) and the ``cols`` (0 with K4)."""
         devices = (self.device,) if self.shard is None else self.shard.devices
         with trace.device_span("pipeline.tighten", devices, pairs=0, cols=0) as sp:
-            nx = self.ann.nx
+            nx = self.nx
             args = (self.ij_i, self.ij_j, self.RA, self.ncm, self.lb, self.ub)
             if nx <= MAX_FULL_MATRIX_NX:
                 sp.count(pairs=self.m)
@@ -1243,8 +1229,8 @@ class DeviceFitState:
         self.RA = run(self.RA, self.ncm, self.lb, self.ub)
 
     def knn_graph(self, nn):
-        """Final k-NN graph: exact distances from the host float64
-        mirror, predicted ones from the f32 estimates.  A computed edge
+        """Final k-NN graph: exact distances from the float64 exact
+        store, predicted ones from the f32 estimates.  A computed edge
         whose value is still pending on the host reads its RA entry,
         which holds the same f32 value the flush would store."""
         nn = min(int(nn), self._pidx_width)
@@ -1256,7 +1242,7 @@ class DeviceFitState:
         pair_ids = pair_ids.astype(np.int64)
         ngi = partners.astype(np.int64)
         ra_sel = ra_sel.astype(np.float64)
-        exact = self._exact_at(np.clip(pair_ids, 0, self.m - 1))
+        exact = self.exact.lookup(np.clip(pair_ids, 0, self.m - 1))
         is_exact = (pair_ids < self.m) & sel_cm
         self.ng_exact_mask = is_exact
         ngd = np.where(is_exact & ~np.isnan(exact), exact, ra_sel)
@@ -1272,11 +1258,9 @@ class DeviceFitState:
         IJ = np.asarray(IJ, dtype=np.int64)
         if IJ.shape[0] == 0 or self.m == 0:
             return np.zeros(IJ.shape[0], dtype=bool)
-        nx = self.ann.nx
+        nx = self.nx
         if self._tracked_keys is None:
-            ii, jj = self.ij_i, self.ij_j
-            if self.shard is not None:
-                ii, jj = self.shard.real(ii), self.shard.real(jj)
+            ii, jj = self._flat(self.ij_i), self._flat(self.ij_j)
             self._tracked_keys = torch.sort(ii.long() * nx + jj.long()).values
         keys = self._tracked_keys
         q = torch.as_tensor(IJ[:, 0] * nx + IJ[:, 1], device=self.device)
@@ -1287,12 +1271,11 @@ class DeviceFitState:
         """Append candidate pairs (the nearest-enemy path's new enemy
         candidates) to the state: features and clipped predictions on
         the device, anchor pairs exact from the D columns, and the pair
-        list, ``ann.IJs``, ``ann.P_cnt`` and the incidence matrix kept
-        aligned at the new m (reference annchor.py:734-742).  A sharded
-        state is split anew over the mesh at the new m."""
+        list, ``P_cnt`` and the incidence matrix kept aligned at the new
+        m (reference annchor.py:734-742).  A sharded state is split anew
+        over the mesh at the new m."""
         self._flush_exacts()
-        ann = self.ann
-        nx = ann.nx
+        nx = self.nx
         dev = self.device
         IJ_new = np.asarray(IJ_new)
         k = IJ_new.shape[0]
@@ -1301,9 +1284,7 @@ class DeviceFitState:
         m_old = self.m
         ii = torch.as_tensor(IJ_new[:, 0].astype(np.int32), device=dev)
         jj = torch.as_tensor(IJ_new[:, 1].astype(np.int32), device=dev)
-        D32 = torch.as_tensor(np.asarray(ann.D, dtype=np.float32), device=dev)
-        fchunk = max(1 << 18, (1 << 27) // max(D32.shape[1], 1))
-        lb2, ub2, dad2 = features(D32, ii, jj, fchunk)
+        lb2, ub2, dad2 = features(self._D32, ii, jj, self._fchunk)
 
         def f32(a):
             return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
@@ -1312,18 +1293,15 @@ class DeviceFitState:
             lb2, ub2, dad2, f32(regression.sample_bins[1:-1]),
             f32(regression.coefs), f32(regression.intercepts),
         )
-        anchor_np = np.zeros(nx, dtype=bool)
-        anchor_np[np.asarray(ann.A, dtype=int)] = True
-        is_anchor = anchor_np[IJ_new[:, 0]] | anchor_np[IJ_new[:, 1]]
+        is_anchor = self._is_anchor[IJ_new[:, 0]] | self._is_anchor[IJ_new[:, 1]]
         ncm_new = ~is_anchor
 
-        real = (lambda t: t) if self.shard is None else self.shard.real
         cat = {
             "ij_i": (ii, 0), "ij_j": (jj, 0), "lb": (lb2, 0), "ub": (ub2, F32_INF),
             "dad": (dad2, 0), "RA": (pred, F32_INF),
             "ncm": (torch.as_tensor(ncm_new, device=dev), False),
         }
-        cat = {name: (torch.cat([real(getattr(self, name)), t]), fill)
+        cat = {name: (torch.cat([self._flat(getattr(self, name)), t]), fill)
                for name, (t, fill) in cat.items()}
         self.m = m_old + k
         if self.shard is not None:
@@ -1335,29 +1313,18 @@ class DeviceFitState:
         for name, (t, fill) in cat.items():
             setattr(self, name, t if self.shard is None else self.shard.put_pairs(t, fill))
         self._tracked_keys = None
-
-        # the orchestrator's pair-list views follow the state
-        if ann._IJs is not None:
-            ann._IJs = np.concatenate(
-                [ann._IJs, IJ_new.astype(ann._IJs.dtype)], axis=0
+        if self.ij_host is not None:
+            self.ij_host = np.concatenate(
+                [self.ij_host, IJ_new.astype(self.ij_host.dtype)], axis=0
             )
-        if ann._ij_dev is not None:
-            ann._ij_dev = (cat["ij_i"][0], cat["ij_j"][0], self.m)
-        ann._P_idx = None
 
         self.pool += int(ncm_new.sum())
         anchor_ids = m_old + np.flatnonzero(is_anchor).astype(np.int64)
-        if not self.sparse:
-            self.anchor_flag = np.concatenate([self.anchor_flag, is_anchor])
-            self.ncm_host = np.concatenate([self.ncm_host, ncm_new])
-            self.exact64 = np.concatenate([self.exact64, np.full(k, np.nan)])
-        if anchor_ids.size:
-            prev = self._anchor_ids if self._anchor_ids is not None else anchor_ids[:0]
-            self._anchor_ids = np.concatenate([prev, anchor_ids])
-            self._fill_anchor_exacts(anchor_ids)
+        self._anchor_ids = np.concatenate([self._anchor_ids, anchor_ids])
+        self._fill_anchor_exacts(anchor_ids)
 
-        ann.P_cnt = (
-            np.asarray(ann.P_cnt, dtype=np.int64)
+        self.P_cnt = (
+            np.asarray(self.P_cnt, dtype=np.int64)
             + np.bincount(IJ_new[:, 0], minlength=nx)
             + np.bincount(IJ_new[:, 1], minlength=nx)
         ).astype(np.int32)
@@ -1374,7 +1341,7 @@ class DeviceFitState:
 
     def enemy_knn_graph(self, y_codes, nn):
         """The nearest-enemy graph: exact distances from the float64
-        host store, predicted ones from the f32 estimates."""
+        exact store, predicted ones from the f32 estimates."""
         self._flush_exacts()
         nn = min(int(nn), self._pidx_width)
         y = torch.as_tensor(np.asarray(y_codes, dtype=np.int64), device=self.device)
@@ -1383,7 +1350,7 @@ class DeviceFitState:
             t.cpu().numpy()
             for t in run(self.RA, self.ncm, self.P_idx_d, self.ij_i, self.ij_j, y, nn)
         )
-        exact = self._exact_at(np.clip(pair_ids, 0, self.m - 1))
+        exact = self.exact.lookup(np.clip(pair_ids, 0, self.m - 1))
         is_exact = (pair_ids < self.m) & ~np.isnan(exact)
         return partners, np.where(is_exact, exact, ra_sel.astype(np.float64))
 
@@ -1406,22 +1373,15 @@ class DeviceFitState:
     # -- host materialisation ------------------------------------------------
 
     def ncm_to_host(self):
-        """The host not-computed mask (downloaded in sparse mode)."""
-        self._flush_exacts()
-        if self.sparse:
-            return self._host(self.ncm)
-        return self.ncm_host
+        """The host not-computed mask, downloaded from the device."""
+        return self._host(self.ncm)
 
     def materialise(self):
         """Float64 host arrays (features, RA, ncm); exact values keep
-        full precision from the host store."""
+        full precision from the exact store."""
         self._flush_exacts()
-        if self.sparse:
-            af = np.zeros(self.m, dtype=np.float64)
-            if self._anchor_ids is not None:
-                af[self._anchor_ids] = 1.0
-        else:
-            af = self.anchor_flag.astype(np.float64)
+        af = np.zeros(self.m, dtype=np.float64)
+        af[self._anchor_ids] = 1.0
         features = np.stack(
             [
                 self._host(self.lb).astype(np.float64),
@@ -1432,9 +1392,5 @@ class DeviceFitState:
             axis=1,
         )
         RA = self._host(self.RA).astype(np.float64)
-        if self.sparse:
-            RA[self.exact.ids] = self.exact.vals
-            return features, RA, self.ncm_to_host()
-        have = ~np.isnan(self.exact64)
-        RA[have] = self.exact64[have]
-        return features, RA, self.ncm_host.copy()
+        RA[self.exact.ids] = self.exact.vals
+        return features, RA, self.ncm_to_host()

@@ -43,18 +43,18 @@ def fits():
         list(X), "levenshtein", device="cpu", uniforms=_jax_uniforms, **kw
     )
     port.fit()
-    return ref, port
+    return ref, port, ref._dev, port._dev  # the states, kept past host reads
 
 
 def test_fit_matches_jax_anchors_and_pairs(fits):
-    ref, port = fits
+    ref, port = fits[:2]
     np.testing.assert_array_equal(port.A, ref.A)
     np.testing.assert_array_equal(port.D, ref.D)
     np.testing.assert_array_equal(port.IJs, ref.IJs)
 
 
 def test_fit_matches_jax_evals_and_graph(fits):
-    ref, port = fits
+    ref, port = fits[:2]
     assert port.evals == ref.evals
     assert att.compare_neighbor_graphs(port.neighbor_graph, ref.neighbor_graph, 10) == 0
     np.testing.assert_array_equal(port.neighbor_graph[0], ref.neighbor_graph[0])
@@ -63,12 +63,25 @@ def test_fit_matches_jax_evals_and_graph(fits):
 def test_fit_matches_jax_state(fits):
     """Same computed pairs; features bit-equal; estimates within the
     regression predict's FMA ulps (see tests/test_torch_pipeline.py)."""
-    ref, port = fits
+    ref, port = fits[:2]
     np.testing.assert_array_equal(port.not_computed_mask, ref.not_computed_mask)
     np.testing.assert_array_equal(port.features, ref.features)
     ra_ref = ref.RefineApprox.astype(np.float32)
     ulp = np.spacing(np.maximum(np.abs(ra_ref), 1.0))
     assert np.all(np.abs(port.RefineApprox.astype(np.float32) - ra_ref) <= 4 * ulp)
+
+
+def test_fit_matches_jax_exact_store(fits):
+    """The dense fit keeps its exact values in the exact store: the JAX
+    state's computed pairs (its m-sized mirror's non-NaN entries), with
+    their values."""
+    jdev, tdev = fits[2:]
+    assert not tdev.sparse
+    jdev._flush_exacts()
+    tdev._flush_exacts()
+    want = np.flatnonzero(~np.isnan(jdev.exact64))
+    np.testing.assert_array_equal(tdev.exact.ids, want)
+    np.testing.assert_array_equal(tdev.exact.vals, jdev.exact64[want])
 
 
 def test_strings_levenshtein_budget():

@@ -15,9 +15,13 @@
   state on the device.
 * ``tracked_mask`` is held against ``np.isin`` at list lengths m = 2^k,
   where the JAX package's binary search runs one halving short (F1).
+* A fitted index and its device state are freed with their last
+  reference, without the cyclic collector.
 """
 
+import gc
 import os
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -167,7 +171,7 @@ def test_tracked_mask_at_powers_of_two(k):
     tracked[-1] = (nx - 2, nx - 1)  # the largest key
     tracked = np.unique(tracked, axis=0)[::-1].copy()  # stored out of order
     st = tdp.DeviceFitState.__new__(tdp.DeviceFitState)
-    st.ann = type("Ann", (), {"nx": nx})()
+    st.nx = nx
     st.device = torch.device("cpu")
     st.ij_i = torch.as_tensor(tracked[:, 0].astype(np.int32))
     st.ij_j = torch.as_tensor(tracked[:, 1].astype(np.int32))
@@ -177,6 +181,33 @@ def test_tracked_mask_at_powers_of_two(k):
     keys = lambda a: a[:, 0].astype(np.int64) * nx + a[:, 1]  # noqa: E731
     np.testing.assert_array_equal(st.tracked_mask(q), np.isin(keys(q), keys(tracked)))
     assert st.tracked_mask(np.zeros((0, 2), np.int64)).shape == (0,)
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse", "dense-enemies"])
+def test_fit_state_freed_without_collector(case, monkeypatch):
+    """The fit state holds nothing that points back at the Annchor: with
+    the cyclic collector off, deleting a fitted Annchor frees it and its
+    state at once, after a dense fit, a scale-path fit, and a dense fit
+    whose nearest-enemy extras appended pairs to the state."""
+    if case == "sparse":
+        monkeypatch.setenv("ANNCHOR_TPU_FORCE_SPARSE", "1")
+    X, y = make_strings(n=200, length=40, seed=4)
+    gc.collect()
+    gc.disable()
+    try:
+        ann = att.Annchor(list(X), "levenshtein", n_anchors=10, n_neighbors=6,
+                          n_samples=500, p_work=0.3, loc_thresh=3, device="cpu")
+        ann.fit()
+        assert ann._dev is not None and ann._dev.sparse == (case == "sparse")
+        if case == "dense-enemies":
+            m0 = ann._dev.m
+            ann.get_nearest_enemies(y, nn=3)
+            assert ann._dev.m > m0
+        refs = weakref.ref(ann), weakref.ref(ann._dev)
+        del ann
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
 
 
 # ---------------------------------------------------------------------------

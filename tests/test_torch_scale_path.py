@@ -241,7 +241,7 @@ def test_fit_matches_jax(fits):
 def test_fit_keeps_pairs_on_device(fits):
     port, tdev = fits.port, fits.tdev
     assert port._IJs is None and tdev.sparse
-    assert tdev.ncm_host is None and not hasattr(tdev, "exact64")
+    assert not hasattr(tdev, "ncm_host") and not hasattr(tdev, "exact64")
     # the store holds the computed pairs: the JAX package's own set on
     # strings (exact integer distances), as many of them on blobs (ulp
     # differences in the estimates reorder tied selection probabilities)
