@@ -28,11 +28,10 @@ import torch
 from annchor_tpu_torch.metrics import (
     Metric,
     _DenseBatchEngine,
-    _encode_codes,
     _LevenshteinEngine,
     get_function_from_input,
 )
-from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding, myers_knn, myers_rows
+from annchor_tpu_torch.ops.levenshtein_myers import myers_knn, myers_rows
 from annchor_tpu_torch.ops.pairs import row_smallest_k
 from annchor_tpu_torch.progress import progress
 
@@ -151,7 +150,7 @@ def exact_query_rows(X, Q, func, func_kwargs=None, block=64, verbose=False,
     if isinstance(eng, _LevenshteinEngine):
         # a throwaway joint encoding of X + Q: entering it in the engine's
         # one-dataset cache would evict the fitted dataset's encoding
-        enc = MyersEncoding.from_codes(*_encode_codes(list(X) + list(Q)), eng.device)
+        enc = eng.build(list(X) + list(Q))
         return myers_rows(enc, np.arange(nx, nx + nq, dtype=np.int64), block=block,
                           n_keep=nx, verbose=verbose)
     # engines take (X, Z, IJ) with IJ[:, 0] indexing the first argument

@@ -5,7 +5,8 @@ batched engine:
 
 * ``levenshtein``: the bit-parallel pair kernel
   (``ops/levenshtein_myers.myers_pairs``), on the card or, for
-  ``device="cpu"``, through its plain PyTorch version;
+  ``device="cpu"``, through its plain PyTorch version; on a card the
+  strings' encoding is built there too (``MyersEncoding.on_device``);
 * ``euclidean``, ``sqeuclidean`` and ``cosine``: ``_DenseBatchEngine``,
   a gather and a row reduction in float32 (the JAX engine is an XLA
   program, not a Pallas kernel, so plain torch ops are its port);
@@ -316,10 +317,21 @@ class _LevenshteinEngine:
         hit = self._cache.get(key)
         if hit is not None and hit[0] is X:
             return hit[1]
-        with trace.span("engine.encode", strings=len(X)):
-            enc = MyersEncoding.from_codes(*_encode_codes(X), self.device)
+        enc = self.build(X)
         self._cache = {key: (X, enc)}  # hold one dataset at a time
         return enc
+
+    def build(self, X):
+        """A new encoding of X on the engine's device: on a card built
+        there from X's code points (``MyersEncoding.on_device``), on the
+        CPU by the host's numpy (``from_codes``), the faster one there.
+        The span counts the strings and those encoded on the card."""
+        n = len(X)
+        on_card = n if self.device.type == "cuda" else 0
+        with trace.device_span("engine.encode", (self.device,), strings=n, on_card=on_card):
+            if on_card:
+                return MyersEncoding.on_device(X, self.device)
+            return MyersEncoding.from_codes(*_encode_codes(X), self.device)
 
     def _eval(self, enc, I, J):
         """``myers_pairs`` of the pair ids I, J, split over the mesh when
@@ -361,10 +373,7 @@ class _LevenshteinEngine:
         if held is not None and held[0] is X and held[1] is Z:
             enc = held[2]
         else:
-            with trace.span("engine.encode", strings=len(X) + len(Z)):
-                enc = MyersEncoding.from_codes(
-                    *_encode_codes(list(X) + list(Z)), self.device
-                )
+            enc = self.build(list(X) + list(Z))
             if self._holds:
                 self._pair_enc = (X, Z, enc)
         return self._pairs(enc, IJ[:, 0], IJ[:, 1] + len(X)).astype(

@@ -4,7 +4,9 @@ scalar oracle.
 The encoders are copied from the JAX package's ``ops/levenshtein.py``
 (backend-neutral numpy): strings become a padded codepoint matrix that
 the bit-parallel kernel's encoder (``ops/levenshtein_myers.py``) maps to
-dense alphabet ids.
+dense alphabet ids.  ``joined_codes`` takes the code points of all the
+strings in one join and ``pad_codes`` lays them out as the same padded
+matrix on a device.
 
 Over more than ``MAX_ALPHABET`` (192) distinct symbols the dense Peq
 tables are not built; the strings keep their codepoints in a
@@ -59,6 +61,39 @@ def encode_sequences(seqs, pad_to_multiple: int = 128):
     for k, s in enumerate(seqs):
         codes[k, : len(s)] = np.asarray(s, dtype=np.int32)
     return codes, lengths
+
+
+def joined_codes(strings):
+    """The code points of ``strings`` end to end, int32 (sum of the
+    lengths,), from one join and one encode, and the lengths int32 (n,):
+    ``encode_strings``'s matrix row by row with its pads left out."""
+    lengths = np.fromiter(map(len, strings), dtype=np.int32, count=len(strings))
+    flat = np.frombuffer("".join(strings).encode("utf-32-le"), dtype=np.int32)
+    return flat, lengths
+
+
+def upload_int32(a, device):
+    """A host array as int32 on ``device``, copied once: to a card through
+    pinned memory, so the copy does not wait for the card."""
+    dev = torch.device(device)
+    t = torch.empty(np.shape(a), dtype=torch.int32, pin_memory=dev.type == "cuda")
+    t.numpy()[...] = a
+    return t.to(dev, non_blocking=True)
+
+
+def pad_codes(flat, lengths, pad_to_multiple: int = 128):
+    """``encode_strings``'s padded matrix (n, L) int32, -1 pads, built on
+    the device of ``flat`` (``joined_codes``' code points as a tensor)
+    from the host's ``lengths``: a gather, with no read from the device."""
+    dev = flat.device
+    n = len(lengths)
+    L = round_up(max(int(lengths.max()), 1), pad_to_multiple)
+    if not flat.numel():
+        return torch.full((n, L), -1, dtype=torch.int32, device=dev)
+    lens = upload_int32(lengths, dev).long()
+    pos = torch.arange(L, device=dev)
+    src = (torch.cumsum(lens, 0) - lens)[:, None] + pos
+    return torch.where(pos < lens[:, None], flat[src.clamp_(max=flat.numel() - 1)], -1)
 
 
 def levenshtein_scalar(x, y) -> int:
@@ -129,7 +164,7 @@ class RowDPEncoding:
     def __init__(self, codes, lengths, device):
         dev = torch.device(device)
         lengths = np.ascontiguousarray(lengths, dtype=np.int32)
-        self.ids = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int32)).to(dev)
+        self.ids = torch.as_tensor(codes, dtype=torch.int32, device=dev).contiguous()
         self.lengths = torch.from_numpy(lengths).to(dev)
         self.lmax = int(np.max(lengths)) if len(lengths) else 0
         words = (lengths.astype(np.int64) + 31) // 32

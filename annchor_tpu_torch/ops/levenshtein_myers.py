@@ -17,6 +17,11 @@ block of sources against every column as one ``myers_pairs`` call.
 Over more than ``MAX_ALPHABET`` distinct symbols ``MyersEncoding.from_codes``
 gives a ``RowDPEncoding`` instead, and ``myers_pairs`` (so the max-min
 loop and the oracles too) runs the row DP (K10, ``ops/levenshtein.py``).
+
+``from_codes`` builds the tables in host numpy (``encode_alphabet``,
+``build_peq``) and uploads them; ``MyersEncoding.on_device`` builds the
+same tables bit for bit with torch ops on the encoding's device from the
+strings' code points, which is what the metric engine does on a card.
 """
 
 from __future__ import annotations
@@ -25,7 +30,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, bulk_and_max, rowdp_pairs
+from annchor_tpu_torch.ops.levenshtein import (
+    RowDPEncoding,
+    bulk_and_max,
+    encode_sequences,
+    joined_codes,
+    pad_codes,
+    rowdp_pairs,
+    upload_int32,
+)
 from annchor_tpu_torch.ops.pairs import row_smallest_k
 from annchor_tpu_torch.progress import progress
 
@@ -145,6 +158,58 @@ class MyersEncoding:
         ids, alphabet = enc
         peq = build_peq(ids, lengths, alphabet)
         return cls(ids, lengths, peq, alphabet, device)
+
+    @classmethod
+    def on_device(cls, X, device):
+        """``from_codes`` of ``encode_strings(X)`` (``encode_sequences``
+        for sequences of integers), bit for bit, built by torch ops on
+        ``device``.  The host only takes the code points: those of strings
+        in one join (``joined_codes``), padded on the device
+        (``pad_codes``); of other sequences their padded host matrix.
+
+        The alphabet is ``torch.unique`` of the codes with -1 put first
+        (a negative code is a pad, as in ``encode_alphabet``); its size
+        is the build's one read from the device, and past ``MAX_ALPHABET``
+        the codes go to a ``RowDPEncoding`` as they are.  A code's id is
+        its rank among the symbols (``searchsorted``: every code is in
+        the alphabet, so the rank is the lookup table's id).  Each
+        character adds its bit into its Peq word in one ``index_add_``
+        over int32 words: the bits of a word are distinct powers of two
+        (bit 31 as -2^31), so every partial sum is in range and the sum
+        is their OR."""
+        dev = torch.device(device)
+        seq = list(X)
+        if len(seq) and not isinstance(seq[0], str):
+            codes, lengths = encode_sequences(seq)
+            codes = upload_int32(codes, dev)
+        else:
+            flat, lengths = joined_codes(seq)
+            codes = pad_codes(upload_int32(flat, dev), lengths)
+        n, L = codes.shape
+        alpha = torch.unique(torch.cat([codes.reshape(-1).clamp(min=-1),
+                                        codes.new_full((1,), -1)]))
+        alphabet = alpha.numel() - 1
+        if alphabet > MAX_ALPHABET:
+            return RowDPEncoding(codes, lengths, dev)
+        ids = torch.searchsorted(alpha, codes, out_int32=True).sub_(1)
+        W = (L + 31) // 32
+        peq = torch.zeros(n * alphabet * W, dtype=torch.int32, device=dev)
+        if peq.numel():
+            pos = torch.arange(L, device=dev)
+            bit = torch.where((pos & 31) == 31, -(1 << 31), 1 << (pos & 31)).to(torch.int32)
+            at = ids.clamp(min=0).long()
+            at += torch.arange(0, n * alphabet, alphabet, device=dev)[:, None]
+            at *= W
+            at += pos >> 5
+            peq.index_add_(0, at.view(-1), torch.where(ids >= 0, bit, 0).view(-1))
+        out = object.__new__(cls)
+        out.ids = ids
+        out.lengths = upload_int32(lengths, dev)
+        out.peq = peq.view(n, alphabet, W)
+        out.alphabet = alphabet
+        out.W = W
+        out.wbulk, out.wmax = bulk_and_max((np.asarray(lengths, dtype=np.int64) + 31) // 32)
+        return out
 
 
 def myers_pairs(enc: MyersEncoding, I, J):

@@ -29,7 +29,10 @@ of which exits non-zero when it fails:
    astral code points (lengths 0-600, one string of 5,000 characters and
    one of 2,600 for long mode), both argument orders, every call under
    ``set_sync_debug_mode("error")``, thread, group and long mode each
-   launched, and 64 pairs against the pure-Python DP; then the hybrid's
+   launched, and 64 pairs against the pure-Python DP; then the strings'
+   encoding built on the card (``MyersEncoding.on_device``) against the
+   host build, bit for bit, on strings-1600, an astral set and 193
+   symbols, with both builds' times; then the hybrid's
    certify dispatch (the Sinkhorn
    scout's values of 40,000 digit pairs queued on the card) under
    ``set_sync_debug_mode("error")``, its values against the same engine
@@ -740,6 +743,87 @@ def _check_k10(torch, np):
     if not all(modes.values()):
         raise SystemExit("the K10 checks did not launch every mode: %s" % modes)
     return total, worst, modes
+
+
+def _check_encode(torch, np, X):
+    """The strings' encoding built on the card (``MyersEncoding.on_device``,
+    what the metric engine runs there) against the host build
+    (``from_codes`` of ``encode_strings``), every table and host size bit
+    for bit, on strings-1600 ``X``, on a set of BMP and astral code points
+    (lengths 0-600 and one of 2,100, NUL included) and on 193 symbols
+    (the row DP's ``RowDPEncoding``); the card build's synchronising
+    calls counted under ``set_sync_debug_mode("warn")`` (one, ``torch.unique``'s,
+    for a ``MyersEncoding``), then both builds
+    timed beside each other on strings-1600 (median of 15, synchronised).
+    Returns {set: (host ms, card ms, syncs)}; the times only for
+    strings-1600."""
+    import warnings
+
+    from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, encode_strings
+    from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding
+
+    def host(strs):
+        return MyersEncoding.from_codes(*encode_strings(strs), "cuda")
+
+    def card(strs):
+        return MyersEncoding.on_device(strs, "cuda")
+
+    rng = np.random.default_rng(21)
+    lens = np.concatenate([[0, 2100], rng.integers(0, 601, 198)])
+
+    def over(symbols):
+        return ["".join(symbols[i] for i in rng.integers(0, len(symbols), int(k)))
+                for k in lens]
+
+    sets = {
+        "strings-1600": X,
+        "astral": over([chr(0x20000 + i) for i in range(40)] + ["a", "\x00", "\u00e9"]),
+        "193 symbols": over(_cjk(4193)[100:293]),
+    }
+    out = {}
+    for name, strs in sets.items():
+        want = host(strs)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = card(strs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchronizing CUDA operation" in str(w.message) for w in seen)
+        if type(got) is not type(want) or (name == "193 symbols") != isinstance(
+                got, RowDPEncoding):
+            raise SystemExit("%s: the card build gave a %s, the host build a %s"
+                             % (name, type(got).__name__, type(want).__name__))
+        for slot in type(want).__slots__:
+            a, b = getattr(got, slot), getattr(want, slot)
+            same = (a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+                    if isinstance(b, torch.Tensor) else a == b)
+            if not same:
+                raise SystemExit("%s: the card build's %s differs from the host build's"
+                                 % (name, slot))
+        if not isinstance(got, RowDPEncoding) and syncs != 1:
+            raise SystemExit("%s: the card build synchronised %d times; torch.unique's "
+                             "read of the alphabet is its one" % (name, syncs))
+        host_ms = card_ms = float("nan")
+        if name == "strings-1600":
+            times = {}
+            for label, fn in (("host", host), ("card", card), ("card", card), ("host", host)):
+                for _ in range(15):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(strs)
+                    torch.cuda.synchronize()
+                    times.setdefault(label, []).append(1e3 * (time.perf_counter() - t0))
+            host_ms, card_ms = (float(np.median(times[k])) for k in ("host", "card"))
+        out[name] = (host_ms, card_ms, syncs)
+        print("  encoding %-12s %4d strings, %s%s: card build bit-equal to the host build, "
+              "%d synchronising call(s); host %.3f ms, card %.3f ms" % (
+                  name, len(strs), type(got).__name__,
+                  "" if isinstance(got, RowDPEncoding) else " (%d symbols, W %d)"
+                  % (got.alphabet, got.W), syncs, host_ms, card_ms), flush=True)
+    return out
 
 
 def _bit_err(torch, got, want):
@@ -2164,37 +2248,30 @@ def _slates_check(torch, np, big):
 @contextlib.contextmanager
 def _encode_clock():
     """Seconds and calls of the metric engine's string encoding while the
-    block runs: ``metrics._encode_codes`` (strings to code points) and
-    ``MyersEncoding.from_codes`` (alphabet, Peq and the upload)."""
+    block runs: ``_LevenshteinEngine.build`` (on a card: the code points
+    up, then the alphabet, ids and Peq built there), synchronised."""
+    import torch
+
     import annchor_tpu_torch.metrics as tm
-    from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding
 
-    clock = {"codes_s": 0.0, "from_codes_s": 0.0, "encodes": 0}
-    real_codes = tm._encode_codes
-    real_from = MyersEncoding.__dict__["from_codes"]
+    clock = {"encode_s": 0.0, "encodes": 0}
+    real = tm._LevenshteinEngine.build
 
-    def codes(X):
+    def build(self, X):
         t0 = time.perf_counter()
         try:
-            return real_codes(X)
+            enc = real(self, X)
+            torch.cuda.synchronize()
+            return enc
         finally:
-            clock["codes_s"] += time.perf_counter() - t0
-
-    def from_codes(cls, *args):
-        t0 = time.perf_counter()
-        try:
-            return real_from.__func__(cls, *args)
-        finally:
-            clock["from_codes_s"] += time.perf_counter() - t0
+            clock["encode_s"] += time.perf_counter() - t0
             clock["encodes"] += 1
 
-    tm._encode_codes = codes
-    MyersEncoding.from_codes = classmethod(from_codes)
+    tm._LevenshteinEngine.build = build
     try:
         yield clock
     finally:
-        tm._encode_codes = real_codes
-        MyersEncoding.from_codes = real_from
+        tm._LevenshteinEngine.build = real
 
 
 def _timed_query(torch, ann, Q, nn, p_work, hold=True):
@@ -2236,8 +2313,8 @@ def _query_report(torch, np, K1, ann, Q, R, sources, nn, p_work, label):
         "source_first": float(np.mean(ngi[:, 0] == sources)),
         "encode": clock, "wall_s_no_hold": wall2, "encode_no_hold": clock2,
     }
-    enc = clock["codes_s"] + clock["from_codes_s"]
-    enc2 = clock2["codes_s"] + clock2["from_codes_s"]
+    enc = clock["encode_s"]
+    enc2 = clock2["encode_s"]
     print("  %s: %d queries in %.4f s (%.3f ms/query), K1 launches %d %s, distance recall "
           "%.6f, source first %.4f; encoding %.3f s in %d encodes (%.1f %% of the wall); "
           "without the hold %.4f s, encoding %.3f s in %d encodes (%.1f %%)" % (
@@ -3133,6 +3210,7 @@ def main() -> int:
     _check_no_sync(torch, np, X)
     _check_oracle(torch, np, X)
     report["k10_check_pairs"], k10_err, report["k10_check_modes"] = _check_k10(torch, np)
+    report["encode_check"] = _check_encode(torch, np, X)
     report["k4_check_calls"], k4_err, report["k4_check_launches"], E1600 = _check_k4(
         torch, np, att, X)
     report["k9a_check_calls"], k9a_err, report["k9a_check_modes"] = _check_k9a(torch, np)

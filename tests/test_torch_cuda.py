@@ -177,6 +177,39 @@ def test_k1_wrapper_checks_inputs(cuda):
         myers_pairs_cuda(enc.peq, enc.ids[:, ::2], enc.lengths, I, I)
 
 
+@pytest.mark.parametrize("case", ["acgt", "astral_nul", "symbols_193", "sequences"])
+def test_encoding_built_on_card_equals_host_build(cuda, case):
+    """``MyersEncoding.on_device`` on the card gives the host build's
+    tables (``from_codes``, uploaded) and host sizes bit for bit: 1,600
+    ACGT strings, BMP and astral code points with NUL, 193 symbols (the
+    row DP's encoding) and integer sequences past 2^22."""
+    from annchor_tpu_torch.ops.levenshtein import RowDPEncoding, encode_sequences
+
+    rng = np.random.default_rng(11)
+    if case == "acgt":
+        X = list(make_strings()[0])
+    elif case == "sequences":
+        X = [list(rng.choice([3, 7, (1 << 22) + 1, 1 << 30], int(k)))
+             for k in rng.integers(0, 300, 64)]
+    else:
+        syms = (["a", "\x00", "\u00e9", "\U0001F600", "\U0010FFFF"] if case == "astral_nul"
+                else [chr(0x4E00 + i) for i in range(100)] + [chr(0x20000 + i)
+                                                              for i in range(93)])
+        X = ["".join(syms[i] for i in rng.integers(0, len(syms), int(k)))
+             for k in rng.integers(0, 700, 64)] + ["".join(syms)]
+    codes = encode_strings(X) if isinstance(X[0], str) else encode_sequences(X)
+    want = MyersEncoding.from_codes(*codes, cuda)
+    got = MyersEncoding.on_device(X, cuda)
+    assert type(got) is type(want)
+    assert isinstance(got, RowDPEncoding) == (case == "symbols_193")
+    for slot in type(want).__slots__:
+        a, b = getattr(got, slot), getattr(want, slot)
+        if isinstance(b, torch.Tensor):
+            assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b), slot
+        else:
+            assert a == b, slot
+
+
 def test_fit_on_card_equals_fit_on_cpu(cuda):
     """The same small fit, with the same uniforms, on the card (K1) and
     on the CPU (plain versions): same anchors, evals and graph."""

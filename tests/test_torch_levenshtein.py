@@ -15,10 +15,16 @@ import pytest
 import torch
 
 from annchor_tpu.ops import levenshtein_myers as jax_myers
+from annchor_tpu.ops.levenshtein import encode_sequences as jax_encode_sequences
 from annchor_tpu.ops.levenshtein import encode_strings as jax_encode
 from annchor_tpu.ops.levenshtein_pallas import pallas_myers_pairs
 from annchor_tpu_torch.metrics import get_function_from_input
-from annchor_tpu_torch.ops.levenshtein import encode_strings, levenshtein_scalar
+from annchor_tpu_torch.ops.levenshtein import (
+    RowDPEncoding,
+    encode_sequences,
+    encode_strings,
+    levenshtein_scalar,
+)
 from annchor_tpu_torch.ops.levenshtein_myers import (
     MyersEncoding,
     myers_maxmin,
@@ -97,6 +103,67 @@ def test_encoding_matches_jax():
     np.testing.assert_array_equal(enc.lengths.numpy(), jenc.lengths)
     np.testing.assert_array_equal(enc.peq.numpy().view(np.uint32), jenc.peq)
     assert enc.alphabet == jenc.alphabet
+
+
+def _symbols(k):
+    """k distinct code points, BMP and astral."""
+    return [chr(0x4E00 + i) for i in range(k // 2)] + [chr(0x20000 + i)
+                                                      for i in range(k - k // 2)]
+
+
+def _over(symbols, lengths, seed):
+    rng = np.random.default_rng(seed)
+    return ["".join(symbols[i] for i in rng.integers(0, len(symbols), k)) for k in lengths]
+
+
+_ENCODE_CASES = {
+    "empty_string": ["", "ab", "ba"],
+    "only_empty": ["", "", ""],
+    "word_lengths": _over("acgt", [31, 32, 33, 127, 128, 129], 1),
+    "astral": _over(["a", "\u00e9", "\U0001F600", "\U00010000", "\U0010FFFF"],
+                    [0, 5, 40, 200], 2),
+    "nul": ["a\x00b", "ab\x00", "\x00", "\x00\x00a\x00"],
+    "numpy_unicode": np.array(["abc", "a\x00b\x00", "\U0001F600x", ""]),
+    "list_of_str": ["abc", "a\x00b\x00", "\U0001F600x", ""],
+    "list_of_np_str": list(np.array(["abc", "a\x00b", "\U0001F600x", ""])),
+    "sequences": [[1, 2, 3], [3, 2, 1, 1], [], [7] * 40],
+    "symbols_192": _over(_symbols(192), [300] * 8, 3) + ["".join(_symbols(192))],
+    "symbols_193": _over(_symbols(193), [300] * 8, 4) + ["".join(_symbols(193))],
+    "past_2_22": [[(1 << 22) + 5, 3, 1 << 30], [1 << 30, 3], [3]],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ENCODE_CASES))
+def test_device_build_matches_host_and_jax(case):
+    """``MyersEncoding.on_device`` (what a card runs) on CPU tensors gives
+    the host build's tables and sizes bit for bit, and the JAX package's
+    ids, lengths, Peq, alphabet and W; past 192 symbols both give the row
+    DP's encoding of the same code points (the JAX encoder gives None)."""
+    X = _ENCODE_CASES[case]
+    seq = list(X)
+    strings = isinstance(seq[0], str)
+    codes, lengths = (encode_strings if strings else encode_sequences)(seq)
+    host = MyersEncoding.from_codes(codes, lengths, "cpu")
+    got = MyersEncoding.on_device(X, "cpu")
+    assert type(got) is type(host)
+    for slot in type(host).__slots__:
+        a, b = getattr(got, slot), getattr(host, slot)
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), slot
+        else:
+            assert a == b, slot
+    jenc = jax_myers.MyersEncoding.from_codes(
+        *(jax_encode if strings else jax_encode_sequences)(seq))
+    if isinstance(got, RowDPEncoding):
+        assert jenc is None and case == "symbols_193"
+        np.testing.assert_array_equal(got.ids.numpy(), codes)
+        return
+    assert got.alphabet == jenc.alphabet
+    assert case != "symbols_192" or got.alphabet == 192
+    assert got.W == jenc.W
+    np.testing.assert_array_equal(got.ids.numpy(), jenc.ids)
+    np.testing.assert_array_equal(got.lengths.numpy(), jenc.lengths)
+    np.testing.assert_array_equal(got.peq.numpy().view(np.uint32), jenc.peq)
 
 
 def test_alphabet_limit_raises():

@@ -251,6 +251,36 @@ def test_strings_fit_records_construct_encoding_and_every_stage(strings_run):
                                           "update_anchor_points"}
 
 
+def test_engine_encode_counts_strings_and_on_card(strings_run):
+    """Both sites of ``engine.encode``, the engine's cache miss and the
+    query path's joint encoding, count the strings and those encoded on
+    the card: none on the CPU."""
+    _, recs = strings_run
+    query = next(r for r in recs if r.name == "query")
+    encodes = [r for r in recs if r.name == "engine.encode"]
+    assert [sorted(r.counts) for r in encodes] == [["on_card", "strings"]] * len(encodes)
+    assert all(r.counts["on_card"] == 0 for r in encodes)
+    assert encodes[0].counts["strings"] == 120
+    assert 120 + 30 in [r.counts["strings"] for r in encodes if r.request == query.request]
+
+
+def test_one_engine_encode_record_per_encoding(monkeypatch):
+    from annchor_tpu_torch.ops.levenshtein_myers import MyersEncoding
+
+    real = MyersEncoding.from_codes.__func__
+    built = []
+
+    def counting(cls, codes, lengths, device):
+        built.append(len(lengths))
+        return real(cls, codes, lengths, device)
+
+    monkeypatch.setattr(MyersEncoding, "from_codes", classmethod(counting))
+    X, Q = _strings()
+    _, recs = _run(lambda: att.Annchor(X, "levenshtein", **STRINGS_KW), Q)
+    assert len(built) >= 3
+    assert [r.counts["strings"] for r in recs if r.name == "engine.encode"] == built
+
+
 def test_hybrid_fit_records_certify_and_its_children(digits_run):
     ann, recs = digits_run
     fit = next(r for r in recs if r.name == "fit")
