@@ -522,8 +522,8 @@ class Annchor:
         ``_locality_info`` records the build taken and the admitted
         total.  The builds are the spans ``locality.admit`` (counts
         ``blocks``, ``admitted``, ``m``, ``switched``) and
-        ``locality.budgeted`` (``m``), inside the admit span when it hands
-        over."""
+        ``locality.budgeted`` (``m``; ``admitted``, ``bands`` from the
+        build), inside the admit span when it hands over."""
         env_cap = os.environ.get("ANNCHOR_TPU_PAIR_CAP")
         cap = int(env_cap) if env_cap is not None else (self.pair_cap or 0)
         auto_cap = self._derived_pair_cap()

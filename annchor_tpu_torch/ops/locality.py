@@ -463,19 +463,26 @@ def _band_thr_from_hist(H, cap: int, bin_w):
 
 
 def _band_thresholds(D32p, Sp, Sb, Db, eb, effp, row_off: int, nx: int, inv_bin, bin_w,
-                     nbins: int, cap: int, cchunk: int, score: str = "linf", cols=None):
+                     nbins: int, cap: int, cchunk: int, score: str = "linf", cols=None,
+                     admitted=None):
     """Pass 1 of a row band: each row's score threshold.  Under "linf" on
     a card the histogram of K9a's hist mode (``_band_hist_sym``) and
     ``_band_thr_from_hist``, so no (B, nxp) bin matrix is made; otherwise
     the JAX package's way, the plain bins and their bisection
-    (``_band_thr_from_bins``).  Both give the same bits."""
+    (``_band_thr_from_bins``).  Both give the same bits.  ``admitted``, a
+    0-d int64 tensor on the band's device, gains the admitted partners of
+    the band's real rows (each admitted pair counted from both ends)."""
     if score == "linf" and Db.is_cuda:
         H = _band_hist_sym(D32p, Sp, Sb, Db, eb, effp, row_off, nx, inv_bin, nbins, cchunk,
                            score, cols)
-        return _band_thr_from_hist(H, cap, bin_w)
-    BINs = _band_bins_sym_plain(D32p, Sp, Sb, Db, eb, effp, row_off, nx, inv_bin, nbins,
-                                cchunk, score)
-    return _band_thr_from_bins(BINs, cap, bin_w, nbins)
+        thr, kept = _band_thr_from_hist(H, cap, bin_w), H.sum(dim=1)
+    else:
+        BINs = _band_bins_sym_plain(D32p, Sp, Sb, Db, eb, effp, row_off, nx, inv_bin, nbins,
+                                    cchunk, score)
+        thr, kept = _band_thr_from_bins(BINs, cap, bin_w, nbins), (BINs < nbins).sum(dim=1)
+    if admitted is not None:
+        admitted += kept[: max(0, nx - row_off)].sum()
+    return thr
 
 
 def _band_keep2_dense(D32p, Sp, Sb, Db, eb, effp, thr_all, row_off: int, nx: int,
@@ -543,7 +550,8 @@ def _budgeted_bands_sharded(mesh, D32p, Sp, effp, nx: int, nblk: int, cchunk: in
     JAX package's ``_ShardedBudgetedBuild`` also caches the compiled
     ``shard_map`` programs; there is nothing to cache here.)
 
-    Returns (ij_i, ij_j int32, P_cnt int64 (nxp,)) on the mesh's first
+    Returns (ij_i, ij_j int32, P_cnt int64 (nxp,), the admitted pairs
+    counted from both ends, a 0-d int64 tensor) on the mesh's first
     device."""
     devs = mesh.devices
     s = mesh.size
@@ -563,13 +571,14 @@ def _budgeted_bands_sharded(mesh, D32p, Sp, effp, nx: int, nblk: int, cchunk: in
         return [(c, (g * s + c) * nblk) for c in range(s) if g * s + c < nbands]
 
     thr_parts = []
+    adm = [torch.zeros((), dtype=torch.int64, device=d) for d in devs]
     for g in progress(groups, "pair-budget pass 1 (sharded)", verbose):
         for c, r0 in bands(g):
             r1 = r0 + nblk
             with parallel.shard_scope(c):
                 thr_parts.append(_band_thresholds(
                     Ds[c], Ss[c], Ss[c][r0:r1], Ds[c][r0:r1], es[c][r0:r1], es[c], r0, nx,
-                    invs[c], bws[c], nbins, per_point_cap, cchunk, "linf", cols[c]))
+                    invs[c], bws[c], nbins, per_point_cap, cchunk, "linf", cols[c], adm[c]))
     thr = parallel.all_gather(thr_parts, devs)
 
     parts_i, parts_j = [], []
@@ -588,10 +597,11 @@ def _budgeted_bands_sharded(mesh, D32p, Sp, effp, nx: int, nblk: int, cchunk: in
             parts_j += [parallel.to_device(t, first) for t in pj]
             del keep
     P_cnt = parallel.psum(pcnt, [first])[0]
+    admitted = parallel.psum(adm, [first])[0]
     if not parts_i:
         empty = torch.zeros(0, dtype=torch.int32, device=first)
-        return empty, empty.clone(), P_cnt
-    return torch.cat(parts_i), torch.cat(parts_j), P_cnt
+        return empty, empty.clone(), P_cnt, admitted
+    return torch.cat(parts_i), torch.cat(parts_j), P_cnt, admitted
 
 
 def candidate_pairs_device_budgeted(
@@ -627,6 +637,10 @@ def candidate_pairs_device_budgeted(
     threshold; pass 2 re-streams the bands, keeps the pairs i < j under
     either threshold and extracts them.  Only one band's (block, nxp)
     state is live at a time; the result stays on the device.
+
+    The build adds the counts ``admitted`` (the pairs the filter admits
+    before the cap) and ``bands`` to the innermost open span
+    (``trace.count``), from the read-back of ``P_cnt`` it makes anyway.
 
     D: (nx, na) anchor distances (numpy).  Returns (ij_i, ij_j int32
     tensors, m, sid, S, eff tensors, P_cnt int32 numpy (nx,)); the pair
@@ -675,12 +689,19 @@ def candidate_pairs_device_budgeted(
     effp = torch.nn.functional.pad(eff, (0, pad), value=float("inf"))
 
     rows_per = max(1, min(nblk, _EXTRACT_ELEMS // max(nxp, 1)))
+    nbands = nxp // nblk
+
+    def counts_back(P_cnt, admitted):
+        """P_cnt on the host, with the admitted total in the same read-back."""
+        back = torch.cat([P_cnt[:nx], admitted.view(1)]).cpu().numpy()
+        trace.count(admitted=int(back[nx]) // 2, bands=nbands)
+        return back[:nx].astype(np.int32)
+
     if mesh is not None:
-        ij_i, ij_j, P_cnt = _budgeted_bands_sharded(
+        ij_i, ij_j, P_cnt, admitted = _budgeted_bands_sharded(
             mesh, D32p, Sp, effp, nx, nblk, cchunk, inv_bin, bin_w, nbins,
             int(per_point_cap), rows_per, verbose)
-        P_cnt = P_cnt[:nx].cpu().numpy().astype(np.int32)
-        return ij_i, ij_j, int(ij_i.shape[0]), sid, S, eff, P_cnt
+        return ij_i, ij_j, int(ij_i.shape[0]), sid, S, eff, counts_back(P_cnt, admitted)
 
     def band(s):
         return Sp[s : s + nblk], D32p[s : s + nblk], effp[s : s + nblk]
@@ -690,11 +711,12 @@ def candidate_pairs_device_budgeted(
     cols = band_linf_cuda.operands(D32p, Sp) if score == "linf" and dev.type == "cuda" else None
 
     thr = torch.empty(nxp, dtype=torch.float32, device=dev)
+    admitted = torch.zeros((), dtype=torch.int64, device=dev)
     for s in progress(range(0, nxp, nblk), "pair-budget pass 1", verbose):
         Sb, Db, eb = band(s)
         thr[s : s + nblk] = _band_thresholds(D32p, Sp, Sb, Db, eb, effp, s, nx, inv_bin,
                                              bin_w, nbins, int(per_point_cap), cchunk, score,
-                                             cols)
+                                             cols, admitted)
 
     parts_i, parts_j = [], []
     P_cnt = torch.zeros(nxp, dtype=torch.int64, device=dev)
@@ -715,5 +737,4 @@ def candidate_pairs_device_budgeted(
     else:
         ij_i = torch.zeros(0, dtype=torch.int32, device=dev)
         ij_j = torch.zeros(0, dtype=torch.int32, device=dev)
-    P_cnt = P_cnt[:nx].cpu().numpy().astype(np.int32)
-    return ij_i, ij_j, int(ij_i.shape[0]), sid, S, eff, P_cnt
+    return ij_i, ij_j, int(ij_i.shape[0]), sid, S, eff, counts_back(P_cnt, admitted)

@@ -16,7 +16,8 @@ span over work queued on the card: while a profiler records it waits
 for ``devices`` as it opens and before it closes, so its time is the
 block's device time too.
 
-``spans()`` returns the records kept (at most ``CAP``, the oldest
+``recording()`` says whether a profiler records, for counts that cost
+work of their own.  ``spans()`` returns the records kept (at most ``CAP``, the oldest
 dropped first), ``reset()`` clears them, and ``self_ns(records)`` gives
 each span's time less the time its children cover.  The profiler's own
 trace (``Annchor(trace_dir=...)``, ``export_chrome_trace``) carries the
@@ -146,6 +147,11 @@ def count(**counts):
     rec = _current.get()[0]
     if rec is not None:
         rec.counts.update(counts)
+
+
+def recording():
+    """True while a profiler records, so that spans are kept."""
+    return _enabled()
 
 
 def spans():

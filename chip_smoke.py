@@ -2213,28 +2213,30 @@ def _slates_check(torch, np, big):
     from annchor_tpu_torch import refine
 
     seen = {}
-    dev_screen = refine._screen_blocks_dev
+    dev_screen = refine._screen_dev
 
-    def both(gi, gd, kth, pool_keys, nx, kk, q, device):
+    def both(gi, gd, kth, pool, nx, kk, q, tally=None):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        lq, ubq = dev_screen(gi, gd, kth, pool_keys, nx, kk, q, device)
+        lq, ubq = dev_screen(gi, gd, kth, pool, nx, kk, q, tally)
+        lq_d, ubq_d = lq.cpu().numpy(), ubq.cpu().numpy()
         seen["dev_s"] = time.perf_counter() - t
         t = time.perf_counter()
-        lq_h, ubq_h = refine._screen_host(gi, gd, kth, pool_keys, nx, kk, q)
+        lq_h, ubq_h = refine._screen_host(gi.cpu().numpy(), gd.cpu().numpy(), kth.cpu().numpy(),
+                                          pool.cpu().numpy(), nx, kk, q)
         seen["host_s"] = time.perf_counter() - t
-        seen.update(shape=list(lq.shape), pool=int(pool_keys.shape[0]),
-                    equal=bool(np.array_equal(lq, lq_h)
-                               and np.array_equal(ubq.view(np.int32), ubq_h.view(np.int32))),
-                    admitted=int(np.isfinite(ubq).sum()))
+        seen.update(shape=list(lq_d.shape), pool=int(pool.shape[0]),
+                    equal=bool(np.array_equal(lq_d, lq_h)
+                               and np.array_equal(ubq_d.view(np.int32), ubq_h.view(np.int32))),
+                    admitted=int(np.isfinite(ubq_d).sum()))
         return lq, ubq
 
     fitted = (big.neighbor_graph, big._ng_exact, big.evals, big._refine_stats)
-    refine._screen_blocks_dev = both
+    refine._screen_dev = both
     try:
         big.refine_neighbor_graph(rounds=1, budget=200_000)
     finally:
-        refine._screen_blocks_dev = dev_screen
+        refine._screen_dev = dev_screen
         big.neighbor_graph, big._ng_exact, big.evals, big._refine_stats = fitted
     print("  (b) one refinement round's slates on the fitted index: (%d, %d) over a pool "
           "of %d pairs, %d admitted; device screen %.3f s, host screen %.3f s; bit-equal %s"

@@ -1,7 +1,8 @@
 """The port's span recorder (``annchor_tpu_torch.trace``) on the CPU: off
 without a profiler, nesting, request ids, self time and the profiler's
 clock under one; the spans of a strings fit, a digits hybrid fit and
-their queries; the scale path's build and tighten spans; the verbose
+their queries; the scale path's build and tighten spans, and the
+refinement's spans in a fit of the strings-100k configuration; the verbose
 stage table beside the stage spans; and the benchmark's per-layer
 metrics that read the spans."""
 
@@ -10,6 +11,7 @@ import contextlib
 import io
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -326,7 +328,65 @@ def test_sparse_fit_over_the_resident_budget_switches_builds(sparse_run):
     assert budgeted.parent == admit.index
     m = ann._ij_dev[2]
     assert admit.counts == {"blocks": 1, "admitted": admitted, "m": m, "switched": 1}
-    assert budgeted.counts == {"m": m}
+    # the budgeted build admits what the admit build counted, before its cap
+    assert budgeted.counts == {"m": m, "admitted": admitted, "bands": 1}
+
+
+@pytest.fixture(scope="module")
+def strings_scale_runs():
+    """The strings-100k configuration's small fit on the scale path
+    (``test_torch_strings_scale_reference.small_fit``: the budgeted
+    build, the sparse state, the refinement) with the profiler on, its
+    spans, and the same fit with none: (index, spans, index)."""
+    from test_torch_strings_scale_reference import small_fit
+
+    trace.reset()
+    with _profiled():
+        _, on = small_fit()
+    recs = trace.spans()
+    trace.reset()
+    _, off = small_fit()
+    return on, recs, off
+
+
+def test_refine_span_and_its_children_add_up(strings_scale_runs):
+    ann, recs, _ = strings_scale_runs
+    fit = next(r for r in recs if r.name == "fit")
+    stage = next(r for r in recs if r.name == "fit.refine_neighbor_graph")
+    (refine,) = [r for r in recs if r.name == "refine"]
+    assert refine.parent == stage.index and refine.request == fit.request
+    kids = _children(recs, refine)
+    assert {r.name for r in kids} == {"refine.exact", "refine.screen"}
+    c = refine.counts
+    assert set(c) == {"budget", "certified", "proposed", "screened", "evaluated", "rounds"}
+    # the exact batches are every evaluation the refinement added to ann.evals
+    pairs = sum(r.counts["pairs"] for r in kids if r.name == "refine.exact")
+    assert pairs == c["evaluated"] == stage.counts["evals"] > 0
+    assert c["evaluated"] <= c["budget"]
+    assert c["certified"] == ann._refine_stats[0]["evals"]
+    assert sum(r.name == "refine.screen" for r in kids) == c["rounds"] > 0
+    assert 0 < c["screened"] <= c["proposed"]
+
+
+def test_budgeted_build_counts_what_the_band_filter_admits(strings_scale_runs):
+    from annchor_tpu_torch.ops.locality import candidate_pairs_device
+
+    ann, recs, _ = strings_scale_runs
+    (build,) = [r for r in recs if r.name == "locality.budgeted"]
+    info = {}
+    candidate_pairs_device(ann.D, ann.locality, ann.loc_thresh, ann.loc_min, device="cpu",
+                           info=info)
+    m = ann._ij_dev[2]
+    assert build.counts == {"m": m, "admitted": info["admitted"], "bands": 1}
+    assert info["admitted"] >= m
+
+
+def test_spans_leave_the_scale_fit_as_it_is(strings_scale_runs):
+    on, _, off = strings_scale_runs
+    for a, b in zip(on.neighbor_graph, off.neighbor_graph):
+        assert np.array_equal(a, b)
+    assert np.array_equal(on._ng_exact, off._ng_exact)
+    assert on.evals == off.evals
 
 
 def test_dense_fit_tightens_every_pair_with_k4(digits_run):
@@ -413,9 +473,15 @@ def _synthetic(kind):
             add("engine.emd", base + 322, base + 418, x)
             add("certify.scout_wait", base + 430, base + 450, cert)
             add("certify.scout", base + 500, base + 560, cert)
-            add("locality.admit", base + 60, base + 95, f)
+            adm = add("locality.admit", base + 60, base + 95, f)
+            add("locality.budgeted", base + 70, base + 90, adm)
             add("pipeline.tighten", base + 240, base + 250, f)
             add("pipeline.tighten", base + 710, base + 722, f)
+            ref = add("refine", base + 730, base + 790, f)
+            x = add("refine.exact", base + 735, base + 755, ref)
+            add("engine.levenshtein", base + 736, base + 754, x)
+            add("refine.screen", base + 760, base + 770, ref)
+            add("refine.exact", base + 775, base + 780, ref)
         else:
             q = add("query", base, base + 500)
             a = add("query.anchors", base, base + 50, q)
@@ -436,6 +502,9 @@ def _synthetic(kind):
     ("emd_s.fit", 0.096),
     ("admit_build_s.fit", 0.035),
     ("tighten_s.fit", 0.022),
+    ("budgeted_build_s.fit", 0.020),
+    ("refine_s.fit", 0.060),
+    ("refine_self_s.fit", 0.060 - 0.020 - 0.010 - 0.005),
     ("encode_s.query", 0.020 + 0.040),
     ("walk_self_s.query", 0.300 - 0.040 - 0.060),
     ("emd_s.query", 0.060),
