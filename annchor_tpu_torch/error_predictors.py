@@ -15,6 +15,7 @@ batches into the stored CDFs without re-sorting them.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["SimpleStratifiedErrorRegression"]
 
@@ -68,6 +69,17 @@ class SimpleStratifiedErrorRegression:
             self.partition_bins[1:-1], feature, side="right"
         )
         return np.clip(tags, 0, self.n_partitions - 1)
+
+    def predict_tensor(self, features, feature_names):
+        """``predict`` on a float64 tensor of feature rows, on its device:
+        the same int64 tags."""
+        col = feature_names.index(self.partition_feature_name)
+        edges = torch.as_tensor(
+            np.asarray(self.partition_bins[1:-1], dtype=np.float64),
+            device=features.device,
+        )
+        tags = torch.searchsorted(edges, features[:, col].contiguous(), right=True)
+        return tags.clamp_(0, self.n_partitions - 1)
 
     def update_errors(self, errors, partitions):
         """Fold fresh residuals into the per-bin CDFs.  Near-zero

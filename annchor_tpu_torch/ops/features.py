@@ -15,6 +15,7 @@ import torch
 
 __all__ = [
     "bounds_and_dad",
+    "bounds_and_dad_tensors",
     "bounds_dad_dev",
     "anchor_membership",
     "shared_anchor_counts",
@@ -59,27 +60,33 @@ def bounds_dad_dev(D32, DJ32, I, J, chunk: int):
     return lb, ub, dad
 
 
-def bounds_and_dad(D, I, J, DJ=None, device="cpu", chunk: int = 1 << 20):
+def bounds_and_dad_tensors(D, I, J, DJ=None, device="cpu", chunk: int = 1 << 20):
     """Triangle-inequality bounds and the double-anchor-distance feature
-    (``bounds_dad_dev``) of host pairs, in float32 on ``device``.
+    (``bounds_dad_dev``) of pairs, left on ``device``.
 
-    D: (nx, na) anchor distances; I, J: int arrays (m,).  DJ: optional
-    right-side anchor-distance matrix for query pairs (reference
-    query_functions.py:102-129); defaults to D (in-sample).  Returns
-    np.float64 arrays (lb, ub, dad) of shape (m,)."""
+    D: (nx, na) anchor distances; I, J: int arrays or int64 tensors
+    (m,).  DJ: optional right-side anchor-distance matrix for query
+    pairs (reference query_functions.py:102-129); defaults to D
+    (in-sample).  Returns float32 tensors (lb, ub, dad) of shape (m,)."""
     D32 = _f32(D, device)
     DJ32 = D32 if DJ is None else _f32(DJ, device)
-    I = torch.as_tensor(np.asarray(I, dtype=np.int64), device=D32.device)
-    J = torch.as_tensor(np.asarray(J, dtype=np.int64), device=D32.device)
+    I, J = (torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a, dtype=np.int64),
+                            device=D32.device) for a in (I, J))
     m = I.shape[0]
     if m == 0:
-        z = np.zeros(0, dtype=np.float64)
-        return z, z.copy(), z.copy()
+        z = torch.zeros(0, dtype=torch.float32, device=D32.device)
+        return z, z.clone(), z.clone()
     # power-of-two chunk buckets, as the JAX package's compiled shapes
     nchunk = 4096
     while nchunk < m and nchunk < chunk:
         nchunk <<= 1
-    out = bounds_dad_dev(D32, DJ32, I, J, nchunk)
+    return bounds_dad_dev(D32, DJ32, I, J, nchunk)
+
+
+def bounds_and_dad(D, I, J, DJ=None, device="cpu", chunk: int = 1 << 20):
+    """``bounds_and_dad_tensors`` of host pairs, computed in float32 on
+    ``device`` and returned as np.float64 arrays (lb, ub, dad)."""
+    out = bounds_and_dad_tensors(D, I, J, DJ=DJ, device=device, chunk=chunk)
     return tuple(t.cpu().numpy().astype(np.float64) for t in out)
 
 

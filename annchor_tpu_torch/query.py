@@ -33,7 +33,7 @@ import torch
 
 from annchor_tpu_torch import trace
 from annchor_tpu_torch.ops import pairs as pair_ops
-from annchor_tpu_torch.ops.features import bounds_and_dad
+from annchor_tpu_torch.ops.features import bounds_and_dad_tensors
 from annchor_tpu_torch.ops.locality import query_candidates
 
 
@@ -72,19 +72,65 @@ def get_query_anchor_dists(ann, Q, geq):
 def get_query_features(ann, Q, QD, check):
     """Pairs, padded index and features for the query candidates
     (reference query_functions.py:40-129).  ``check`` is the flat
-    (db_ids, q_ids) candidate layout of ``query_candidates``."""
+    (db_ids, q_ids) candidate layout of ``query_candidates``.  The
+    features stay on ``ann.device``: Qfeatures a float64 tensor of rows
+    (lb, ub, dad, is anchor), the float32 feature pass upcast exactly,
+    and Qncm a bool tensor (the pairs that are not anchor columns)."""
     nq = len(Q)
+    dev = ann.device
     db_ids, q_ids = check
     IJs = np.stack([db_ids, q_ids], axis=1)
-    P_idx, P_cnt = pair_ops.build_point_index_single(IJs[:, 1], nq, ann.device)
-    lb, ub, dad = bounds_and_dad(ann.D, IJs[:, 0], IJs[:, 1], DJ=QD, device=ann.device)
+    P_idx, P_cnt = pair_ops.build_point_index_single(IJs[:, 1], nq, dev)
+    IJ = torch.as_tensor(IJs, device=dev)
+    lb, ub, dad = bounds_and_dad_tensors(ann.D, IJ[:, 0], IJ[:, 1], DJ=QD, device=dev)
+    is_anchor = torch.zeros(ann.nx, dtype=torch.float64, device=dev)
     if len(ann.A):
-        anchors = np.isin(IJs[:, 0], np.asarray(ann.A, dtype=int)).astype(np.float64)
-    else:
-        anchors = np.zeros(IJs.shape[0])
-    Qfeatures = np.stack([lb, ub, dad, anchors], axis=1)
-    Qncm = Qfeatures[:, 3] < 1
+        is_anchor[torch.as_tensor(np.asarray(ann.A, dtype=np.int64), device=dev)] = 1.0
+    anchors = is_anchor[IJ[:, 0]]
+    Qfeatures = torch.stack([lb.to(torch.float64), ub.to(torch.float64),
+                             dad.to(torch.float64), anchors], dim=1)
+    Qncm = anchors < 1
     return IJs, P_idx, P_cnt, Qfeatures, Qncm
+
+
+def _tensor_predict(strategy):
+    """The strategy's ``predict_tensor``, where the class that gives it
+    its ``predict`` gives that too: a subclass that overrides ``predict``
+    alone keeps its host call.  None otherwise."""
+    for klass in type(strategy).__mro__:
+        if "predict" in vars(klass):
+            return strategy.predict_tensor if "predict_tensor" in vars(klass) else None
+    return None
+
+
+def predict_query_pairs(ann, Qfeatures):
+    """The fitted regression of the candidate features, clipped to their
+    bounds in metric spaces, and the error model's bin tags.  Where both
+    strategies offer a tensor predict, float64 and int64 tensors on the
+    features' device, bit for bit the numpy path; else their numpy
+    ``predict`` on the features brought down.  Returns (Qpred, Qerrors,
+    on_card)."""
+    reg = _tensor_predict(ann.regression)
+    err = _tensor_predict(ann.error_predictor)
+    on_card = reg is not None and err is not None
+    if on_card:
+        F, clip = Qfeatures, torch.clamp
+    else:
+        F, clip = Qfeatures.cpu().numpy(), np.clip
+        reg, err = ann.regression.predict, ann.error_predictor.predict
+    names = ann.feature_names
+    Qpred = reg(F, names)
+    if ann.is_metric:
+        Qpred = clip(Qpred, F[:, names.index("lower bound")], F[:, names.index("upper bound")])
+    return Qpred, err(F, names), on_card
+
+
+def _on(a, dev, dtype=None):
+    """A numpy array or a tensor as a tensor on ``dev`` (of ``dtype``,
+    where one is given)."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.asarray(a))
+    return a.to(device=dev, dtype=dtype)
 
 
 class _Host:
@@ -154,8 +200,10 @@ def select_refine_candidate_query_pairs(
     ``rounds`` (expansion rounds that asked the metric) and ``syncs``
     (the walk's downloads).
 
-    Returns (IJ_all, RA_all, ncm_all) as numpy: the candidate pairs plus
-    the graph-walk pairs outside the locality candidate set."""
+    QRA, Qncm and Qerrors may be numpy arrays or tensors on
+    ``ann.device`` (the query path's tensor predict); IJs and P_idx are
+    numpy.  Returns (IJ_all, RA_all, ncm_all) as numpy: the candidate
+    pairs plus the graph-walk pairs outside the locality candidate set."""
     nq = len(Q)
     nx = ann.nx
     dev = ann.device
@@ -178,9 +226,9 @@ def select_refine_candidate_query_pairs(
 
     IJ = torch.as_tensor(np.asarray(IJs, dtype=np.int64).reshape(-1, 2), device=dev)
     P = torch.as_tensor(np.asarray(P_idx), device=dev).to(torch.int64)
-    RA0 = torch.as_tensor(np.asarray(QRA, dtype=np.float64), device=dev)
-    ncm = torch.tensor(np.asarray(Qncm, dtype=bool), device=dev)
-    Qerr = torch.as_tensor(np.asarray(Qerrors), device=dev)
+    RA0 = _on(QRA, dev, torch.float64)
+    ncm = _on(Qncm, dev, torch.bool).clone()  # the walk marks it
+    Qerr = _on(Qerrors, dev)
 
     keys_c = IJ[:, 1] * nx + IJ[:, 0]
     keys_sorted, korder = torch.sort(keys_c, stable=True)
@@ -538,13 +586,9 @@ def query_(ann, Q, nn=15, p_work=0.3, get_exact_query_ijs=None,
             with trace.span("query.features"):
                 IJs, P_idx, P_cnt, Qfeatures, Qncm = get_query_features(ann, Q, QD, check)
 
-            with trace.span("query.predict"):
-                Qpred = ann.regression.predict(Qfeatures, ann.feature_names)
-                if ann.is_metric:
-                    ilb = ann.feature_names.index("lower bound")
-                    iub = ann.feature_names.index("upper bound")
-                    Qpred = np.clip(Qpred, Qfeatures[:, ilb], Qfeatures[:, iub])
-                Qerrors = ann.error_predictor.predict(Qfeatures, ann.feature_names)
+            with trace.device_span("query.predict", (ann.device,)) as predict:
+                Qpred, Qerrors, on_card = predict_query_pairs(ann, Qfeatures)
+                predict.count(on_card=int(on_card))
 
             with trace.span("query.walk") as walk:
                 IJ_all, RA_all, ncm_all = select_refine_candidate_query_pairs(

@@ -8,12 +8,14 @@ a single vectorised gather —
 
     y = sum_b 1[bin==b] * (X @ coef_b + intercept_b)
 
-which jits/shards trivially for large pair counts.
+which jits/shards trivially for large pair counts.  ``predict_tensor``
+is the same prediction on float64 tensors, on their device, bit for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["SimpleStratifiedLinearRegression"]
 
@@ -88,3 +90,22 @@ class SimpleStratifiedLinearRegression:
             labels
         ]
         return y
+
+    def predict_tensor(self, features, feature_names):
+        """``predict`` on a float64 tensor of feature rows, on its device:
+        the same bits.  ``features[:, i_feats]`` is a column-major copy,
+        for which numpy's ``einsum("ij,ij->i")`` adds each row's products
+        one by one into a zeroed output, left to right, with no fused
+        multiply-add; so does this, then adds the intercept last."""
+        i_part, i_feats = self._feature_indices(feature_names)
+        dev = features.device
+        edges, coefs, icepts = (
+            torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+            for a in (self.sample_bins[1:-1], self.coefs, self.intercepts)
+        )
+        labels = torch.searchsorted(edges, features[:, i_part].contiguous())
+        c = coefs[labels]
+        dot = torch.zeros(features.shape[0], dtype=torch.float64, device=dev)
+        for k, i in enumerate(i_feats):
+            dot = dot + features[:, i] * c[:, k]
+        return dot + icepts[labels]

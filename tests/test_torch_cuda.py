@@ -822,6 +822,7 @@ def test_query_walk_on_card_equals_cpu(cuda, case):
     QD = query.get_query_anchor_dists(ann, Q, geq)
     check = query_candidates(ann._S_raw, QD, ann.locality, ann.loc_thresh, device="cpu")
     IJs, P_idx, P_cnt, F, Qncm = query.get_query_features(ann, Q, QD, check)
+    F, Qncm = F.cpu().numpy(), Qncm.cpu().numpy()
     QRA = ann.regression.predict(F, ann.feature_names)
     if case == "integer":
         QRA = np.round(QRA)
@@ -851,6 +852,50 @@ def test_query_walk_on_card_equals_cpu(cuda, case):
     for got, want in zip(calls[1], calls[0]):
         np.testing.assert_array_equal(got, want)
     assert counts.syncs <= 2 * len(calls[1]) + 2
+
+
+@pytest.mark.parametrize("which", ["strings", "wasserstein"])
+def test_query_predict_on_card_equals_host_numpy(cuda, which):
+    """The query path's tensor predict on the card against the strategies'
+    numpy predict (and ``np.clip`` in metric spaces) of the same candidate features brought
+    down: bit-equal estimates and equal error tags; the card's features
+    equal the CPU's."""
+    import copy
+
+    from annchor_tpu_torch import query
+    from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix
+    from annchor_tpu_torch.ops.locality import query_candidates
+
+    if which == "strings":
+        X, _ = make_strings(n=400, length=60, seed=7)
+        X, Q = list(X[:300]), list(X[300:])
+        ann = Annchor(X, "levenshtein", n_anchors=12, n_neighbors=10, n_samples=800,
+                      p_work=0.3, device=cuda)
+    else:
+        X, _ = digit_images()
+        X, Q = X[:400], X[400:500]
+        ann = Annchor(X, "wasserstein", func_kwargs={"cost_matrix": grid_cost_matrix(),
+                                                     "scout": "sinkhorn"},
+                      n_anchors=12, n_neighbors=10, n_samples=1000, p_work=0.2, device=cuda)
+    ann.fit()
+    geq = ann._get_exact_query_ijs_for(ann.f)
+    QD = query.get_query_anchor_dists(ann, Q, geq)
+    check = query_candidates(ann._S_raw, QD, ann.locality, ann.loc_thresh, device=cuda)
+    F = query.get_query_features(ann, Q, QD, check)[3]
+    assert F.is_cuda and F.dtype == torch.float64
+    on_cpu = copy.copy(ann)
+    on_cpu.device = torch.device("cpu")
+    F_cpu = query.get_query_features(on_cpu, Q, QD, check)[3]
+    assert F.cpu().numpy().tobytes() == F_cpu.numpy().tobytes()
+    pred, err, on_card = query.predict_query_pairs(ann, F)
+    assert on_card and pred.is_cuda and err.is_cuda
+    Fh = F.cpu().numpy()
+    names = ann.feature_names
+    want = ann.regression.predict(Fh, names)
+    if ann.is_metric:
+        want = np.clip(want, Fh[:, 0], Fh[:, 1])
+    assert pred.cpu().numpy().tobytes() == want.tobytes()
+    np.testing.assert_array_equal(err.cpu().numpy(), ann.error_predictor.predict(Fh, names))
 
 
 def _certify_index(device, cap=None):

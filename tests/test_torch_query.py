@@ -105,7 +105,9 @@ def test_query_features_match_jax(indexes):
     check = tloc.query_candidates(port.S, QD, port.locality, port.loc_thresh,
                                   device="cpu")
     want = jquery.get_query_features(ref, Q, QD_ref, check_ref)
-    got = tquery.get_query_features(port, Q, QD, check)
+    # the features and flags stay on the index's device as tensors
+    got = [g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+           for g in tquery.get_query_features(port, Q, QD, check)]
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
@@ -158,6 +160,7 @@ def _walk_inputs(port, Q, case):
         keep = (q_ids > 1) | (np.arange(q_ids.shape[0]) - np.searchsorted(q_ids, q_ids) < 3)
         db_ids, q_ids = db_ids[keep], q_ids[keep]
     IJs, P_idx, P_cnt, F, Qncm = tquery.get_query_features(port, Q, QD, (db_ids, q_ids))
+    F, Qncm = F.cpu().numpy(), Qncm.cpu().numpy()
     QRA = port.regression.predict(F, port.feature_names)
     if case == "integer":
         QRA = np.round(QRA)

@@ -1,13 +1,15 @@
 """The port's span recorder (``annchor_tpu_torch.trace``) on the CPU: off
 without a profiler, nesting, request ids, self time and the profiler's
 clock under one; the spans of a strings fit, a digits hybrid fit and
-their queries; the scale path's build and tighten spans, and the
-refinement's spans in a fit of the strings-100k configuration; the verbose
-stage table beside the stage spans; and the benchmark's per-layer
-metrics that read the spans."""
+their queries (``query.predict``'s ``on_card``, a host strategy's too);
+the scale path's build and tighten spans, and the refinement's spans in
+a fit of the strings-100k configuration; the verbose stage table beside
+the stage spans; and the benchmark's per-layer metrics that read the
+spans."""
 
 import collections
 import contextlib
+import copy
 import io
 import time
 
@@ -20,6 +22,7 @@ import annchor_tpu_torch as att
 from annchor_tpu_torch import trace
 from annchor_tpu_torch.ops import device_pipeline
 from annchor_tpu_torch.datasets import digit_images, grid_cost_matrix, make_strings
+from annchor_tpu_torch.regressors import SimpleStratifiedLinearRegression
 
 FIT_STAGES = ("get_anchors", "get_locality", "get_features", "get_sample",
               "fit_predict_regression", "fit_predict_errors",
@@ -431,6 +434,39 @@ def test_walk_counts_rounds_and_syncs(which, strings_run, digits_run):
         assert 1 <= walk.counts["syncs"] <= 2 * calls + 2
 
 
+class _HostRegression(SimpleStratifiedLinearRegression):
+    """A regression with a ``predict`` of its own: the query keeps the
+    host predict."""
+
+    def predict(self, features, feature_names):
+        return super().predict(features, feature_names)
+
+
+@pytest.mark.parametrize("which", ["strings", "digits", "host_strategy"])
+def test_query_predict_counts_on_card(which, strings_run, digits_run, monkeypatch):
+    """``query.predict`` is a device span that counts ``on_card``: 1 with
+    the default strategies' tensor predict, 0 when a strategy keeps its
+    host ``predict``."""
+    ann, recs = strings_run if which != "digits" else digits_run
+    if which == "host_strategy":
+        reg = copy.copy(ann.regression)
+        reg.__class__ = _HostRegression
+        monkeypatch.setattr(ann, "regression", reg)
+        X, Q = _strings()
+        trace.reset()
+        with _profiled():
+            ann.query(Q, nn=5, p_work=0.3)
+        recs = trace.spans()
+    predicts = [r for r in recs if r.name == "query.predict"]
+    assert len(predicts) == 1
+    assert predicts[0].counts == {"on_card": int(which != "host_strategy")}
+    # the walk's downloads stay within their bound on either path
+    walk = next(r for r in recs if r.name == "query.walk")
+    engine = "engine.sinkhorn" if which == "digits" else "engine.levenshtein"
+    calls = sum(r.name == engine for r in _children(recs, walk))
+    assert 1 <= walk.counts["syncs"] <= 2 * calls + 2
+
+
 def test_verbose_table_rows_follow_the_stage_spans():
     from knnbench.tracing import _STAGE_ROW
 
@@ -486,6 +522,7 @@ def _synthetic(kind):
             q = add("query", base, base + 500)
             a = add("query.anchors", base, base + 50, q)
             add("engine.encode", base + 1, base + 21, a)
+            add("query.predict", base + 60, base + 95, q, on_card=1)
             w = add("query.walk", base + 100, base + 400, q)
             add("engine.encode", base + 110, base + 150, w)
             add("engine.levenshtein", base + 200, base + 260, w)
@@ -507,6 +544,7 @@ def _synthetic(kind):
     ("refine_self_s.fit", 0.060 - 0.020 - 0.010 - 0.005),
     ("encode_s.query", 0.020 + 0.040),
     ("walk_self_s.query", 0.300 - 0.040 - 0.060),
+    ("predict_s.query", 0.035),
     ("emd_s.query", 0.060),
 ])
 def test_layer_metrics_read_the_spans(name, want, monkeypatch):
